@@ -41,8 +41,11 @@ setup(
                               "horovod_tpu", "version.py"))
     .read().split('"')[1],
     description="TPU-native distributed data-parallel training framework",
-    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*"]),
-    package_data={"horovod_tpu": ["cpp/*.cc", "cpp/Makefile"]},
+    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*",
+                                    "horovod_tpu_torch",
+                                    "horovod_tpu_torch.*"]),
+    package_data={"horovod_tpu": ["cpp/*.cc", "cpp/Makefile"],
+                  "horovod_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],
     extras_require={

@@ -41,6 +41,9 @@ def pytest_configure(config):
         "markers",
         "slow: excluded from the tier-1 run (-m 'not slow'); big worlds "
         "and soaks that need a multi-core box")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the port's kernels); skips without one")
 
 
 @pytest.fixture

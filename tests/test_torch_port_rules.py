@@ -1,0 +1,111 @@
+"""Rules the port keeps: it never reaches JAX or the JAX package, its entry
+points run on the card unless asked for the CPU, and a kernel never falls
+back to its plain version for a tensor that is not on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.ops import flash_attention as tfa
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+
+
+def _port_files():
+    files = sorted((REPO / "horovod_tpu_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    files = _port_files()
+    assert len(files) > 10 and all(f.exists() for f in files)
+    bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = ("import sys, horovod_tpu_torch, horovod_tpu_torch.models.convert,"
+            " horovod_tpu_torch.models.transformer;"
+            " bad = [m for m in sys.modules if m.split('.')[0] in %r];"
+            " assert not bad, bad" % (FORBIDDEN,))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=REPO, timeout=120)
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+
+
+def test_init_without_device_raises_without_a_card(no_card):
+    hvd.shutdown()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hvd.init()
+    assert not hvd.is_initialized()
+
+
+def test_cuda_tensor_does_not_fall_back(no_card, monkeypatch):
+    """A tensor that is not on the CPU takes the kernel route: on a machine
+    without the toolchain that route raises, it never computes the plain
+    version, and no launch is counted."""
+    q = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        tfa.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    # a bf16 tensor taken as a CUDA one reaches the kernel build, which
+    # needs nvcc: it raises instead of returning the plain result
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has nvcc")
+    monkeypatch.setattr(tfa, "_on_cpu", lambda *t: False)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setenv("PATH", "/nonexistent")
+    before = dict(tfa.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tfa.flash_attention(q, q, q)
+    assert tfa.LAUNCHES == before
+
+
+def _smoke(*args):
+    return subprocess.run([sys.executable, "chip_smoke.py", *args],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ,
+                                                PYTHONPATH=str(REPO)))
+
+
+def test_chip_smoke_fails_without_a_card(no_card):
+    out = _smoke()
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "no CUDA device" in out.stdout
+
+
+def test_chip_smoke_cpu_rehearsal_prints_no_result(no_card):
+    """The CPU rehearsal drives every phase with the plain versions at tiny
+    sizes (profile included) and never prints a result line."""
+    out = _smoke("--cpu-dry", "--profile")
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    assert "DRY RUN complete" in out.stdout
+    assert "slice: BERT-Large MLM" in out.stdout
+    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout

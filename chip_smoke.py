@@ -7,16 +7,30 @@
 Phases (any failure exits non-zero):
 
 1. Environment: the card's name and power limit, CUDA and nvcc versions;
-   build the kernels from ``horovod_tpu_torch/csrc`` (one nvcc per source,
-   started together) and print what ptxas reports (registers, spills).
-2. Kernels against their plain PyTorch versions, in bf16 on the card, with
-   the plain version run on float32 copies of the same bf16 inputs:
-   (a) B8 H16 S512 D64 (BERT-Large), (b) B16 H12 S1024 D64 causal (GPT-2),
-   (c) B1 H4 S2048 D128 causal, (d) ring offsets (all keys in the past;
-   rows with every key masked). Limits: o 2e-2 abs, lse 2e-3 abs,
+   build the kernels from ``horovod_tpu_torch/csrc`` (flash_attention.cu and
+   adamw.cu: one nvcc per source, started together) and print what ptxas
+   reports (registers, spills).
+2. Flash-attention kernels against their plain PyTorch versions, in bf16 on
+   the card, with the plain version run on float32 copies of the same bf16
+   inputs: (a) B8 H16 S512 D64 (BERT-Large), (b) B16 H12 S1024 D64 causal
+   (GPT-2), (c) B1 H4 S2048 D128 causal, (d) ring offsets (all keys in the
+   past; rows with every key masked). Limits: o 2e-2 abs, lse 2e-3 abs,
    dq/dk/dv 2e-2 relative to their norm. Then each kernel, its plain
    version and ``scaled_dot_product_attention`` (a yardstick the port never
    calls) are timed with CUDA events at (a) and (b), beside their bounds.
+2b. The AdamW kernels against their plain versions on the card, on copies
+   of the same inputs with the same float32 scalars, for 3 steps: the
+   multi-tensor kernel over BERT-Large's 388 parameter shapes and over a
+   mixed set (a bf16 parameter with f32 moments, 7 elements, 131 x 128);
+   the flat ZeRO kernel over BERT-Large's world-1 shard (536,870,912
+   elements, the bucket pad included) and over ragged lengths (1, 127,
+   16,385) with f32 and bf16 gradients and outputs. Limit: bit-equal (both
+   round after every float32 operation; adamw.cu is built with
+   -fmad=false). Then each is timed at BERT-Large's shapes beside its bound,
+   its plain version, ``torch.optim.AdamW(fused=True)`` (a yardstick the
+   port never calls) and the foreach AdamW of the phase-4 path.
+2c. At world 1, ``fused_adamw`` and ``sharded_adamw`` on the same
+   BERT-Large-shaped weights and gradients give bit-equal parameters.
 3. A tiny BERT on the card against the same weights on the CPU (plain
    path): loss and hidden states agree.
 4. The slice: ``hvd.init()`` (NCCL, world 1), BERT-Large at full width
@@ -26,8 +40,16 @@ Phases (any failure exits non-zero):
    and 10 timed steps. The loss must be finite and fall, every kernel must
    have launched 24 times per step and the hooks one allreduce per
    parameter per step.
+5. The optimizer paths, each on the same model, data and steps as phase 4:
+   (P1) ``allreduce_gradients`` then ``fused_adamw(1e-4).apply`` (the
+   multi-tensor kernel once a step, 388 allreduces a step); (P2) ZeRO-1
+   ``sharded_adamw(1e-4).apply`` (one reduce-scatter, one flat-kernel launch
+   and one allgather per dtype group a step, no allreduce). Losses finite
+   and falling, and within 1e-2 relative of phase 4's at every step.
 
-The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
+The last lines are a ``{"kernels": [...]}`` JSON line (each kernel's
+launches counted on the path that runs it: the flash kernels on phase 4,
+the multi-tensor AdamW on P1, the flat AdamW on P2), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. ``--cpu-dry`` runs the
 same code on the CPU at tiny sizes and prints neither JSON line.
 """
@@ -35,6 +57,7 @@ same code on the CPU at tiny sizes and prints neither JSON line.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import re
@@ -52,10 +75,14 @@ from horovod_tpu_torch.models.transformer import (BertLarge, Transformer,
                                                   sample_masked_positions)
 from horovod_tpu_torch.ops import collectives, kernel_build
 from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.ops import fused_adamw as fadam
+from horovod_tpu_torch.ops import fused_optimizer as fopt
+from horovod_tpu_torch.parallel.zero import LeafMeta, build_spec, dtype_name
 
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
-SOURCES = ["flash_attention"]
+PEAK_F32 = 67e12  # H100 SXM float32 outside the tensor cores
+SOURCES = ["flash_attention", "adamw"]
 KERNELS = {  # wrapper count name -> (source, the TPU kernels it replaces)
     "flash_fwd": ("horovod_tpu_torch/csrc/flash_attention.cu",
                   "horovod_tpu/ops/pallas/flash_attention.py:205 "
@@ -66,7 +93,15 @@ KERNELS = {  # wrapper count name -> (source, the TPU kernels it replaces)
     "flash_bwd_dkv": ("horovod_tpu_torch/csrc/flash_attention.cu",
                       "horovod_tpu/ops/pallas/flash_attention.py:591 "
                       "_bwd_dkv_single_kernel (+ :456 _bwd_dkv_kernel)"),
+    "adamw_multi": ("horovod_tpu_torch/csrc/adamw.cu",
+                    "horovod_tpu/ops/pallas/fused_adamw.py:64 _adamw_kernel"),
+    "flat_adamw": ("horovod_tpu_torch/csrc/adamw.cu",
+                   "horovod_tpu/ops/pallas/fused_optimizer.py:53 "
+                   "_flat_adamw_kernel"),
 }
+# AdamW as the bench runs it (bench.py:473-476, 1398-1408)
+ADAMW = dict(b1=0.9, b2=0.999, learning_rate=1e-4, weight_decay=1e-4)
+EPS = 1e-8
 TOL = {"o": 2e-2, "lse": 2e-3, "grad": 2e-2}
 
 FULL = dict(
@@ -79,7 +114,7 @@ FULL = dict(
     tiny=dict(vocab_size=512, d_model=128, num_layers=2, num_heads=2,
               d_ff=512, max_seq=128), tiny_batch=2,
     model=dict(vocab_size=30522, max_seq=512), batch=8, seq=512,
-    warmup=2, steps=10)
+    warmup=2, steps=10, opt_iters=20)
 DRY = dict(
     cases={"a": (1, 2, 64, 64, False, 0, 0), "b": (1, 2, 96, 64, True, 0, 0),
            "d_masked": (1, 2, 64, 64, True, 8, 40)},
@@ -87,7 +122,7 @@ DRY = dict(
     tiny=dict(vocab_size=64, d_model=128, num_layers=1, num_heads=2,
               d_ff=256, max_seq=32), tiny_batch=2,
     model=dict(vocab_size=1000, max_seq=64, num_layers=2), batch=2, seq=64,
-    warmup=1, steps=2)
+    warmup=1, steps=2, opt_iters=2)
 
 
 def check(ok: bool, what: str) -> None:
@@ -112,6 +147,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_name(line: str) -> str:
+    """The kernel of a ptxas line, template arguments demangled:
+    ..flash_fwd_kernelILi64ELi64EEv.. -> flash_fwd_kernel<64,64>,
+    ..flat_adamw_kernelI13__nv_bfloat16fEEv.. -> flat_adamw_kernel<bf16,f32>,
+    ..adamw_multi_kernelI13__nv_bfloat16S1_ffEEv.. -> <bf16,bf16,f32,f32>."""
+    m = re.search(r"((?:[a-z]+_)+kernel)I(.*?)Ev", line)
+    if not m:
+        return line.split("'")[1]
+    # a repeated bf16 is mangled as a back-reference, S<n>_
+    args = [t.group(1) or {"f": "f32"}.get(t.group(0), "bf16") for t in
+            re.finditer(r"Li(\d+)E|13__nv_bfloat16|S\d*_|f", m.group(2))]
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
 def environment(dry: bool) -> str:
     if dry:
         log("DRY RUN on the CPU: plain versions at tiny sizes; no device "
@@ -131,10 +180,7 @@ def environment(dry: bool) -> str:
         fn = None
         for line in kernel_build.build_log(name).splitlines():
             if "Compiling entry function" in line:
-                # e.g. ..flash_fwd_kernelILi64ELi64EE.. -> flash_fwd_kernel<64,64>
-                m = re.search(r"((?:[a-z]+_)+kernel)I((?:Li\d+E)+)E", line)
-                fn = (f"{m.group(1)}<{','.join(re.findall(r'\d+', m.group(2)))}>"
-                      if m else line.split("'")[1])
+                fn = kernel_name(line)
             elif fn and ("registers" in line or "spill" in line
                          or "smem" in line):
                 log(f"  ptxas {fn}: {line.split(':', 1)[-1].strip()}")
@@ -302,6 +348,232 @@ def time_case(name, case, device, iters) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: the AdamW kernels against their plain versions, then timed
+# ---------------------------------------------------------------------------
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+def model_shapes(cfg) -> list:
+    """The parameter shapes of the phase-4 model, in its order."""
+    model = BertLarge(**cfg["model"], device="meta")
+    return [tuple(p.shape) for p in model.parameters()]
+
+
+def world1_shard(shapes) -> int:
+    """Elements of the world-1 ZeRO shard of f32 leaves of these shapes:
+    the real count padded to its size bucket (parallel/zero.py)."""
+    spec = build_spec([LeafMeta(s, F32) for s in shapes], 1, 0,
+                      64 * 1024)
+    return spec.groups[0].shard_elems
+
+
+def adam_leaves(shapes, dtypes, device, seed) -> list:
+    """[p, m, v, g] per leaf: p and g normal, m small, v small and >= 0."""
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def draw(shape, scale=1.0, positive=False):
+        fn = torch.rand if positive else torch.randn
+        return scale * fn(shape, generator=gen, device=device)
+
+    return [[draw(shape).to(dp), draw(shape, 1e-2).to(dm),
+             draw(shape, 1e-4, True).to(dv), draw(shape).to(dg)]
+            for shape, (dp, dm, dv, dg) in zip(shapes, dtypes)]
+
+
+def mismatch(a, b) -> tuple:
+    """(largest absolute difference, count of elements whose bits differ)."""
+    return ((a.float() - b.float()).abs().max().item() if a.numel() else 0.0,
+            int((a != b).sum()))
+
+
+def check_adamw_multi(name, shapes, dtypes, device, steps=3) -> float:
+    """The multi-tensor kernel over these leaves against the plain version
+    on copies, ``steps`` steps; they must be bit-equal."""
+    leaves = adam_leaves(shapes, dtypes, device, seed=len(name))
+    ref = [[t.clone() for t in leaf] for leaf in leaves]
+    worst, differ = 0.0, 0
+    for t in range(1, steps + 1):
+        sc = fadam.adamw_scalars(t, **ADAMW)
+        fadam.adamw_multi(*map(list, zip(*leaves)), sc, eps=EPS)
+        for leaf in ref:
+            leaf[:3] = fadam.adamw_leaf_reference(*leaf, sc, EPS)
+        for got, want in zip(leaves, ref):
+            for a, b in zip(got[:3], want[:3]):
+                err, n = mismatch(a, b)
+                worst, differ = max(worst, err), differ + n
+    n_el = sum(leaf[0].numel() for leaf in leaves)
+    combos = sorted({"/".join(dtype_name(d) for d in dt) for dt in dtypes})
+    log(f"adamw_multi {name}: {len(leaves)} leaves, {n_el:,} elements, "
+        f"dtypes (p/m/v/g) {combos}, {steps} steps: max|kernel-plain| "
+        f"{worst:.3e}, {differ} elements differ")
+    check(differ == 0, f"adamw_multi {name}: not bit-equal to the plain "
+                       f"version ({differ} elements differ)")
+    return worst
+
+
+def flat_inputs(n, n_real, grad_dtype, device, seed) -> list:
+    """master, mu, nu (f32) and grad: random over the first ``n_real``
+    elements, zeros over the bucket pad, as ZeRO lays a shard out."""
+    out = [torch.zeros(n, device=device) for _ in range(4)]
+    master, mu, nu, grad = out
+    leaf = adam_leaves([(n_real,)], [(F32, F32, F32, F32)], device, seed)[0]
+    for dst, src in zip((master, mu, nu, grad), leaf):
+        dst[:n_real] = src
+    return [master, mu, nu, grad.to(grad_dtype)]
+
+
+def check_flat_adamw(name, n, n_real, grad_dtype, out_dtype, device,
+                     steps=3) -> float:
+    """The flat kernel over one shard against the plain version on copies,
+    ``steps`` steps; bit-equal."""
+    master, mu, nu, grad = flat_inputs(n, n_real, grad_dtype, device,
+                                       seed=len(name) + n % 97)
+    ref = [t.clone() for t in (master, mu, nu)]
+    worst, differ = 0.0, 0
+    for t in range(1, steps + 1):
+        sc = fadam.adamw_scalars(t, **ADAMW)
+        p, *_ = fopt.flat_adamw_shard(master, mu, nu, grad, sc, eps=EPS,
+                                      out_dtype=out_dtype)
+        want = fopt.flat_adamw_reference(*ref, grad, sc, EPS, out_dtype)
+        ref = list(want[1:])
+        for a, b in zip((p, master, mu, nu), want):
+            err, n_diff = mismatch(a, b)
+            worst, differ = max(worst, err), differ + n_diff
+        del want
+    log(f"flat_adamw {name}: {n:,} elements ({n_real:,} real), grad "
+        f"{dtype_name(grad_dtype)}, out {dtype_name(out_dtype)}, {steps} "
+        f"steps: max|kernel-plain| {worst:.3e}, {differ} elements differ")
+    check(differ == 0, f"flat_adamw {name}: not bit-equal to the plain "
+                       f"version ({differ} elements differ)")
+    return worst
+
+
+def free_memory(device) -> None:
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def check_optimizer_kernels(cfg, device) -> dict:
+    """Phase 2b's correctness half: every case bit-equal."""
+    shapes = model_shapes(cfg)
+    n_shard = world1_shard(shapes)
+    n_real = sum(math.prod(s) for s in shapes)
+    errs = {"adamw_multi": max(
+        check_adamw_multi("model", shapes, [(F32,) * 4] * len(shapes),
+                          device),
+        check_adamw_multi("mixed", [(1000,), (7,), (131, 128), (2, 9)],
+                          [(BF16, F32, F32, F32), (F32,) * 4, (F32,) * 4,
+                           (BF16, BF16, BF16, BF16)], device))}
+    free_memory(device)
+    errs["flat_adamw"] = check_flat_adamw("world-1 shard", n_shard, n_real,
+                                          F32, F32, device)
+    free_memory(device)
+    for n in (1, 127, 16385):
+        for gd, od in ((F32, F32), (BF16, BF16)):
+            errs["flat_adamw"] = max(errs["flat_adamw"], check_flat_adamw(
+                "ragged", n, n, gd, od, device))
+    return errs
+
+
+def adamw_bound(n_elems: int, nbytes: int) -> dict:
+    """Least time of an AdamW pass: the larger of its bytes over 3.35 TB/s
+    and its 16 float32 operations per element over 67 TFLOP/s."""
+    t_ops, t_bytes = 16 * n_elems / PEAK_F32, nbytes / PEAK_BYTES
+    return dict(flops=16 * n_elems, bytes=nbytes,
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops > t_bytes else "bytes")
+
+
+def time_optimizers(cfg, device, iters) -> dict:
+    """Each AdamW kernel at BERT-Large's shapes beside its bound, its plain
+    version and ``torch.optim.AdamW(fused=True)`` over the same tensors (a
+    yardstick the port never calls)."""
+    shapes = model_shapes(cfg)
+    hyper = dict(lr=ADAMW["learning_rate"], betas=(ADAMW["b1"], ADAMW["b2"]),
+                 eps=EPS, weight_decay=ADAMW["weight_decay"])
+    sc = fadam.adamw_scalars(1, **ADAMW)
+    rows = {}
+
+    leaves = adam_leaves(shapes, [(F32,) * 4] * len(shapes), device, seed=7)
+    ps, ms, vs, gs = map(list, zip(*leaves))
+    for p, g in zip(ps, gs):
+        p.grad = g
+    n = sum(p.numel() for p in ps)
+    fused = torch.optim.AdamW(ps, fused=True, **hyper)
+    foreach = torch.optim.AdamW(ps, foreach=True, **hyper)
+    rows["adamw_multi"] = dict(
+        ms=time_ms(lambda: fadam.adamw_multi(ps, ms, vs, gs, sc, eps=EPS),
+                   iters, device),
+        plain_ms=time_ms(lambda: [fadam.adamw_leaf_reference(*leaf, sc, EPS)
+                                  for leaf in leaves], iters, device),
+        library_ms=time_ms(fused.step, iters, device),
+        foreach_ms=time_ms(foreach.step, iters, device),
+        elems=n, tensors=len(ps), **adamw_bound(n, 28 * n))
+    del leaves, ps, ms, vs, gs, fused, foreach
+    free_memory(device)
+
+    n_real = sum(math.prod(s) for s in shapes)
+    n = world1_shard(shapes)
+    master, mu, nu, grad = flat_inputs(n, n_real, F32, device, seed=8)
+    master.grad = grad
+    fused = torch.optim.AdamW([master], fused=True, **hyper)
+    rows["flat_adamw"] = dict(
+        ms=time_ms(lambda: fopt.flat_adamw_shard(master, mu, nu, grad, sc,
+                                                 eps=EPS, out_dtype=F32),
+                   iters, device),
+        plain_ms=time_ms(lambda: fopt.flat_adamw_reference(
+            master, mu, nu, grad, sc, EPS, F32), iters, device),
+        library_ms=time_ms(fused.step, iters, device),
+        elems=n, tensors=1, **adamw_bound(n, 32 * n))
+    del master, mu, nu, grad, fused
+    free_memory(device)
+    log(f"timing the AdamW kernels at BERT-Large's shapes ({iters} calls "
+        f"each):")
+    for kname, r in rows.items():
+        log(f"  {kname:12s} kernel {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  torch fused AdamW "
+            f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['elems']:,} elements in {r['tensors']} "
+            f"tensors, {r['bytes'] / 1e9:.3f} GB)  share of bound "
+            f"{r['bound_ms'] / r['ms']:.3f}")
+    log(f"  context: the phase-4 path's foreach AdamW step over the same "
+        f"388 tensors {rows['adamw_multi']['foreach_ms']:.4f} ms")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 2c: fused_adamw and sharded_adamw agree bit for bit at world 1
+# ---------------------------------------------------------------------------
+
+
+def fused_vs_zero(cfg, device, steps=2) -> None:
+    hvd.init(device=None if device.type == "cuda" else "cpu")
+    dev = hvd.device()
+    gen = torch.Generator(dev).manual_seed(9)
+    shapes = model_shapes(cfg)
+    a = {f"w{i}": torch.randn(s, generator=gen, device=dev)
+         for i, s in enumerate(shapes)}
+    b = {k: t.clone() for k, t in a.items()}
+    grads = {k: torch.randn(t.shape, generator=gen, device=dev)
+             for k, t in a.items()}
+    fused = fadam.fused_adamw(1e-4)
+    zero = hvd.sharded_adamw(1e-4)
+    fs, zs = fused.init(a), zero.init(b)
+    for step in range(steps):
+        _, fs = fused.apply(a, fs, grads)
+        _, zs = zero.apply(b, zs, grads)
+        differ = sum(int((a[k] != b[k]).sum()) for k in a)
+        log(f"fused_adamw vs sharded_adamw, world 1, step {step + 1}: "
+            f"{len(a)} leaves, {differ} parameter elements differ")
+        check(differ == 0, "fused_adamw and sharded_adamw disagree")
+    del a, b, grads, fs, zs
+    hvd.shutdown()
+    free_memory(device)
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: a tiny model on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -337,42 +609,102 @@ def tiny_model_check(cfg, device) -> None:
 # ---------------------------------------------------------------------------
 
 
-def train(cfg, device, card, profile=False) -> dict:
+PATHS = {  # phase 4 and the optimizer paths of phase 5
+    "hooks": "DistributedOptimizer(torch.optim.AdamW), per-parameter hooks",
+    "fused": "P1: allreduce_gradients + fused_adamw (multi-tensor kernel)",
+    "zero": "P2: ZeRO-1 sharded_adamw (reduce-scatter, flat kernel, "
+            "allgather)",
+}
+
+
+def mlm_data(cfg):
+    """The bench's MLM batch (bench.py:453-460)."""
     batch, seq = cfg["batch"], cfg["seq"]
-    vocab = cfg["model"]["vocab_size"]
     n_pred = max(1, round(0.15 * seq))  # 76 at seq 512 (BERT's layout)
-    # the bench's data (bench.py:453-460)
     rng = np.random.RandomState(0)
-    tokens = rng.randint(0, vocab, (batch, seq)).astype(np.int32)
+    tokens = rng.randint(0, cfg["model"]["vocab_size"],
+                         (batch, seq)).astype(np.int32)
     rng.rand(batch, seq)  # the bench's unused full-logits mask draw
     positions = sample_masked_positions(np.random.default_rng(0), batch, seq,
                                         n_pred)
     labels = np.take_along_axis(tokens, positions, axis=1)
+    return tokens, positions, labels, n_pred
 
-    fa.reset_launch_counts()
-    collectives.reset_counts()
+
+def make_step(path, model, params, dev):
+    """The training step of one path and what it keeps as optimizer state
+    (a callable giving the state's bytes on the card)."""
+    names = list(params)
+    if path == "hooks":
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                              eps=1e-8, weight_decay=1e-4),
+            named_parameters=model.named_parameters())
+
+        def update():
+            opt.step()
+
+        def state_bytes():
+            return sum(t.numel() * t.element_size()
+                       for st in opt.state.values() for t in st.values()
+                       if isinstance(t, torch.Tensor) and t.device == dev)
+
+        return opt.zero_grad, update, state_bytes
+    if path == "fused":
+        tx = fadam.fused_adamw(1e-4)
+    else:
+        tx = hvd.sharded_adamw(1e-4)
+    box = [tx.init(params)]
+
+    def update():
+        grads = {k: params[k].grad for k in names}
+        if path == "fused":  # as bench.py:543-546 does it
+            grads = hvd.allreduce_gradients(grads, average=True)
+        _, box[0] = tx.apply(params, box[0], grads)
+
+    def state_bytes():
+        st = box[0]
+        moments = (list(st.mu.values()) + list(st.nu.values())
+                   if path == "fused" else [*st.master, *st.mu, *st.nu])
+        return sum(t.numel() * t.element_size() for t in moments)
+
+    return (lambda: model.zero_grad(set_to_none=True)), update, state_bytes
+
+
+def train(cfg, device, card, path="hooks", profile=False) -> dict:
+    """Drive one path of the slice: 2 warm-up and 10 timed steps of
+    BERT-Large MLM from seed-0 weights. Returns the losses and the kernel
+    launches of the run (every count is set to 0 just before it)."""
+    batch, seq = cfg["batch"], cfg["seq"]
+    vocab = cfg["model"]["vocab_size"]
+    tokens, positions, labels, n_pred = mlm_data(cfg)
+
+    for counts in (fa.LAUNCHES, fadam.LAUNCHES, fopt.LAUNCHES,
+                   collectives.COUNTS):
+        counts.update(dict.fromkeys(counts, 0))
     hvd.init(device=None if device.type == "cuda" else "cpu")
     dev = hvd.device()
     model = BertLarge(**cfg["model"], device=dev, seed=0)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
-    opt = hvd.DistributedOptimizer(
-        torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
-                          eps=1e-8, weight_decay=1e-4),
-        named_parameters=model.named_parameters())
+    params = dict(model.named_parameters())
+    zero_grad, update, state_bytes = make_step(path, model, params, dev)
     toks, pos, lab = (torch.from_numpy(a).to(dev)
                       for a in (tokens, positions, labels))
-    n_tensors = len(list(model.parameters()))
-    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(params)
+    n_params = sum(p.numel() for p in params.values())
     n_layers = len(model.layers)
+    n_groups = len({p.dtype for p in params.values()})
+    n_broadcast = len(model.state_dict())
+    d_model = model.token_embed.shape[1]
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
 
     def step():
-        opt.zero_grad()
+        zero_grad()
         hidden = model(toks, output="hidden")
         loss = masked_lm_loss_gathered(hidden, model.token_embed, pos, lab)
         loss.backward()
-        opt.step()
+        update()
         return loss.detach()
 
     losses, times = [], []
@@ -383,30 +715,39 @@ def train(cfg, device, card, profile=False) -> dict:
         losses.append(loss.item())  # waits for the step's last kernel
         if i >= cfg["warmup"]:
             times.append(time.perf_counter() - t0)
-    launches = dict(fa.LAUNCHES)
+    launches = {**fa.LAUNCHES, **fadam.LAUNCHES, **fopt.LAUNCHES}
     counts = dict(collectives.COUNTS)
+    opt_bytes = state_bytes()
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
     if profile:
         breakdown(step, dev, statistics.median(times))
+    del model, params, update, state_bytes, zero_grad, step
     hvd.shutdown()
+    free_memory(device)
 
-    log(f"slice: BERT-Large MLM, {n_layers} layers, {n_params / 1e6:.1f}M "
-        f"params in {n_tensors} tensors, batch {batch} x seq {seq}, "
-        f"{cfg['warmup']} warm-up + {cfg['steps']} timed steps")
+    log(f"slice ({path}: {PATHS[path]}): BERT-Large MLM, {n_layers} layers, "
+        f"{n_params / 1e6:.1f}M params in {n_tensors} tensors, batch {batch} "
+        f"x seq {seq}, {cfg['warmup']} warm-up + {cfg['steps']} timed steps")
     log("  losses: " + " ".join(f"{x:.4f}" for x in losses))
     log(f"  kernel launches: {launches}; collectives: {counts}")
-    check(all(math.isfinite(x) for x in losses), "non-finite loss")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    check(counts == {"allreduce": n_tensors * steps,
-                     "broadcast": len(model.state_dict())},
-          f"collectives {counts}: want {n_tensors * steps} allreduces and "
-          f"{len(model.state_dict())} broadcasts")
+    check(all(math.isfinite(x) for x in losses), f"{path}: non-finite loss")
+    check(losses[-1] < losses[0], f"{path}: loss did not fall: {losses}")
+    per_step = {  # collectives and optimizer launches each path must issue
+        "hooks": (dict(allreduce=n_tensors), {}),
+        "fused": (dict(allreduce=n_tensors), {"adamw_multi": 1}),
+        "zero": (dict(reducescatter=n_groups, allgather=n_groups),
+                 {"flat_adamw": n_groups}),
+    }[path]
+    want = {k: steps * per_step[0].get(k, 0) for k in counts}
+    want["broadcast"] = n_broadcast
+    check(counts == want, f"{path}: collectives {counts}, want {want}")
     if dev.type == "cuda":
-        for name, n in launches.items():
-            check(n == n_layers * steps,
-                  f"{name} launched {n} times, want {n_layers} x {steps}")
+        want_launches = {k: steps * per_step[1].get(k, 0) for k in launches}
+        want_launches.update(dict.fromkeys(fa.LAUNCHES, n_layers * steps))
+        check(launches == want_launches,
+              f"{path}: kernel launches {launches}, want {want_launches}")
     step_s = statistics.median(times)
     # FLOPs/token as bench.py:497-503 counts them (gathered MLM head)
-    d_model = model.token_embed.shape[1]
     n_embed = vocab * d_model
     n_eff = n_params - n_embed + n_embed * n_pred // seq
     flops_per_token = 6 * n_eff + 12 * n_layers * seq * d_model
@@ -419,13 +760,45 @@ def train(cfg, device, card, profile=False) -> dict:
         log(f"  MFU {tok_s * flops_per_token / PEAK_FLOPS:.4f} against "
             f"989 TFLOP/s bf16, {flops_per_token / 1e9:.3f} GFLOP/token "
             f"{where}")
-        log(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-            f" GiB {where}")
-    return launches
+        log(f"  max_memory_allocated {peak / 2**30:.2f} GiB, optimizer "
+            f"state on the card {opt_bytes / 2**30:.2f} GiB {where}")
+    return dict(losses=losses, launches=launches, step_ms=1e3 * step_s)
+
+
+def compare_in_turns(cfg, device, card, runs: dict, turns: int) -> None:
+    """Phases 4-5 again, ``turns - 1`` more times, the order of the paths
+    reversed each turn; then each path's step median in every turn."""
+    steps = {path: [run["step_ms"]] for path, run in runs.items()}
+    order = list(PATHS)
+    for _ in range(turns - 1):
+        order.reverse()
+        for path in order:
+            steps[path].append(train(cfg, device, card, path)["step_ms"])
+    if device.type != "cuda":
+        log(f"{turns} turns of the three paths rehearsed (no device times)")
+        return
+    for path, ms in steps.items():
+        log(f"step median of {path} in {turns} turns: "
+            + " ".join(f"{x:.2f}" for x in ms)
+            + f" ms; median {statistics.median(ms):.2f} ms ({card})")
+
+
+def compare_losses(runs: dict) -> None:
+    """Every path's loss within 1e-2 relative of the phase-4 path's at
+    every step: same weights, data and AdamW; bf16 compute and the
+    embedding backward's atomics separate them."""
+    base = runs["hooks"]["losses"]
+    for path, run in runs.items():
+        worst = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], base))
+        log(f"losses of {path} vs hooks: largest relative difference "
+            f"{worst:.3e} (limit 1e-2)")
+        check(worst <= 1e-2, f"{path} losses differ from the hooks path's "
+                             f"by {worst:.3e}")
 
 
 GROUPS = (  # kernel-name fragments -> group, first match wins
     ("flash_", "attention kernels (port)"),
+    ("adamw_kernel", "optimizer (port's AdamW kernels)"),
     ("nccl", "NCCL collectives"),
     ("gemm", "dense matmuls (cuBLAS)"), ("nvjet", "dense matmuls (cuBLAS)"),
     ("xmma", "dense matmuls (cuBLAS)"), ("cutlass", "dense matmuls (cuBLAS)"),
@@ -488,6 +861,11 @@ def main() -> int:
                     help="after the timed steps, trace 3 more with "
                          "torch.profiler and print where the step's device "
                          "time goes")
+    ap.add_argument("--turns", type=int, default=1,
+                    help="run the three paths of phases 4-5 this many "
+                         "times, in turns (a b c, c b a, a b c, ...), and "
+                         "print each path's step medians: the host's "
+                         "drift is shared by the paths")
     args = ap.parse_args()
     dry = args.cpu_dry
     if not dry and not torch.cuda.is_available():
@@ -512,21 +890,31 @@ def main() -> int:
         f"{TOL['o']} abs, lse {TOL['lse']} abs, grads {TOL['grad']} relative)")
     timed = {name: time_case(name, cfg["cases"][name], device, cfg["iters"])
              for name in cfg["timed"]}
+    errs.update(check_optimizer_kernels(cfg, device))
+    log("AdamW kernels bit-equal to their plain versions in every case")
+    rows = {**timed["a"], **time_optimizers(cfg, device, cfg["opt_iters"])}
+    fused_vs_zero(cfg, device)
     tiny_model_check(cfg, device)
-    launches = train(cfg, device, card, args.profile)
+    runs = {path: train(cfg, device, card, path, args.profile)
+            for path in PATHS}
+    compare_losses(runs)
+    if args.turns > 1:
+        compare_in_turns(cfg, device, card, runs, args.turns)
     if dry:
         log("DRY RUN complete: control flow rehearsed; no result line")
         return 0
 
-    main_case = timed["a"]
+    # each kernel's launches are counted on the path that runs it
+    launches = {**runs["hooks"]["launches"],
+                "adamw_multi": runs["fused"]["launches"]["adamw_multi"],
+                "flat_adamw": runs["zero"]["launches"]["flat_adamw"]}
     kernels = [dict(name=name, route="cuda", source=KERNELS[name][0],
                     replaces=KERNELS[name][1], launches=launches[name],
-                    max_abs_err=errs[name],
-                    ms=main_case[name]["ms"],
-                    plain_ms=main_case[name]["plain_ms"],
-                    bound_ms=main_case[name]["bound_ms"],
-                    bound_by=main_case[name]["bound_by"],
-                    library_ms=main_case[name]["library_ms"])
+                    max_abs_err=errs[name], ms=rows[name]["ms"],
+                    plain_ms=rows[name]["plain_ms"],
+                    bound_ms=rows[name]["bound_ms"],
+                    bound_by=rows[name]["bound_by"],
+                    library_ms=rows[name]["library_ms"])
                for name in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -3,8 +3,10 @@
 ``import horovod_tpu_torch as hvd`` gives the data-parallel surface of the
 JAX package in PyTorch: ``hvd.init()``, ``hvd.DistributedOptimizer`` with
 per-parameter gradient hooks that start async allreduces, the broadcasts
-for the checkpoint-on-rank-0 convention, and ``flash_attention`` on
-hand-written Hopper kernels (``csrc/``). Collectives run on
+for the checkpoint-on-rank-0 convention, reduce-scatter and allgather,
+ZeRO-1 ``sharded_adamw``, and ``flash_attention`` on hand-written Hopper
+kernels (``csrc/``). The replicated fused AdamW is
+``horovod_tpu_torch.ops.fused_adamw.fused_adamw``. Collectives run on
 ``torch.distributed``: NCCL between GPUs, gloo on the CPU.
 
 Entry points run on the card unless the caller asks for the CPU
@@ -37,12 +39,16 @@ from horovod_tpu_torch.ops.collectives import (  # noqa: F401
     allreduce_,
     allreduce_async,
     allreduce_async_,
+    allgather,
+    allgather_async,
     broadcast,
     broadcast_,
     broadcast_async,
     broadcast_async_,
     grouped_allreduce,
     poll,
+    reducescatter,
+    reducescatter_async,
     synchronize,
 )
 from horovod_tpu_torch.ops.flash_attention import (  # noqa: F401
@@ -54,5 +60,10 @@ from horovod_tpu_torch.parallel.dp import (  # noqa: F401
     allreduce_gradients,
     broadcast_optimizer_state,
     broadcast_parameters,
+)
+from horovod_tpu_torch.parallel.zero import (  # noqa: F401
+    FlatAdamState,
+    ShardedAdamW,
+    sharded_adamw,
 )
 from horovod_tpu_torch.version import __version__  # noqa: F401

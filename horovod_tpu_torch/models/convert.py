@@ -1,5 +1,14 @@
-"""Carry weights (and gradients) between the JAX package's flax parameter
-tree and the port's ``Transformer`` state dict.
+"""Carry weights, gradients and optimizer state between the JAX package
+and the port, as numpy.
+
+Weights and gradients go between the JAX package's flax parameter tree and
+the port's ``Transformer`` state dict. AdamW state goes both ways too:
+optax's ``ScaleByAdamState`` (count, mu and nu trees shaped like the
+params) and the port's fused AdamW state (:func:`adam_state_from_optax`,
+:func:`adam_state_to_optax`), and the ZeRO-1 ``FlatAdamState`` of the
+JAX package's single controller, whose arrays are ``(world, shard)``
+stacked, and the port's per-rank shards (:func:`flat_state_from_jax`,
+:func:`flat_state_to_jax`).
 
 The tree is the one ``horovod_tpu.models.transformer.Transformer.init``
 returns, as numpy arrays (``{"params": {...}}`` or the inner dict). Layouts
@@ -12,10 +21,13 @@ flax path with a torch key and the two layout conversions.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from horovod_tpu_torch.ops.fused_adamw import ScaleByAdamState
+from horovod_tpu_torch.parallel.zero import FlatAdamState, ZeroSpec
 
 Path = Tuple[str, ...]
 # (flax path, torch key, flax->torch, torch->flax given the flax shape)
@@ -114,3 +126,70 @@ def grads_to_flax(tensors: Dict[str, torch.Tensor], like) -> dict:
         node[path[-1]] = to_flax(
             tensors[tkey].detach().float().cpu().numpy(), shape)
     return out
+
+
+def adam_state_from_optax(count, mu, nu) -> ScaleByAdamState:
+    """The port's fused AdamW state from optax's ``ScaleByAdamState``
+    fields as numpy (``mu``/``nu`` are flax trees shaped like the
+    params); the moments take the port's layouts, as the weights do."""
+    return ScaleByAdamState(count=int(np.asarray(count)),
+                            mu=params_from_flax(mu), nu=params_from_flax(nu))
+
+
+def adam_state_to_optax(state: ScaleByAdamState, like):
+    """``(count, mu, nu)`` of optax's ``ScaleByAdamState`` as numpy, the
+    trees shaped like the flax tree ``like``."""
+
+    def tree(moment):
+        inner = grads_to_flax(moment, like)
+        return {"params": inner} if "params" in like else inner
+
+    return np.asarray(state.count, np.int32), tree(state.mu), tree(state.nu)
+
+
+def _same_layout(spec: ZeroSpec, jspec) -> None:
+    if (spec.world != jspec.world or spec.num_leaves != jspec.num_leaves
+            or [tuple(g) for g in spec.groups]
+            != [tuple(g) for g in jspec.groups]):
+        raise ValueError(
+            "the port's ZeRO layout differs from the JAX state's: build the "
+            "port's state from the same leaves, in the same order")
+
+
+def flat_state_from_jax(jstate, rank: int, spec: ZeroSpec) -> FlatAdamState:
+    """Rank ``rank``'s :class:`FlatAdamState` from the JAX package's
+    single-controller one, whose ``master``/``mu``/``nu`` hold one
+    ``(world, shard)`` array per group: the rank takes row ``rank``.
+    ``spec`` is the port's layout (its state's ``spec``); it must equal the
+    JAX state's group by group."""
+    _same_layout(spec, jstate.spec)
+
+    def rows(arrays):
+        return tuple(torch.from_numpy(np.array(np.asarray(a)[rank],
+                                               np.float32))
+                     for a in arrays)
+
+    return FlatAdamState(spec=spec._replace(rank=rank),
+                         count=int(np.asarray(jstate.count)),
+                         master=rows(jstate.master), mu=rows(jstate.mu),
+                         nu=rows(jstate.nu))
+
+
+def flat_state_to_jax(states: Sequence[FlatAdamState]) -> dict:
+    """Every rank's :class:`FlatAdamState`, in rank order, as the JAX
+    package's single-controller arrays: ``{"count", "master", "mu",
+    "nu"}`` with one ``(world, shard)`` float32 array per group."""
+    spec = states[0].spec
+    if len(states) != spec.world or any(
+            s.spec._replace(rank=0) != spec._replace(rank=0)
+            or s.count != states[0].count for s in states):
+        raise ValueError("flat_state_to_jax needs one state per rank, all "
+                         "of one layout and step")
+
+    def stack(field):
+        return tuple(np.stack([getattr(s, field)[gi].detach().cpu().numpy()
+                               for s in states])
+                     for gi in range(len(spec.groups)))
+
+    return {"count": np.asarray(states[0].count, np.int32),
+            "master": stack("master"), "mu": stack("mu"), "nu": stack("nu")}

@@ -1,5 +1,7 @@
 """Collective operations on ``torch.distributed`` (port of the subset of
-``horovod_tpu/ops/collectives.py`` that the data-parallel optimizer uses).
+``horovod_tpu/ops/collectives.py`` that the data-parallel optimizer and
+ZeRO use: allreduce, broadcast, reduce-scatter and the equal-size
+allgather).
 
 Every rank holds its own tensor, as in the reference Horovod; the
 collectives run on the process group ``init()`` created (NCCL between
@@ -36,7 +38,7 @@ _TORCH_OPS = {Average: dist.ReduceOp.SUM, Sum: dist.ReduceOp.SUM,
               Product: dist.ReduceOp.PRODUCT}
 
 #: collectives issued since the last :func:`reset_counts`, per kind
-COUNTS = {"allreduce": 0, "broadcast": 0}
+COUNTS = {"allreduce": 0, "broadcast": 0, "reducescatter": 0, "allgather": 0}
 
 
 def reset_counts() -> None:
@@ -86,17 +88,22 @@ def allreduce_async_(tensor: torch.Tensor, average: Optional[bool] = None,
     COUNTS["allreduce"] += 1
 
     def finish():
-        out = compression.decompress(wire, ctx)
-        if red == Average:
-            if out.is_floating_point():
-                out.div_(world)
-            else:
-                out = torch.div(out, world, rounding_mode="floor")
+        out = _average(compression.decompress(wire, ctx), red, world)
         if out is not tensor:
             tensor.copy_(out)
         return tensor
 
     return Handle(work, finish)
+
+
+def _average(out: torch.Tensor, red: int, world: int) -> torch.Tensor:
+    """A SUM turned into the Average: ``div_`` by the world for floats (the
+    bits of a mean over the ranks), floor division for integers."""
+    if red != Average:
+        return out
+    if out.is_floating_point():
+        return out.div_(world)
+    return torch.div(out, world, rounding_mode="floor")
 
 
 def allreduce_async(tensor, average=None, name=None, op=None,
@@ -127,6 +134,76 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor], average=None,
     handles = [allreduce_async(t, average=average, op=op,
                                compression=compression) for t in tensors]
     return [synchronize(h) for h in handles]
+
+
+# torch 2.13 names the one-tensor forms reduce_scatter_single and
+# all_gather_single; older releases have only the *_tensor names
+_reduce_scatter_one = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+_all_gather_one = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+
+
+def reducescatter_async(tensor: torch.Tensor, op: Optional[int] = None,
+                        name: Optional[str] = None) -> Handle:
+    """Reduce ``tensor`` across the ranks; rank i keeps shard i of dim 0
+    (reference: horovod_tpu/torch/mpi_ops.py:287-317). ``op`` omitted
+    means Average. Dim 0 must divide evenly by the world size. The
+    collective is issued at every world size, one rank included."""
+    red = _resolve_op(None, op)
+    world = basics.size()
+    if tensor.ndim == 0 or tensor.shape[0] % world:
+        dim0 = tensor.shape[0] if tensor.ndim else "a scalar"
+        raise ValueError(f"reducescatter dim 0 ({dim0}) must divide evenly "
+                         f"by size ({world})")
+    inp = tensor.contiguous()
+    out = inp.new_empty((inp.shape[0] // world,) + tuple(inp.shape[1:]))
+    work = _reduce_scatter_one(out, inp, op=_TORCH_OPS[red], async_op=True)
+    COUNTS["reducescatter"] += 1
+    return Handle(work, lambda: _average(out, red, world))
+
+
+def reducescatter(tensor, op=None, name=None) -> torch.Tensor:
+    """Sync reduce-scatter (see :func:`reducescatter_async`)."""
+    return synchronize(reducescatter_async(tensor, op=op, name=name))
+
+
+def allgather_async(tensor: torch.Tensor,
+                    name: Optional[str] = None) -> Handle:
+    """Concatenate every rank's ``tensor`` along dim 0 (reference:
+    horovod_tpu/torch/mpi_ops.py:247-257). The ranks first exchange their
+    dim 0: a ragged dim 0 is not ported yet and raises ValueError on every
+    rank. The collective is issued at every world size."""
+    if tensor.ndim == 0:
+        raise ValueError("allgather needs a tensor with a dim 0")
+    world = basics.size()
+    if world > 1:
+        mine = torch.tensor([tensor.shape[0]], dtype=torch.int64,
+                            device=tensor.device)
+        dims = mine.new_empty(world)
+        _all_gather_one(dims, mine)
+        dims = dims.tolist()
+        if len(set(dims)) > 1:
+            raise ValueError(f"allgather with a ragged dim 0 ({dims}) is "
+                             "not ported yet: every rank must give the "
+                             "same shape")
+    return allgather_equal_async(tensor)
+
+
+def allgather_equal_async(tensor: torch.Tensor) -> Handle:
+    """:func:`allgather_async` for callers that know every rank gives the
+    same shape (ZeRO's equal shards): no dim 0 exchange."""
+    world = basics.size()
+    inp = tensor.contiguous()
+    out = inp.new_empty((world * inp.shape[0],) + tuple(inp.shape[1:]))
+    work = _all_gather_one(out, inp, async_op=True)
+    COUNTS["allgather"] += 1
+    return Handle(work, lambda: out)
+
+
+def allgather(tensor, name=None) -> torch.Tensor:
+    """Sync allgather (see :func:`allgather_async`)."""
+    return synchronize(allgather_async(tensor, name=name))
 
 
 def broadcast_async_(tensor: torch.Tensor, root_rank: int,

@@ -123,16 +123,7 @@ def compute_delta(o, do) -> torch.Tensor:
 
 
 def _on_cpu(*tensors) -> bool:
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"flash attention inputs on several devices: "
-                         f"{sorted(map(str, devices))}")
-    device = devices.pop()
-    if device.type == "cpu":
-        return True
-    if device.type != "cuda":
-        raise ValueError(f"flash attention has no kernel for {device}")
-    return False
+    return kernel_build.on_cpu("flash attention", tensors)
 
 
 def _check_kernel_inputs(q, k, v, *rest):
@@ -168,9 +159,7 @@ def _check_shapes(q, k, v):
 
 
 def _raise_on(err: int, what: str) -> None:
-    if err:
-        msg = _lib().hvd_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what} kernel failed: {msg} (cudaError {err})")
+    kernel_build.check_error(_lib(), err, what)
 
 
 def _scalars(q, k, causal, sm_scale, q_offset, k_offset):

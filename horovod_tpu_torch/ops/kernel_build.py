@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` holds kernels behind a plain C interface. It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/horovod_tpu_torch/`` at the root of the checkout, named by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
+the source and its flags (:data:`NVCC_FLAGS` plus the source's own
+:data:`EXTRA_FLAGS`), so an edited source is rebuilt and an unchanged
 one is built once. Nothing is built at import: the first call that needs a
 kernel builds it (or :func:`build` does, for every source at once).
 
@@ -11,6 +12,10 @@ There is no PyTorch header in the sources, so a build takes seconds; the
 binding is ``ctypes`` with declared argument types, pointers from
 ``Tensor.data_ptr()`` and the stream from
 ``torch.cuda.current_stream().cuda_stream``.
+
+It also holds what every kernel wrapper shares: :func:`on_cpu` picks the
+route (the plain version for CPU tensors, the kernel for CUDA tensors) and
+:func:`check_error` raises on a launch's CUDA error.
 """
 
 from __future__ import annotations
@@ -27,6 +32,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "horovod_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source on top of NVCC_FLAGS. adamw: no multiply-add
+# contraction, so the kernels round like their plain PyTorch versions
+EXTRA_FLAGS: Dict[str, tuple] = {"adamw": ("-fmad=false",)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -44,9 +52,13 @@ def nvcc() -> str:
         "from horovod_tpu_torch/csrc at first use")
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
@@ -63,7 +75,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         procs[name] = (tmp, subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for name, (tmp, proc) in procs.items():
@@ -83,6 +95,30 @@ def build_log(name: str) -> str:
     """What the compiler printed for the current library of ``name``."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def on_cpu(what: str, tensors) -> bool:
+    """Which route a wrapper takes: True when every tensor lies on the CPU
+    (the plain version), False when all lie on one CUDA device (the
+    kernel); anything else raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{what} inputs on several devices: "
+                         f"{sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"{what} has no kernel for {device}")
+    return False
+
+
+def check_error(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (``lib`` exports
+    ``hvd_cuda_error_string``)."""
+    if err:
+        msg = lib.hvd_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel failed: {msg} (cudaError {err})")
 
 
 def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:

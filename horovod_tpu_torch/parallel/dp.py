@@ -16,6 +16,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import warnings
+import weakref
 from typing import Optional
 
 import torch
@@ -67,16 +68,24 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 if p.requires_grad:
                     self._requires_update.append(p)
                     self._delay[p] = backward_passes_per_step
-                    p.register_post_accumulate_grad_hook(self._make_hook(p))
+                    p.register_post_accumulate_grad_hook(self._make_hook())
 
     def _allreduce_grad_async(self, p):
         return collectives.allreduce_async_(
             p.grad, op=self._op, name=self._parameter_names[p],
             compression=self._compression)
 
-    def _make_hook(self, p):
+    def _make_hook(self):
+        # The parameter keeps its hooks in C++, out of the garbage
+        # collector's sight: a hook that held the optimizer or the
+        # parameter would keep both (and the model's gradients and the
+        # optimizer state) alive after the caller drops them.
+        ref = weakref.ref(self)
+
         def hook(param):
-            self._mark_ready(p)
+            opt = ref()
+            if opt is not None:
+                opt._mark_ready(param)
 
         return hook
 

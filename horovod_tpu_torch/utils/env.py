@@ -1,5 +1,6 @@
-"""Environment knobs this slice reads (port of ``horovod_tpu/utils/env.py``:
-the parsing helpers and the launcher's identity contract)."""
+"""Environment knobs the port reads (port of ``horovod_tpu/utils/env.py``:
+the parsing helpers, the launcher's identity contract and the fusion
+bucket quantum)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,11 @@ HOROVOD_CROSS_SIZE = "HOROVOD_CROSS_SIZE"
 HOROVOD_COORDINATOR_ADDR = "HOROVOD_COORDINATOR_ADDR"
 HOROVOD_LOG_LEVEL = "HOROVOD_LOG_LEVEL"
 HOROVOD_LOG_HIDE_TIME = "HOROVOD_LOG_HIDE_TIME"
+
+# Size-bucket quantum of flat fused payloads, in bytes (reference:
+# horovod_tpu/utils/env.py:55,156); ZeRO pads each per-rank shard to it.
+HOROVOD_FUSION_BUCKET_QUANTUM = "HOROVOD_FUSION_BUCKET_QUANTUM"
+DEFAULT_FUSION_BUCKET_QUANTUM_BYTES = 64 * 1024
 
 
 def _get_int(name: str, default: int) -> int:

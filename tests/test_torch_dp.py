@@ -80,7 +80,27 @@ def test_world1_issues_collectives(world1):
     with pytest.raises(AssertionError, match="zero_grad"):
         opt.zero_grad()
     opt.step()
-    assert collectives.COUNTS == {"allreduce": 2, "broadcast": 0}
+    assert collectives.COUNTS == {"allreduce": 2, "broadcast": 0,
+                                  "reducescatter": 0, "allgather": 0}
+
+
+def test_dropped_optimizer_frees_its_model(world1):
+    """The per-parameter hooks live in C++, out of the garbage collector's
+    sight: they must not keep the optimizer, the parameters, their
+    gradients or the optimizer state alive once the caller drops them."""
+    import gc
+    import weakref
+
+    lin = torch.nn.Linear(4, 3)
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(lin.parameters()),
+                                   named_parameters=lin.named_parameters())
+    lin(torch.ones(2, 4)).sum().backward()
+    opt.step()
+    refs = [weakref.ref(x) for x in (opt, lin.weight, lin.weight.grad,
+                                     opt.state[lin.weight]["exp_avg"])]
+    del lin, opt
+    gc.collect()
+    assert [r() is None for r in refs] == [True] * 4
 
 
 def test_backward_passes_per_step_and_skip_synchronize(world1):

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+flash attention (csrc/flash_attention.cu) within stated tolerances, and the
+AdamW kernels (csrc/adamw.cu) bit for bit.
 
 Every test here is marked ``gpu`` and skips on a machine without a CUDA
 device. This file imports neither JAX nor the JAX package, so it runs on a
@@ -79,3 +81,112 @@ def test_autograd_runs_the_kernels(cuda):
     tfa.flash_attention(qf, kf, vf, causal=True).square().sum().backward()
     for a, b in ((q, qf), (k, kf), (v, vf)):
         assert _rel(a.grad.cpu(), b.grad) <= 3e-2
+
+
+def _adam_leaf(n, dtypes, gen, device):
+    draw = [torch.randn(n, generator=gen, device=device),
+            1e-2 * torch.randn(n, generator=gen, device=device),
+            1e-4 * torch.rand(n, generator=gen, device=device),
+            torch.randn(n, generator=gen, device=device)]
+    return [t.to(d) for t, d in zip(draw, dtypes)]
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtypes", [(F32, F32, F32, F32),
+                                    (BF16, F32, F32, BF16),
+                                    (BF16, BF16, BF16, BF16),
+                                    (F32, F32, F32, BF16)])
+def test_adamw_multi_bit_equal_to_plain_on_card(cuda, dtypes):
+    """The multi-tensor AdamW kernel over leaves with ragged tails (1, 7,
+    4,099 elements) and several chunks (131 x 128, 50,000) against its
+    plain version on copies, 3 steps: bit-equal (adamw.cu is built with
+    -fmad=false; both round after every float32 operation)."""
+    from horovod_tpu_torch.ops import fused_adamw as fadam
+
+    gen = torch.Generator(cuda).manual_seed(2)
+    leaves = [_adam_leaf(n, dtypes, gen, cuda)
+              for n in (1, 7, 4099, 131 * 128, 50000)]
+    ref = [[t.clone() for t in leaf] for leaf in leaves]
+    fadam.reset_launch_counts()
+    for step in range(1, 4):
+        sc = fadam.adamw_scalars(step, 0.9, 0.999, 1e-3, 1e-2)
+        fadam.adamw_multi(*map(list, zip(*leaves)), sc, eps=1e-8)
+        for leaf in ref:
+            leaf[:3] = fadam.adamw_leaf_reference(*leaf, sc, 1e-8)
+        torch.cuda.synchronize()
+        for got, want in zip(leaves, ref):
+            for a, b in zip(got[:3], want[:3]):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+    assert fadam.LAUNCHES["adamw_multi"] == 3  # one launch a step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 127, 16385, (1 << 20) + 3])
+@pytest.mark.parametrize("grad_dtype,out_dtype", [(F32, F32), (BF16, BF16),
+                                                  (F32, BF16)])
+def test_flat_adamw_bit_equal_to_plain_on_card(cuda, n, grad_dtype,
+                                               out_dtype):
+    """The flat ZeRO AdamW kernel against its plain version on copies, 3
+    steps, ragged lengths and bf16 gradients/outputs: bit-equal."""
+    from horovod_tpu_torch.ops import fused_adamw as fadam
+    from horovod_tpu_torch.ops import fused_optimizer as fopt
+
+    gen = torch.Generator(cuda).manual_seed(3)
+    master, mu, nu, grad = _adam_leaf(n, (F32, F32, F32, grad_dtype), gen,
+                                      cuda)
+    ref = [t.clone() for t in (master, mu, nu)]
+    for step in range(1, 4):
+        sc = fadam.adamw_scalars(step, 0.9, 0.999, 1e-3, 1e-2)
+        p, *_ = fopt.flat_adamw_shard(master, mu, nu, grad, sc, eps=1e-8,
+                                      out_dtype=out_dtype)
+        want = fopt.flat_adamw_reference(*ref, grad, sc, 1e-8, out_dtype)
+        ref = list(want[1:])
+        torch.cuda.synchronize()
+        for a, b in zip((p, master, mu, nu), want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_fused_and_zero1_agree_bit_for_bit_on_card(cuda):
+    """At world 1 (NCCL), ``fused_adamw`` and ``sharded_adamw`` on the same
+    weights and gradients give bit-equal float32 parameters (the bf16 leaf
+    keeps bf16 moments under the first and f32 master and moments under
+    the second, so it agrees to a bf16 unit); the first launches
+    the multi-tensor kernel once a step, the second the flat kernel once
+    per dtype group (two: f32 and bf16 leaves)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import fused_adamw as fadam
+    from horovod_tpu_torch.ops import fused_optimizer as fopt
+
+    gen = torch.Generator(cuda).manual_seed(4)
+    shapes = [(64, 33), (7,), (1000,), (3, 5, 9)]
+    a = {f"w{i}": torch.randn(s, generator=gen, device=cuda)
+         for i, s in enumerate(shapes)}
+    a["w1"] = a["w1"].to(BF16)
+    grads = {k: torch.randn(t.shape, generator=gen, device=cuda).to(t.dtype)
+             for k, t in a.items()}
+    b = {k: t.clone() for k, t in a.items()}
+    hvd.shutdown()
+    hvd.init()
+    try:
+        fused, zero = fadam.fused_adamw(1e-3), hvd.sharded_adamw(1e-3)
+        fs, zs = fused.init(a), zero.init(b)
+        fadam.reset_launch_counts()
+        fopt.reset_launch_counts()
+        for _ in range(2):
+            _, fs = fused.apply(a, fs, grads)
+            _, zs = zero.apply(b, zs, grads)
+        torch.cuda.synchronize()
+        for k in a:
+            if a[k].dtype == F32:
+                assert torch.equal(a[k], b[k]), k
+            else:  # bf16 moments (fused) against f32 masters (ZeRO)
+                err = (a[k].float() - b[k].float()).abs()
+                assert (err <= 2.0 ** -7 * b[k].float().abs() + 2e-3).all()
+        assert fadam.LAUNCHES["adamw_multi"] == 2 * 2  # two dtype combos
+        assert fopt.LAUNCHES["flat_adamw"] == 2 * 2  # two dtype groups
+    finally:
+        hvd.shutdown()

@@ -11,8 +11,13 @@ from pathlib import Path
 import pytest
 import torch
 
+import numpy as np
+
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.ops import flash_attention as tfa
+from horovod_tpu_torch.ops import fused_adamw as tadam
+from horovod_tpu_torch.ops import kernel_build
+from horovod_tpu_torch.ops import fused_optimizer as topt
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
@@ -88,6 +93,32 @@ def test_cuda_tensor_does_not_fall_back(no_card, monkeypatch):
     assert tfa.LAUNCHES == before
 
 
+def test_cuda_tensor_does_not_fall_back_adamw(no_card, monkeypatch):
+    """The AdamW wrappers, given tensors taken as CUDA ones, go to the
+    kernel build, which needs nvcc: they raise, leave the tensors as they
+    were and count no launch."""
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        tadam.adamw_multi(*[[torch.zeros(4, device="meta")]] * 4,
+                          np.zeros(6, np.float32), eps=1e-8)
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has nvcc")
+    monkeypatch.setattr(kernel_build, "on_cpu", lambda what, tensors: False)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setenv("PATH", "/nonexistent")
+    p, m, v, g = (torch.full((8,), 0.5) for _ in range(4))
+    before = (dict(tadam.LAUNCHES), dict(topt.LAUNCHES))
+    sc = tadam.adamw_scalars(1, 0.9, 0.999, 1e-3, 1e-4)
+    opt = tadam.fused_adamw(1e-3)
+    for call in (lambda: tadam.adamw_multi([p], [m], [v], [g], sc, eps=1e-8),
+                 lambda: opt.apply({"p": p}, opt.init({"p": p}), {"p": g}),
+                 lambda: topt.flat_adamw_shard(p, m, v, g, sc, eps=1e-8,
+                                               out_dtype=torch.float32)):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            call()
+    assert all(bool((t == 0.5).all()) for t in (p, m, v, g))
+    assert (dict(tadam.LAUNCHES), dict(topt.LAUNCHES)) == before
+
+
 def _smoke(*args):
     return subprocess.run([sys.executable, "chip_smoke.py", *args],
                           cwd=REPO, capture_output=True, text=True,
@@ -103,9 +134,15 @@ def test_chip_smoke_fails_without_a_card(no_card):
 
 def test_chip_smoke_cpu_rehearsal_prints_no_result(no_card):
     """The CPU rehearsal drives every phase with the plain versions at tiny
-    sizes (profile included) and never prints a result line."""
-    out = _smoke("--cpu-dry", "--profile")
+    sizes (profile and turns included) and never prints a result line."""
+    out = _smoke("--cpu-dry", "--profile", "--turns", "2")
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
     assert "DRY RUN complete" in out.stdout
-    assert "slice: BERT-Large MLM" in out.stdout
+    for phase in ("adamw_multi model:", "adamw_multi mixed:",
+                  "flat_adamw world-1 shard:", "flat_adamw ragged:",
+                  "timing the AdamW kernels", "fused_adamw vs sharded_adamw",
+                  "slice (hooks:", "slice (fused:", "slice (zero:",
+                  "losses of zero vs hooks", "2 turns of the three paths"):
+        assert phase in out.stdout, phase
+    assert "BERT-Large MLM" in out.stdout
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout

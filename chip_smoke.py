@@ -7,9 +7,9 @@
 Phases (any failure exits non-zero):
 
 1. Environment: the card's name and power limit, CUDA and nvcc versions;
-   build the kernels from ``horovod_tpu_torch/csrc`` (flash_attention.cu and
-   adamw.cu: one nvcc per source, started together) and print what ptxas
-   reports (registers, spills).
+   build the kernels from ``horovod_tpu_torch/csrc`` (flash_attention.cu,
+   adamw.cu, conv_bn_act.cu and conv_bn_stats.cu: one nvcc per source,
+   started together) and print what ptxas reports (registers, spills).
 2. Flash-attention kernels against their plain PyTorch versions, in bf16 on
    the card, with the plain version run on float32 copies of the same bf16
    inputs: (a) B8 H16 S512 D64 (BERT-Large), (b) B16 H12 S1024 D64 causal
@@ -46,17 +46,40 @@ Phases (any failure exits non-zero):
    ``sharded_adamw(1e-4).apply`` (one reduce-scatter, one flat-kernel launch
    and one allgather per dtype group a step, no allreduce). Losses finite
    and falling, and within 1e-2 relative of phase 4's at every step.
+6. The Inception-V3 slice (``bench.py --model inception``, eager, one
+   process): ``hvd.init()``, ``InceptionV3(1000, bf16, seed=0)`` on the card,
+   ``broadcast_parameters``, ``DistributedOptimizer(SGD(0.01, momentum
+   0.9))``, the bench's images (32 x 299 x 299 x 3) and labels, 2 warm-up
+   and 10 timed steps. Losses finite and falling, kernel B10 launched 94
+   times a step, 284 allreduces a step; images/s, MFU, step ms and peak
+   memory beside the card's name and power limit.
+
+Between them: 2d. kernel B10 (fused BN + ReLU) bit-equal to its plain
+version at every distinct BN input of Inception-V3 at batch 32 (bf16),
+three of them in f32, ragged C (3, 7, 1000) and 5 elements; then timed
+over one forward's 94 calls (device time from torch.profiler). 2e. kernel
+B11 (3x3 conv + BN statistics) through
+``horovod_tpu_torch.tools.conv_bn_probe`` at its four ResNet-50 shapes
+(batch 128; 14 x 14 x 256 is the tool's own), within the tool's limits of
+its plain version, timed beside cuDNN's conv alone and conv plus a stats
+pass. 3b. a small Inception-V3 (8 x 128 x 128, f32) on the card
+against the CPU (eval mode: logits and loss 1e-3, gradient 1e-2; train
+mode: twice what one ulp of input moves the CPU's own result), the ReLU
+mask elements that differ counted; each mixed block alone in train mode
+at 1e-3.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (each kernel's
 launches counted on the path that runs it: the flash kernels on phase 4,
-the multi-tensor AdamW on P1, the flat AdamW on P2), the card's name and
-power limit, and ``{"ok": true, "device": {...}}``. ``--cpu-dry`` runs the
+the multi-tensor AdamW on P1, the flat AdamW on P2, B10 on phase 6, B11 on
+the probe's phase 2e), the card's name and power limit, and ``{"ok": true,
+"device": {...}}``. ``--cpu-dry`` runs the
 same code on the CPU at tiny sizes and prints neither JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import gc
 import json
 import math
@@ -70,19 +93,25 @@ import numpy as np
 import torch
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.models import inception as inc
+from horovod_tpu_torch.models.inception import InceptionV3
 from horovod_tpu_torch.models.transformer import (BertLarge, Transformer,
                                                   masked_lm_loss_gathered,
                                                   sample_masked_positions)
 from horovod_tpu_torch.ops import collectives, kernel_build
+from horovod_tpu_torch.ops import conv_bn_act as cba
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import fused_adamw as fadam
 from horovod_tpu_torch.ops import fused_optimizer as fopt
 from horovod_tpu_torch.parallel.zero import LeafMeta, build_spec, dtype_name
+from horovod_tpu_torch.tools import conv_bn_probe as probe
+from horovod_tpu_torch.training import make_train_step
+from horovod_tpu_torch.utils.measure import card_line, kernel_ms, time_ms
 
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 PEAK_F32 = 67e12  # H100 SXM float32 outside the tensor cores
-SOURCES = ["flash_attention", "adamw"]
+SOURCES = ["flash_attention", "adamw", "conv_bn_act", "conv_bn_stats"]
 KERNELS = {  # wrapper count name -> (source, the TPU kernels it replaces)
     "flash_fwd": ("horovod_tpu_torch/csrc/flash_attention.cu",
                   "horovod_tpu/ops/pallas/flash_attention.py:205 "
@@ -98,11 +127,21 @@ KERNELS = {  # wrapper count name -> (source, the TPU kernels it replaces)
     "flat_adamw": ("horovod_tpu_torch/csrc/adamw.cu",
                    "horovod_tpu/ops/pallas/fused_optimizer.py:53 "
                    "_flat_adamw_kernel"),
+    "sba": ("horovod_tpu_torch/csrc/conv_bn_act.cu",
+            "horovod_tpu/ops/pallas/conv_bn_act.py:64 _sba_kernel"),
+    "conv_bn_stats": ("horovod_tpu_torch/csrc/conv_bn_stats.cu",
+                      "tools/pallas_conv_bn.py:54 _conv_kernel"),
 }
+# Inception-V3 as the bench runs it (bench.py:84-90, 258-340): batch 32 at
+# 299 x 299, 1000 classes, SGD(0.01 x size, momentum 0.9), 11.137 GFLOP per
+# image forward, a train step 3x that
+INCEPTION_FLOPS = 3 * 11.137e9
 # AdamW as the bench runs it (bench.py:473-476, 1398-1408)
 ADAMW = dict(b1=0.9, b2=0.999, learning_rate=1e-4, weight_decay=1e-4)
 EPS = 1e-8
 TOL = {"o": 2e-2, "lse": 2e-3, "grad": 2e-2}
+
+F32, BF16 = torch.float32, torch.bfloat16
 
 FULL = dict(
     cases={"a": (8, 16, 512, 64, False, 0, 0),
@@ -114,15 +153,23 @@ FULL = dict(
     tiny=dict(vocab_size=512, d_model=128, num_layers=2, num_heads=2,
               d_ff=512, max_seq=128), tiny_batch=2,
     model=dict(vocab_size=30522, max_seq=512), batch=8, seq=512,
-    warmup=2, steps=10, opt_iters=20)
+    warmup=2, steps=10, opt_iters=20,
+    inception=dict(batch=32, size=299, classes=1000, dtype=BF16),
+    tiny_inception=(8, 128), block_input=(4, 9),
+    sba_iters=10,
+    probe_shapes=tuple((probe.BATCH, size, c) for size, c in probe.SWEEP),
+    probe_iters=20, profile_steps=3)
 DRY = dict(
     cases={"a": (1, 2, 64, 64, False, 0, 0), "b": (1, 2, 96, 64, True, 0, 0),
            "d_masked": (1, 2, 64, 64, True, 8, 40)},
     timed=("a",), iters=2,
     tiny=dict(vocab_size=64, d_model=128, num_layers=1, num_heads=2,
               d_ff=256, max_seq=32), tiny_batch=2,
-    model=dict(vocab_size=1000, max_seq=64, num_layers=2), batch=2, seq=64,
-    warmup=1, steps=2, opt_iters=2)
+    model=dict(vocab_size=1000, max_seq=64, num_layers=1), batch=2, seq=64,
+    warmup=1, steps=2, opt_iters=2,
+    inception=dict(batch=2, size=75, classes=10, dtype=F32), sba_iters=1,
+    tiny_inception=(2, 75), block_input=(2, 5),
+    probe_shapes=((2, 6, 32),), probe_iters=1, profile_steps=1)
 
 
 def check(ok: bool, what: str) -> None:
@@ -138,13 +185,6 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 # Phase 1: environment and build
 # ---------------------------------------------------------------------------
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def kernel_name(line: str) -> str:
@@ -279,26 +319,6 @@ def check_case(name, case, device) -> dict:
     return err
 
 
-def time_ms(fn, iters, device) -> float:
-    """Mean time of one call: CUDA events around ``iters`` calls after
-    warm-up (the host clock after a synchronise on the CPU)."""
-    for _ in range(3):
-        fn()
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        return 1e3 * (time.perf_counter() - t0) / iters
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def time_case(name, case, device, iters) -> dict:
     q, k, v, do = make_inputs(case, device, seed=len(name))
     kw = kwargs(case)
@@ -350,9 +370,6 @@ def time_case(name, case, device, iters) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 2b: the AdamW kernels against their plain versions, then timed
 # ---------------------------------------------------------------------------
-
-F32, BF16 = torch.float32, torch.bfloat16
-
 
 def model_shapes(cfg) -> list:
     """The parameter shapes of the phase-4 model, in its order."""
@@ -605,6 +622,271 @@ def tiny_model_check(cfg, device) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2d: kernel B10 (BN + ReLU) against its plain version, then timed
+# ---------------------------------------------------------------------------
+
+
+def bn_shapes(cfg, device) -> list:
+    """The (N, C, H, W) input of each of Inception-V3's 94 fused batch
+    norms, in call order, at the phase-6 batch and image size (one forward
+    without gradients records them)."""
+    inc = cfg["inception"]
+    model = InceptionV3(num_classes=inc["classes"], dtype=inc["dtype"],
+                        device=device)
+    shapes = []
+    for m in model.modules():
+        if isinstance(m, cba.FusedBatchNormAct):
+            m.register_forward_pre_hook(
+                lambda mod, args: shapes.append(tuple(args[0].shape)))
+    with torch.no_grad():
+        model(torch.zeros(inc["batch"], inc["size"], inc["size"], 3,
+                          device=device))
+    del model
+    free_memory(device)
+    return shapes
+
+
+def sba_inputs(shape, dtype, device, seed):
+    """x channels-last (a conv output's layout), s and b per channel."""
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=device).to(dtype)
+    if x.ndim == 4:
+        x = x.contiguous(memory_format=torch.channels_last)
+    c = shape[1]
+    return (x, torch.randn(c, generator=g, device=device),
+            torch.randn(c, generator=g, device=device))
+
+
+def check_sba(shapes, device) -> float:
+    """B10 bit-equal to its plain version: every distinct BN input of the
+    model in bf16, a few in f32, ragged channel counts and a 5-element
+    tensor."""
+    cases = [(s, BF16) for s in sorted(set(shapes))]
+    cases += [(s, F32) for s in sorted(set(shapes))[:3]]
+    cases += [((4, c, 5, 5), dt) for c in (3, 7, 1000) for dt in (BF16, F32)]
+    cases += [((1, 5), BF16), ((1, 5), F32)]
+    worst, differ = 0.0, 0
+    for i, (shape, dt) in enumerate(cases):
+        x, s, b = sba_inputs(shape, dt, device, seed=i)
+        err, n = mismatch(cba.sba(x, s, b), cba.sba_plain(x, s, b))
+        worst, differ = max(worst, err), differ + n
+        check(n == 0, f"sba {shape} {dtype_name(dt)}: {n} elements differ "
+                      f"from the plain version")
+    log(f"sba: {len(cases)} cases ({len(set(shapes))} Inception-V3 BN "
+        f"shapes in bf16, f32, C in 3/7/1000, 5 elements): max|kernel-plain|"
+        f" {worst:.3e}, {differ} elements differ")
+    return worst
+
+
+def time_sba(shapes, device, repeats) -> dict:
+    """B10 and its plain version over the 94 BN inputs of one forward
+    (each shape as often as the model calls it): device time from the
+    profiler, beside the bound (each call reads and writes its bf16
+    activation once and reads s and b, 8 C bytes, at 3.35 TB/s) and the
+    host-inclusive time of the same calls (CUDA events)."""
+    inputs = {s: sba_inputs(s, BF16, device, seed=0) for s in set(shapes)}
+
+    def forward(fn):
+        return lambda: [fn(*inputs[s]) for s in shapes]
+
+    row = dict(ms=kernel_ms(forward(cba.sba), repeats, device),
+               plain_ms=kernel_ms(forward(cba.sba_plain), repeats, device),
+               wall_ms=time_ms(forward(cba.sba), repeats, device),
+               bound_ms=sum(1e3 * (4 * math.prod(s) + 8 * s[1]) / PEAK_BYTES
+                            for s in shapes),
+               bound_by="bytes", library_ms=None)  # no single torch call
+    log(f"timing sba over one Inception-V3 forward ({len(shapes)} calls, "
+        f"{len(inputs)} shapes, {repeats} repeats): kernel {row['ms']:.4f} ms"
+        f" of device time ({row['wall_ms']:.4f} ms with the host's launch "
+        f"gaps)  plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f}"
+        f" ms (bytes)  share of bound {row['bound_ms'] / row['ms']:.3f}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 2e: kernel B11 (conv + BN statistics) through the probe
+# ---------------------------------------------------------------------------
+
+
+def run_probe(cfg, device) -> tuple:
+    """The probe's measurement at each shape: B11 within the tool's limits
+    of its plain version, then timed beside its bound, cuDNN's conv alone
+    and conv plus a stats pass. Returns the tool's shape's row, the
+    largest error of any output and the launches of the run."""
+    probe.LAUNCHES["conv_bn_stats"] = 0
+    rows, worst = [], 0.0
+    for n, size, c in cfg["probe_shapes"]:
+        r = probe.measure(n, size, c, c, device, cfg["probe_iters"])
+        e = r["err"]
+        worst = max(worst, e["y"], e["sum"], e["sumsq"])
+        log(f"conv_bn_stats {r['shape']}: max|kernel-plain| y {e['y']:.3e} "
+            f"sum {e['sum']:.3e} sumsq {e['sumsq']:.3e} (limits y 2e-2 "
+            f"rel+abs, sum 1e-2 rel + 2.0, sumsq 1e-2 rel)")
+        check(e["ok"], f"conv_bn_stats {r['shape']}: outside the limits")
+        if device.type == "cuda":
+            log(f"  kernel {r['ms']:.4f} ms (MFU {r['mfu']:.4f})  plain "
+                f"{r['plain_ms']:.4f} ms  cuDNN conv alone {r['conv_ms']:.4f}"
+                f" ms (MFU {r['conv_mfu']:.4f})  conv + stats pass "
+                f"{r['conv_stats_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}; {r['flops'] / 1e9:.2f} GFLOP, "
+                f"{r['bytes'] / 1e6:.1f} MB)")
+        rows.append(r)
+    tool = next((r for r in rows if r["shape"].startswith(
+        f"{probe.BATCH}x{probe.SIZE}x")), rows[0])
+    return dict(tool, library_ms=tool["conv_ms"]), worst, \
+        probe.LAUNCHES["conv_bn_stats"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: a small Inception-V3 on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+#: each mixed block: its input channels in Inception-V3, its arguments
+BLOCKS = (("InceptionA", 192, (32,)), ("InceptionB", 288, ()),
+          ("InceptionC", 768, (128,)), ("InceptionD", 768, ()),
+          ("InceptionE", 1280, ()))
+
+
+def block_train_check(cfg, device) -> None:
+    """Each mixed block alone in train mode, float32, on non-negative
+    channels-last inputs of ``cfg["block_input"]`` batch and size, (4, C,
+    9, 9) on the card, the card against the CPU with the
+    same weights: the output, the gradient of x, the worst parameter
+    gradient leaf and the worst running-statistics leaf, each within 1e-3
+    of its norm. A block is a few layers deep: train mode does not
+    amplify rounding there as it does through the whole model."""
+    batch, size = cfg["block_input"]
+    for name, cin, args in BLOCKS:
+        gen = torch.Generator().manual_seed(cin)
+        cpu = getattr(inc, name)(cin, *args, dtype=F32, device="cpu")
+        with torch.no_grad():
+            for m in cpu.modules():
+                if isinstance(m, inc.Conv):
+                    inc._variance_scaling_(m.kernel, 1.0,
+                                                 m.kernel[0].numel(), gen)
+        x = torch.randn(batch, cin, size, size, generator=gen).abs() \
+            .contiguous(memory_format=torch.channels_last)
+        out, masks = {}, {}
+        for m, dev in ((copy.deepcopy(cpu).to(device), device),
+                       (cpu, torch.device("cpu"))):
+            masks[dev.type] = {}
+            hooks = _relu_masks(m, masks[dev.type])
+            xt = x.to(dev).detach().requires_grad_()
+            y = m.train()(xt)
+            for h in hooks:
+                h.remove()
+            y.backward(torch.randn(y.shape, generator=torch.Generator()
+                                   .manual_seed(1)).to(dev))
+            out[dev.type] = (y.detach().cpu(), xt.grad.cpu(),
+                             {k: p.grad.cpu() for k, p in
+                              m.named_parameters()},
+                             {k: b.cpu() for k, b in m.named_buffers()})
+        (ya, ga, pa, ba), (yb, gb, pb, bb) = out[device.type], out["cpu"]
+        errs = (rel(ya, yb), rel(ga, gb), max(rel(pa[k], pb[k]) for k in pb),
+                max(rel(ba[k], bb[k]) for k in bb))
+        flips, n_mask = _masks_differ(masks[device.type], masks["cpu"])
+        log(f"{name} train mode on {device.type} vs cpu (f32, {batch} x "
+            f"{cin} x {size} x {size}): output rel {errs[0]:.3e}, x grad "
+            f"{errs[1]:.3e}, worst parameter grad {errs[2]:.3e}, worst "
+            f"running stat {errs[3]:.3e}; "
+            f"ReLU mask elements that differ: {flips} of {n_mask}")
+        check(max(errs) <= 1e-3,
+              f"{name} in train mode on the card disagrees with the CPU")
+        free_memory(device)
+
+
+def _tree_rel(a: dict, b: dict) -> float:
+    num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
+    return math.sqrt(num / max(sum(float((b[k] ** 2).sum()) for k in b),
+                               1e-30))
+
+
+def _relu_masks(model, masks: dict) -> list:
+    """Hooks that keep each fused BN's ReLU mask (output > 0) in ``masks``
+    by module name; returns their handles."""
+    return [m.register_forward_hook(
+        lambda mod, i, o, n=n: masks.__setitem__(n, (o > 0).cpu()))
+        for n, m in model.named_modules()
+        if isinstance(m, cba.FusedBatchNormAct)]
+
+
+def _masks_differ(a: dict, b: dict) -> tuple:
+    """(mask elements that differ, mask elements in all)."""
+    return (sum(int((a[k] != b[k]).sum()) for k in b),
+            sum(b[k].numel() for k in b))
+
+
+def tiny_inception_check(cfg, device) -> None:
+    """A small Inception-V3 (``cfg["tiny_inception"]`` batch and size,
+    float32, 10 classes) on the card against the same weights on the CPU,
+    with the ReLU mask elements that differ between the two counted: a
+    ReLU whose input lies within rounding of 0 takes the other branch on
+    one side, and in a small late layer one such element moves the
+    gradient below it by about 1/sqrt(half the layer's size). Eval mode
+    (the initial running statistics normalise): logits and loss within
+    1e-3, the whole gradient within 1e-2. Train mode at flax's
+    initialisation is chaotic in float32 through the 94 layers (one ulp of
+    input moves the CPU's own gradients by percents at any batch): logits,
+    loss and the whole gradient within twice what one ulp of input moves
+    the CPU's own (or 1e-3, where that is looser). Then each mixed block
+    in train mode at a fixed limit."""
+    batch, size = cfg["tiny_inception"]
+    rng = np.random.RandomState(1)
+    images = rng.uniform(-1, 1, (batch, size, size, 3)).astype(np.float32)
+    labels = torch.from_numpy(rng.randint(0, 10, (batch,)))
+    m_dev = InceptionV3(num_classes=10, dtype=F32, device=device, seed=1)
+    m_cpu = InceptionV3(num_classes=10, dtype=F32, device="cpu", seed=1)
+    start = {k: v.clone() for k, v in m_cpu.state_dict().items()}
+    runs = [("card", m_dev, device, images),
+            ("cpu", m_cpu, torch.device("cpu"), images)]
+    for train in (False, True):
+        if train:  # what one ulp of input moves the CPU's own result
+            runs.append(("nudged", m_cpu, torch.device("cpu"),
+                         np.nextafter(images, np.float32(np.inf))))
+        out, masks = {}, {}
+        for key, m, dev, x in runs:
+            m.load_state_dict(start)
+            m.train(train)
+            m.zero_grad()
+            masks[key] = {}
+            hooks = _relu_masks(m, masks[key])
+            logits = m(torch.from_numpy(x).to(dev))
+            for h in hooks:
+                h.remove()
+            loss = torch.nn.functional.cross_entropy(logits, labels.to(dev))
+            loss.backward()
+            out[key] = (logits.detach().cpu(), loss.item(),
+                        {k: p.grad.cpu() for k, p in m.named_parameters()})
+        (a, la, ga), (b, lb, gb) = out["card"], out["cpu"]
+        errs = (rel(a, b), abs(la - lb) / abs(lb), _tree_rel(ga, gb))
+        limits, mode, ulp_note = (1e-3, 1e-3, 1e-2), "eval", ""
+        if train:
+            c, lc, gc = out["nudged"]
+            ulp = (rel(c, b), abs(lc - lb) / abs(lb), _tree_rel(gc, gb))
+            limits = tuple(max(1e-3, 2 * u) for u in ulp)
+            mode = "train"
+            ulp_note = (f" (one ulp of input on the cpu: {ulp[0]:.3e} "
+                        f"{ulp[1]:.3e} {ulp[2]:.3e})")
+        flips, n_mask = _masks_differ(masks["card"], masks["cpu"])
+        log(f"tiny Inception-V3 {batch} x {size}^2 on {device.type} vs cpu "
+            f"(f32, {mode}): logits rel {errs[0]:.3e}, loss {la:.5f} vs "
+            f"{lb:.5f} (rel {errs[1]:.3e}), gradient rel {errs[2]:.3e}; "
+            f"limits {limits[0]:.3e} {limits[1]:.3e} {limits[2]:.3e}"
+            f"{ulp_note}; ReLU mask elements that differ: {flips} of "
+            f"{n_mask}")
+        check(math.isfinite(la) and all(bool(torch.isfinite(g).all())
+                                        for g in ga.values()),
+              "small Inception-V3: non-finite loss or gradient on the card")
+        check(all(e <= t for e, t in zip(errs, limits)),
+              f"small Inception-V3 on the card disagrees with the CPU "
+              f"({mode} mode)")
+    del m_dev, m_cpu
+    free_memory(device)
+    block_train_check(cfg, device)
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the slice
 # ---------------------------------------------------------------------------
 
@@ -720,7 +1002,7 @@ def train(cfg, device, card, path="hooks", profile=False) -> dict:
     opt_bytes = state_bytes()
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
     if profile:
-        breakdown(step, dev, statistics.median(times))
+        breakdown(step, dev, statistics.median(times), cfg["profile_steps"])
     del model, params, update, state_bytes, zero_grad, step
     hvd.shutdown()
     free_memory(device)
@@ -796,8 +1078,93 @@ def compare_losses(runs: dict) -> None:
                              f"by {worst:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the Inception-V3 slice
+# ---------------------------------------------------------------------------
+
+
+def train_inception(cfg, device, card, profile=False) -> dict:
+    """The bench's Inception row, eager, one process: ``hvd.init()``,
+    ``InceptionV3(1000, bf16, seed=0)`` on ``hvd.device()``,
+    ``broadcast_parameters(state_dict())``, ``DistributedOptimizer(SGD(0.01
+    x size, momentum 0.9))``, the bench's images and labels (the same batch
+    every step), 2 warm-up and 10 timed steps."""
+    inc = cfg["inception"]
+    batch, size = inc["batch"], inc["size"]
+    rng = np.random.RandomState(0)  # bench.py:306-312
+    images = rng.uniform(-1, 1, (batch, size, size, 3)).astype(np.float32)
+    labels = rng.randint(0, inc["classes"], (batch,)).astype(np.int32)
+
+    cba.reset_launch_counts()
+    collectives.COUNTS.update(dict.fromkeys(collectives.COUNTS, 0))
+    hvd.init(device=None if device.type == "cuda" else "cpu")
+    dev = hvd.device()
+    model = InceptionV3(num_classes=inc["classes"], dtype=inc["dtype"],
+                        seed=0)
+    check(next(model.parameters()).device == dev,
+          "InceptionV3() without a device must take hvd.device()")
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01 * hvd.size(),
+                        momentum=0.9),
+        named_parameters=model.named_parameters())
+    step = make_train_step(model, opt)
+    x, y = (torch.from_numpy(a).to(dev) for a in (images, labels))
+    n_tensors = len(list(model.parameters()))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bn = sum(isinstance(m, cba.FusedBatchNormAct) for m in model.modules())
+    n_broadcast = len(model.state_dict())
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    steps = cfg["warmup"] + cfg["steps"]
+    for i in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(x, y).item())  # waits for the step's last kernel
+        if i >= cfg["warmup"]:
+            times.append(time.perf_counter() - t0)
+    launches = dict(cba.LAUNCHES)
+    counts = dict(collectives.COUNTS)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    step_s = statistics.median(times)
+    if profile:
+        breakdown(lambda: step(x, y), dev, step_s, cfg["profile_steps"])
+    del model, opt, step
+    hvd.shutdown()
+    free_memory(device)
+
+    log(f"slice (Inception-V3): {n_bn} fused BN layers, {n_params:,} params "
+        f"in {n_tensors} tensors, batch {batch} x {size}^2, "
+        f"{cfg['warmup']} warm-up + {cfg['steps']} timed steps")
+    log("  losses: " + " ".join(f"{v:.4f}" for v in losses))
+    log(f"  kernel launches: {launches}; collectives: {counts}")
+    check(all(math.isfinite(v) for v in losses), "Inception: non-finite loss")
+    check(losses[-1] < losses[0], f"Inception: loss did not fall: {losses}")
+    want = {k: 0 for k in counts}
+    want.update(allreduce=n_tensors * steps, broadcast=n_broadcast)
+    check(counts == want, f"Inception: collectives {counts}, want {want}")
+    if dev.type == "cuda":
+        check(launches == {"sba": n_bn * steps},
+              f"Inception: kernel launches {launches}, want "
+              f"{n_bn * steps} sba")
+        img_s = batch / step_s
+        where = f"({card})"
+        log(f"  step {1e3 * step_s:.2f} ms median (mean "
+            f"{1e3 * statistics.mean(times):.2f} ms) {where}")
+        log(f"  images/s {img_s:.1f} {where}")
+        log(f"  MFU {img_s * INCEPTION_FLOPS / PEAK_FLOPS:.4f} against 989 "
+            f"TFLOP/s bf16, {INCEPTION_FLOPS / 1e9:.3f} GFLOP/image {where}")
+        log(f"  max_memory_allocated {peak / 2**30:.2f} GiB {where}")
+    return dict(losses=losses, launches=launches, step_ms=1e3 * step_s)
+
+
 GROUPS = (  # kernel-name fragments -> group, first match wins
     ("flash_", "attention kernels (port)"),
+    ("sba_kernel", "BN + ReLU kernel B10 (port)"),
+    ("fprop", "convolutions fprop (cuDNN)"),
+    ("dgrad", "convolutions dgrad (cuDNN)"),
+    ("wgrad", "convolutions wgrad (cuDNN)"),
+    ("conv", "convolutions, other (cuDNN)"),
     ("adamw_kernel", "optimizer (port's AdamW kernels)"),
     ("nccl", "NCCL collectives"),
     ("gemm", "dense matmuls (cuBLAS)"), ("nvjet", "dense matmuls (cuBLAS)"),
@@ -809,7 +1176,7 @@ GROUPS = (  # kernel-name fragments -> group, first match wins
 )
 
 
-def breakdown(step, device, step_s: float, n: int = 3) -> None:
+def breakdown(step, device, step_s: float, n: int) -> None:
     """Trace ``n`` steps with torch.profiler; print device time per step by
     kernel group and the top kernels, and the device's busy share of the
     step (kernel time over the median timed step)."""
@@ -874,8 +1241,9 @@ def main() -> int:
         return 1
     cfg = DRY if dry else FULL
     device = torch.device("cpu" if dry else "cuda")
-    if not dry:
-        torch.backends.cuda.matmul.allow_tf32 = False  # float32 references
+    if not dry:  # float32 references: no TF32 in matmuls or convolutions
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     card = environment(dry)
 
     # largest absolute error of each kernel's output over every case
@@ -894,12 +1262,19 @@ def main() -> int:
     log("AdamW kernels bit-equal to their plain versions in every case")
     rows = {**timed["a"], **time_optimizers(cfg, device, cfg["opt_iters"])}
     fused_vs_zero(cfg, device)
+    shapes = bn_shapes(cfg, device)
+    errs["sba"] = check_sba(shapes, device)
+    rows["sba"] = time_sba(shapes, device, cfg["sba_iters"])
+    rows["conv_bn_stats"], errs["conv_bn_stats"], probe_launches = \
+        run_probe(cfg, device)
     tiny_model_check(cfg, device)
+    tiny_inception_check(cfg, device)
     runs = {path: train(cfg, device, card, path, args.profile)
             for path in PATHS}
     compare_losses(runs)
     if args.turns > 1:
         compare_in_turns(cfg, device, card, runs, args.turns)
+    inception = train_inception(cfg, device, card, args.profile)
     if dry:
         log("DRY RUN complete: control flow rehearsed; no result line")
         return 0
@@ -907,7 +1282,9 @@ def main() -> int:
     # each kernel's launches are counted on the path that runs it
     launches = {**runs["hooks"]["launches"],
                 "adamw_multi": runs["fused"]["launches"]["adamw_multi"],
-                "flat_adamw": runs["zero"]["launches"]["flat_adamw"]}
+                "flat_adamw": runs["zero"]["launches"]["flat_adamw"],
+                "sba": inception["launches"]["sba"],
+                "conv_bn_stats": probe_launches}
     kernels = [dict(name=name, route="cuda", source=KERNELS[name][0],
                     replaces=KERNELS[name][1], launches=launches[name],
                     max_abs_err=errs[name], ms=rows[name]["ms"],

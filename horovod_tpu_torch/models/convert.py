@@ -10,10 +10,19 @@ JAX package's single controller, whose arrays are ``(world, shard)``
 stacked, and the port's per-rank shards (:func:`flat_state_from_jax`,
 :func:`flat_state_to_jax`).
 
-The tree is the one ``horovod_tpu.models.transformer.Transformer.init``
-returns, as numpy arrays (``{"params": {...}}`` or the inner dict). Layouts
-differ: a flax ``Dense`` kernel is ``(in, out)`` where ``nn.Linear.weight``
-is ``(out, in)``; the attention's ``DenseGeneral`` q/k/v kernels are
+Inception-V3's variables go both ways by name (:func:`inception_from_flax`,
+:func:`inception_grads_to_flax`, :func:`batch_stats_to_flax`): the port's
+submodules carry flax's names, so the path of a flax leaf, joined with
+dots, is its state-dict key. A flax ``Conv`` kernel is HWIO where the
+port's is OIHW, and the ``classifier`` kernel ``(in, out)`` where the
+port's is ``(out, in)``; 1-d leaves (BN scale, bias, mean, var; the
+classifier bias) are the same.
+
+The transformer's tree is the one
+``horovod_tpu.models.transformer.Transformer.init`` returns, as numpy
+arrays (``{"params": {...}}`` or the inner dict). Layouts differ: a flax
+``Dense`` kernel is ``(in, out)`` where ``nn.Linear.weight`` is ``(out,
+in)``; the attention's ``DenseGeneral`` q/k/v kernels are
 ``(d, heads, head_dim)`` with ``(heads, head_dim)`` biases, and its ``out``
 kernel is ``(heads, head_dim, d)``. Each entry of :func:`key_map` pairs a
 flax path with a torch key and the two layout conversions.
@@ -193,3 +202,68 @@ def flat_state_to_jax(states: Sequence[FlatAdamState]) -> dict:
 
     return {"count": np.asarray(states[0].count, np.int32),
             "master": stack("master"), "mu": stack("mu"), "nu": stack("nu")}
+
+
+def _leaves(tree, prefix: Path = ()):
+    """(path, leaf) of every leaf of a nested dict, in its order."""
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _inception_to_torch(a: np.ndarray) -> np.ndarray:
+    if a.ndim == 4:  # HWIO -> OIHW
+        return a.transpose(3, 2, 0, 1)
+    return a.T if a.ndim == 2 else a  # (in, out) -> (out, in)
+
+
+def _inception_to_flax(a: np.ndarray) -> np.ndarray:
+    if a.ndim == 4:  # OIHW -> HWIO
+        return a.transpose(2, 3, 1, 0)
+    return a.T if a.ndim == 2 else a
+
+
+def inception_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """The port's Inception-V3 state dict (parameters and running
+    statistics) from flax's ``{"params", "batch_stats"}`` tree of numpy
+    arrays; ``model.load_state_dict(...)`` (strict) then checks that every
+    leaf found its tensor and every tensor its leaf."""
+    out: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, leaf in _leaves(variables.get(collection, {})):
+            out[".".join(path)] = torch.from_numpy(np.array(
+                _inception_to_torch(np.asarray(leaf, np.float32))))
+    return out
+
+
+def inception_grads_to_flax(tensors: Dict[str, torch.Tensor], like) -> dict:
+    """A flax-shaped tree of numpy arrays from tensors keyed like the
+    port's parameters (gradients, parameters); ``like`` is the flax
+    ``params`` tree (or ``{"params": ...}``) giving structure and shapes."""
+    out: dict = {}
+    for path, leaf in _leaves(_inner(like)):
+        a = _inception_to_flax(
+            tensors[".".join(path)].detach().float().cpu().numpy())
+        if a.shape != np.shape(leaf):
+            raise ValueError(f"{'/'.join(path)}: shape {a.shape}, flax has "
+                             f"{np.shape(leaf)}")
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = a
+    return out
+
+
+def batch_stats_to_flax(model: torch.nn.Module) -> dict:
+    """The model's running statistics (its buffers) as flax's
+    ``batch_stats`` tree of numpy arrays."""
+    out: dict = {}
+    for key, t in model.named_buffers():
+        *path, leaf = key.split(".")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = t.detach().float().cpu().numpy()
+    return out

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from horovod_tpu_torch.ops.flash_attention import flash_attention
+from horovod_tpu_torch.utils.device import resolve
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -122,14 +123,17 @@ class Transformer(nn.Module):
     """Embeddings -> N layers -> final LayerNorm -> tied logits.
 
     ``causal=True`` makes a GPT-style decoder, ``causal=False`` a BERT-style
-    encoder. Parameters are made on ``device`` from ``seed`` with flax's
-    initialisers (normal(0.02) embeddings, LeCun-normal dense kernels)."""
+    encoder. Parameters are made on ``device`` (default: the card, see
+    :func:`horovod_tpu_torch.utils.device.resolve`) from ``seed`` with
+    flax's initialisers (normal(0.02) embeddings, LeCun-normal dense
+    kernels)."""
 
     def __init__(self, vocab_size: int, d_model: int = 768,
                  num_layers: int = 12, num_heads: int = 12, d_ff: int = 3072,
                  max_seq: int = 512, causal: bool = False,
                  dtype=torch.bfloat16, device=None, seed: int = 0):
         super().__init__()
+        device = resolve(device)
         self.vocab_size, self.max_seq, self.dtype = vocab_size, max_seq, dtype
         self.token_embed = nn.Parameter(
             torch.empty(vocab_size, d_model, device=device))

@@ -32,9 +32,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "horovod_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# flags of one source on top of NVCC_FLAGS. adamw: no multiply-add
-# contraction, so the kernels round like their plain PyTorch versions
-EXTRA_FLAGS: Dict[str, tuple] = {"adamw": ("-fmad=false",)}
+# flags of one source on top of NVCC_FLAGS. adamw, conv_bn_act: no
+# multiply-add contraction, so the kernels round like their plain PyTorch
+# versions
+EXTRA_FLAGS: Dict[str, tuple] = {"adamw": ("-fmad=false",),
+                                 "conv_bn_act": ("-fmad=false",)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

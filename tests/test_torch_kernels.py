@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-flash attention (csrc/flash_attention.cu) within stated tolerances, and the
-AdamW kernels (csrc/adamw.cu) bit for bit.
+flash attention (csrc/flash_attention.cu) within stated tolerances, the
+AdamW kernels (csrc/adamw.cu) and the fused BN + ReLU (csrc/conv_bn_act.cu)
+bit for bit, and the conv + BN-statistics probe (csrc/conv_bn_stats.cu)
+within the JAX tool's limits.
 
 Every test here is marked ``gpu`` and skips on a machine without a CUDA
 device. This file imports neither JAX nor the JAX package, so it runs on a
@@ -14,7 +16,9 @@ machine that has only PyTorch and the CUDA toolkit:
 import pytest
 import torch
 
+from horovod_tpu_torch.ops import conv_bn_act as tcba
 from horovod_tpu_torch.ops import flash_attention as tfa
+from horovod_tpu_torch.tools import conv_bn_probe as tprobe
 
 
 @pytest.fixture
@@ -190,3 +194,82 @@ def test_fused_and_zero1_agree_bit_for_bit_on_card(cuda):
         assert fopt.LAUNCHES["flat_adamw"] == 2 * 2  # two dtype groups
     finally:
         hvd.shutdown()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    (32, 64, 147, 147),   # Inception-V3's largest BN input
+    (8, 2048, 8, 8),      # C % 128 == 0
+    (4, 80, 7, 9),        # 16-byte vectors, ragged pixel count
+    (4, 3, 5, 5), (4, 7, 5, 5), (2, 1000, 3, 3),  # element by element
+    (1, 5),               # 5 elements
+])
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_scale_bias_act_bit_equal_to_plain_on_card(cuda, shape, dtype):
+    g = torch.Generator(cuda).manual_seed(len(shape) + shape[1])
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    if x.ndim == 4:
+        x = x.contiguous(memory_format=torch.channels_last)
+    s, b = (torch.randn(shape[1], generator=g, device=cuda)
+            for _ in range(2))
+    tcba.reset_launch_counts()
+    y = tcba.sba(x, s, b)
+    assert tcba.LAUNCHES == {"sba": 1}
+    assert y.stride() == x.stride()
+    assert torch.equal(y, tcba.sba_plain(x, s, b))
+
+
+@pytest.mark.gpu
+def test_scale_bias_act_refuses_nchw_on_card(cuda):
+    x = torch.ones(2, 16, 4, 4, device=cuda, dtype=BF16)  # contiguous NCHW
+    s, b = torch.ones(16, device=cuda), torch.zeros(16, device=cuda)
+    with pytest.raises(ValueError, match="channels-last"):
+        tcba.sba(x, s, b)
+
+
+@pytest.mark.gpu
+def test_conv_bn_stats_within_the_tools_limits_on_card(cuda):
+    """B11 at the tool's shape, 128 x 14 x 14 x 256 -> 256, against its
+    plain version (a float32 conv of the same bf16 values; cuDNN's TF32
+    off): y 2e-2 rel + abs, sum 1e-2 rel + 2.0 abs, sumsq 1e-2 rel."""
+    torch.backends.cudnn.allow_tf32 = False
+    _, xp, w = tprobe.inputs(tprobe.BATCH, tprobe.SIZE, tprobe.CHANNELS,
+                             tprobe.CHANNELS, cuda)
+    got = tprobe.conv3x3_bn_stats(xp, w)
+    want = tprobe.conv3x3_bn_stats_plain(xp, w)
+    assert tprobe.errors(got, want)["ok"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["channels-last", "cat slice", "NCHW"])
+def test_inception_avg_pool_gradient_matches_cpu_on_card(cuda, layout):
+    """Inception's SAME average pool on a channels-last input, with a dense
+    channels-last gradient (a conv's dgrad), a channel slice of one (what
+    ``torch.cat``'s backward passes on) and a contiguous NCHW one: the
+    port's gradient on the card equals the CPU's within 1e-6 (its backward
+    is the pool of the gradient). PyTorch's own ``avg_pool2d`` backward is
+    run the same way and its error printed with the torch version
+    (``-s``): the reason the port does not use it."""
+    from horovod_tpu_torch.models import inception
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 64, 35, 35, generator=g) \
+        .contiguous(memory_format=torch.channels_last)
+    up = torch.randn(2, 288, 35, 35, generator=g) \
+        .contiguous(memory_format=torch.channels_last)
+    grad = {"channels-last": lambda u: u[:, 224:].contiguous(
+                memory_format=torch.channels_last),
+            "cat slice": lambda u: u[:, 224:],
+            "NCHW": lambda u: u[:, 224:].contiguous()}[layout]
+    errs = {}
+    for name, pool in (("F.avg_pool2d", inception._box3),
+                       ("port", inception._avg_pool_same)):
+        grads = []
+        for dev in (cuda, torch.device("cpu")):
+            xt = x.to(dev).detach().requires_grad_()
+            pool(xt).backward(grad(up.to(dev)))
+            grads.append(xt.grad.cpu())
+        errs[name] = _rel(grads[0], grads[1])
+    print(f"torch {torch.__version__}, {layout} gradient: F.avg_pool2d "
+          f"backward rel {errs['F.avg_pool2d']:.3e}, port {errs['port']:.3e}")
+    assert errs["port"] <= 1e-6

@@ -14,10 +14,14 @@ import torch
 import numpy as np
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.models.inception import InceptionV3
+from horovod_tpu_torch.models.transformer import BertLarge, GPT2Small
+from horovod_tpu_torch.ops import conv_bn_act as tcba
 from horovod_tpu_torch.ops import flash_attention as tfa
 from horovod_tpu_torch.ops import fused_adamw as tadam
 from horovod_tpu_torch.ops import kernel_build
 from horovod_tpu_torch.ops import fused_optimizer as topt
+from horovod_tpu_torch.tools import conv_bn_probe as tprobe
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
@@ -52,7 +56,11 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, horovod_tpu_torch, horovod_tpu_torch.models.convert,"
-            " horovod_tpu_torch.models.transformer;"
+            " horovod_tpu_torch.models.transformer,"
+            " horovod_tpu_torch.models.inception,"
+            " horovod_tpu_torch.ops.conv_bn_act, horovod_tpu_torch.training,"
+            " horovod_tpu_torch.tools.conv_bn_probe,"
+            " horovod_tpu_torch.utils.device;"
             " bad = [m for m in sys.modules if m.split('.')[0] in %r];"
             " assert not bad, bad" % (FORBIDDEN,))
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -71,6 +79,29 @@ def test_init_without_device_raises_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         hvd.init()
     assert not hvd.is_initialized()
+
+
+@pytest.mark.parametrize("build", [
+    lambda: InceptionV3(),
+    lambda: BertLarge(vocab_size=64, max_seq=16),
+    lambda: GPT2Small(vocab_size=64, max_seq=16, num_layers=1),
+], ids=["inception", "bert-large", "gpt2-small"])
+def test_models_without_device_raise_without_a_card(no_card, build):
+    """A model built with no device takes the card, as ``hvd.init()`` does,
+    and raises without one, naming ``device='cpu'``."""
+    hvd.shutdown()
+    with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
+        build()
+
+
+def test_models_without_device_take_hvd_device_once_initialized():
+    hvd.shutdown()
+    hvd.init(device="cpu")
+    try:
+        model = InceptionV3(num_classes=10, dtype=torch.float32)
+        assert next(model.parameters()).device == hvd.device()
+    finally:
+        hvd.shutdown()
 
 
 def test_cuda_tensor_does_not_fall_back(no_card, monkeypatch):
@@ -119,6 +150,56 @@ def test_cuda_tensor_does_not_fall_back_adamw(no_card, monkeypatch):
     assert (dict(tadam.LAUNCHES), dict(topt.LAUNCHES)) == before
 
 
+def _raises_without_nvcc(monkeypatch):
+    """Take every tensor as a CUDA one, on a machine without nvcc."""
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has nvcc")
+    monkeypatch.setattr(kernel_build, "on_cpu", lambda what, tensors: False)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setenv("PATH", "/nonexistent")
+
+
+def test_cuda_tensor_does_not_fall_back_scale_bias_act(no_card,
+                                                        monkeypatch):
+    """B10's wrapper, given tensors taken as CUDA ones, goes to the kernel
+    build and raises: it neither computes the plain version nor counts a
+    launch."""
+    x = torch.ones(2, 4, 3, 3).contiguous(memory_format=torch.channels_last)
+    s, b = torch.ones(4), torch.zeros(4)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        tcba.scale_bias_act(x.to("meta"), s.to("meta"), b.to("meta"))
+    _raises_without_nvcc(monkeypatch)
+    before = dict(tcba.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tcba.scale_bias_act(x, s, b)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tcba.FusedBatchNormAct(4, device="cpu")(x)
+    assert tcba.LAUNCHES == before
+
+
+def test_scale_bias_act_kernel_refuses_other_layouts(monkeypatch):
+    """The kernel takes channels-last tensors only: a contiguous NCHW
+    tensor taken as a CUDA one is refused before any build."""
+    monkeypatch.setattr(kernel_build, "on_cpu", lambda what, tensors: False)
+    x = torch.ones(2, 4, 3, 3)
+    with pytest.raises(ValueError, match="channels-last"):
+        tcba.sba(x, torch.ones(4), torch.zeros(4))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tcba.sba(x.half().contiguous(memory_format=torch.channels_last),
+                 torch.ones(4), torch.zeros(4))
+
+
+def test_cuda_tensor_does_not_fall_back_conv_bn_stats(no_card, monkeypatch):
+    _, xp, w = tprobe.inputs(1, 4, 32, 64, torch.device("cpu"))
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        tprobe.conv3x3_bn_stats(xp.to("meta"), w.to("meta"))
+    _raises_without_nvcc(monkeypatch)
+    before = dict(tprobe.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tprobe.conv3x3_bn_stats(xp, w)
+    assert tprobe.LAUNCHES == before
+
+
 def _smoke(*args):
     return subprocess.run([sys.executable, "chip_smoke.py", *args],
                           cwd=REPO, capture_output=True, text=True,
@@ -142,7 +223,12 @@ def test_chip_smoke_cpu_rehearsal_prints_no_result(no_card):
                   "flat_adamw world-1 shard:", "flat_adamw ragged:",
                   "timing the AdamW kernels", "fused_adamw vs sharded_adamw",
                   "slice (hooks:", "slice (fused:", "slice (zero:",
-                  "losses of zero vs hooks", "2 turns of the three paths"):
+                  "losses of zero vs hooks", "2 turns of the three paths",
+                  "sba: ", "timing sba over one Inception-V3 forward",
+                  "conv_bn_stats 2x6x6x32->32",
+                  "tiny Inception-V3 2 x 75^2 on cpu",
+                  "InceptionE train mode on cpu",
+                  "slice (Inception-V3)"):
         assert phase in out.stdout, phase
     assert "BERT-Large MLM" in out.stdout
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout

@@ -8,8 +8,9 @@ Phases (any failure exits non-zero):
 
 1. Environment: the card's name and power limit, CUDA and nvcc versions;
    build the kernels from ``horovod_tpu_torch/csrc`` (flash_attention.cu,
-   adamw.cu, conv_bn_act.cu and conv_bn_stats.cu: one nvcc per source,
-   started together) and print what ptxas reports (registers, spills).
+   adamw.cu, conv_bn_act.cu, conv_bn_stats.cu and attention_probe.cu: one
+   nvcc per source, started together) and print what ptxas reports
+   (registers, spills).
 2. Flash-attention kernels against their plain PyTorch versions, in bf16 on
    the card, with the plain version run on float32 copies of the same bf16
    inputs: (a) B8 H16 S512 D64 (BERT-Large), (b) B16 H12 S1024 D64 causal
@@ -54,6 +55,18 @@ Phases (any failure exits non-zero):
    times a step, 284 allreduces a step; images/s, MFU, step ms and peak
    memory beside the card's name and power limit.
 
+7. The GPT-2-small slice (``bench.py:373-560, 2153``): ``hvd.init()``,
+   ``GPT2Small(vocab_size=50257)`` at full width (12 x 768, 12 heads, seq
+   1024), random weights from seed 0, ``broadcast_parameters``,
+   ``DistributedOptimizer(AdamW(1e-4, weight_decay=1e-4))``, the bench's
+   tokens (batch 16, ``RandomState(0)``), the full-logits
+   ``causal_lm_loss``, 2 warm-up and 10 timed steps; run twice, with the dq
+   and dk/dv kernels (``FLASH_FUSED_BWD`` unset) and with the fused
+   backward (``FLASH_FUSED_BWD=1``: 12 launches of it a step, none of dq or
+   dk/dv). Losses finite and falling in each, the two within 1e-3 relative
+   at every step (a step's fall is ~1e-2 of the loss); one allreduce per parameter tensor a step; tokens/s, MFU,
+   step ms and peak memory beside the card's name and power limit.
+
 Between them: 2d. kernel B10 (fused BN + ReLU) bit-equal to its plain
 version at every distinct BN input of Inception-V3 at batch 32 (bf16),
 three of them in f32, ragged C (3, 7, 1000) and 5 elements; then timed
@@ -66,12 +79,25 @@ pass. 3b. a small Inception-V3 (8 x 128 x 128, f32) on the card
 against the CPU (eval mode: logits and loss 1e-3, gradient 1e-2; train
 mode: twice what one ulp of input moves the CPU's own result), the ReLU
 mask elements that differ counted; each mixed block alone in train mode
-at 1e-3.
+at 1e-3. 2f. the fused backward B7 against its plain version and against
+the dq and dk/dv kernels at (a), (b), a D128 causal case with q_offset !=
+k_offset and Sq != Sk, and (d_masked): dq/dk/dv within 2e-2 relative; then
+timed at (a) and (b) beside its bound, its plain version, dq + dk/dv and
+PyTorch's one-call flash attention backward (a yardstick the port never
+calls). 2g. the probe kernels B12-B14 through
+``horovod_tpu_torch.tools.flash_vpu_probe`` at BERT-Large's shape (B8 H16
+S512 D64) against their plain versions on the tool's data (scale 0.3, a
+nearly uniform softmax) and on unit-scale data (a peaked one): o 2e-2 abs
+and 1e-2 relative to its norm, lse 2e-3 abs; uniform attention and half
+the sm_scale, as controls, must miss the o limit. Each probe function is
+driven once with its count set to 0 just before, then timed beside its
+bound and SDPA's forward.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (each kernel's
 launches counted on the path that runs it: the flash kernels on phase 4,
 the multi-tensor AdamW on P1, the flat AdamW on P2, B10 on phase 6, B11 on
-the probe's phase 2e), the card's name and power limit, and ``{"ok": true,
+the probe's phase 2e, B7 on phase 7's fused run, B12-B14 on the probe's
+phase 2g), the card's name and power limit, and ``{"ok": true,
 "device": {...}}``. ``--cpu-dry`` runs the
 same code on the CPU at tiny sizes and prints neither JSON line.
 """
@@ -83,6 +109,7 @@ import copy
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -95,7 +122,8 @@ import torch
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models import inception as inc
 from horovod_tpu_torch.models.inception import InceptionV3
-from horovod_tpu_torch.models.transformer import (BertLarge, Transformer,
+from horovod_tpu_torch.models.transformer import (BertLarge, GPT2Small,
+                                                  Transformer, causal_lm_loss,
                                                   masked_lm_loss_gathered,
                                                   sample_masked_positions)
 from horovod_tpu_torch.ops import collectives, kernel_build
@@ -105,13 +133,16 @@ from horovod_tpu_torch.ops import fused_adamw as fadam
 from horovod_tpu_torch.ops import fused_optimizer as fopt
 from horovod_tpu_torch.parallel.zero import LeafMeta, build_spec, dtype_name
 from horovod_tpu_torch.tools import conv_bn_probe as probe
+from horovod_tpu_torch.tools import flash_vpu_probe as vprobe
 from horovod_tpu_torch.training import make_train_step
+from horovod_tpu_torch.utils import env
 from horovod_tpu_torch.utils.measure import card_line, kernel_ms, time_ms
 
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 PEAK_F32 = 67e12  # H100 SXM float32 outside the tensor cores
-SOURCES = ["flash_attention", "adamw", "conv_bn_act", "conv_bn_stats"]
+SOURCES = ["flash_attention", "adamw", "conv_bn_act", "conv_bn_stats",
+           "attention_probe"]
 KERNELS = {  # wrapper count name -> (source, the TPU kernels it replaces)
     "flash_fwd": ("horovod_tpu_torch/csrc/flash_attention.cu",
                   "horovod_tpu/ops/pallas/flash_attention.py:205 "
@@ -131,6 +162,15 @@ KERNELS = {  # wrapper count name -> (source, the TPU kernels it replaces)
             "horovod_tpu/ops/pallas/conv_bn_act.py:64 _sba_kernel"),
     "conv_bn_stats": ("horovod_tpu_torch/csrc/conv_bn_stats.cu",
                       "tools/pallas_conv_bn.py:54 _conv_kernel"),
+    "flash_bwd_fused": ("horovod_tpu_torch/csrc/flash_attention.cu",
+                        "horovod_tpu/ops/pallas/flash_attention.py:654 "
+                        "_bwd_single_kernel"),
+    "pack2": ("horovod_tpu_torch/csrc/attention_probe.cu",
+              "tools/flash_vpu_probe.py:94 _pack2_kernel"),
+    "simple1_lse": ("horovod_tpu_torch/csrc/attention_probe.cu",
+                    "tools/flash_vpu_probe.py:173 _simple1_lse_kernel"),
+    "simple1": ("horovod_tpu_torch/csrc/attention_probe.cu",
+                "tools/flash_vpu_probe.py:159 _simple1_kernel"),
 }
 # Inception-V3 as the bench runs it (bench.py:84-90, 258-340): batch 32 at
 # 299 x 299, 1000 classes, SGD(0.01 x size, momentum 0.9), 11.137 GFLOP per
@@ -139,7 +179,7 @@ INCEPTION_FLOPS = 3 * 11.137e9
 # AdamW as the bench runs it (bench.py:473-476, 1398-1408)
 ADAMW = dict(b1=0.9, b2=0.999, learning_rate=1e-4, weight_decay=1e-4)
 EPS = 1e-8
-TOL = {"o": 2e-2, "lse": 2e-3, "grad": 2e-2}
+TOL = {"o": 2e-2, "o_rel": 1e-2, "lse": 2e-3, "grad": 2e-2}
 
 F32, BF16 = torch.float32, torch.bfloat16
 
@@ -158,7 +198,15 @@ FULL = dict(
     tiny_inception=(8, 128), block_input=(4, 9),
     sba_iters=10,
     probe_shapes=tuple((probe.BATCH, size, c) for size, c in probe.SWEEP),
-    probe_iters=20, profile_steps=3)
+    probe_iters=20, profile_steps=3,
+    # (batch, heads, Sq, Sk, head_dim, causal, q_offset, k_offset)
+    fused_cases={"a": (8, 16, 512, 512, 64, False, 0, 0),
+                 "b": (16, 12, 1024, 1024, 64, True, 0, 0),
+                 "e_d128": (2, 4, 700, 1000, 128, True, 300, 0),
+                 "d_masked": (2, 4, 512, 512, 64, True, 64, 200)},
+    fused_timed=("a", "b"),
+    vprobe_case=vprobe.SHAPES["bert-large"][:4],
+    gpt=dict(vocab_size=50257), gpt_batch=16, gpt_seq=1024)
 DRY = dict(
     cases={"a": (1, 2, 64, 64, False, 0, 0), "b": (1, 2, 96, 64, True, 0, 0),
            "d_masked": (1, 2, 64, 64, True, 8, 40)},
@@ -169,7 +217,13 @@ DRY = dict(
     warmup=1, steps=2, opt_iters=2,
     inception=dict(batch=2, size=75, classes=10, dtype=F32), sba_iters=1,
     tiny_inception=(2, 75), block_input=(2, 5),
-    probe_shapes=((2, 6, 32),), probe_iters=1, profile_steps=1)
+    probe_shapes=((2, 6, 32),), probe_iters=1, profile_steps=1,
+    fused_cases={"a": (1, 2, 64, 64, 64, False, 0, 0),
+                 "e_d128": (1, 2, 40, 96, 128, True, 30, 0),
+                 "d_masked": (1, 2, 64, 64, 64, True, 8, 40)},
+    fused_timed=("a",), vprobe_case=(1, 2, 96, 64),
+    gpt=dict(vocab_size=512, d_model=128, num_layers=2, num_heads=2,
+             d_ff=256, max_seq=64), gpt_batch=2, gpt_seq=64)
 
 
 def check(ok: bool, what: str) -> None:
@@ -240,10 +294,18 @@ def unmasked_pairs(sq, sk, causal, q_off, k_off) -> int:
     return int(np.clip(q_off + i - k_off + 1, 0, sk).sum())
 
 
-def bounds(case) -> dict:
-    """Least time per kernel on an H100 SXM: the larger of the bytes it
+def roofline(flops, nbytes, peak=PEAK_FLOPS) -> dict:
+    """Least time of a call on an H100 SXM: the larger of the bytes it
     must move (each input read once, each output written once) over
-    3.35 TB/s and its bf16 tensor-core operations over 989 TFLOP/s."""
+    3.35 TB/s and its operations over ``peak`` (bf16 tensor cores by
+    default)."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return dict(flops=flops, bytes=nbytes, bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops > t_bytes else "bytes")
+
+
+def bounds(case) -> dict:
+    """Each flash kernel's :func:`roofline` at a case."""
     b, h, s, d, causal, q_off, k_off = case
     bh, pairs = b * h, unmasked_pairs(s, s, causal, q_off, k_off)
     mat = 2 * bh * s * d  # bytes of one (B, H, S, D) bf16 tensor
@@ -251,13 +313,7 @@ def bounds(case) -> dict:
     work = {"flash_fwd": (4 * bh * pairs * d, 4 * mat + row),  # q k v o, lse
             "flash_bwd_dq": (6 * bh * pairs * d, 5 * mat + 2 * row),
             "flash_bwd_dkv": (8 * bh * pairs * d, 6 * mat + 2 * row)}
-    out = {}
-    for name, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
-        out[name] = dict(flops=flops, bytes=nbytes,
-                         bound_ms=1e3 * max(t_ops, t_bytes),
-                         bound_by="operations" if t_ops > t_bytes else "bytes")
-    return out
+    return {name: roofline(*w) for name, w in work.items()}
 
 
 def make_inputs(case, device, seed):
@@ -497,10 +553,7 @@ def check_optimizer_kernels(cfg, device) -> dict:
 def adamw_bound(n_elems: int, nbytes: int) -> dict:
     """Least time of an AdamW pass: the larger of its bytes over 3.35 TB/s
     and its 16 float32 operations per element over 67 TFLOP/s."""
-    t_ops, t_bytes = 16 * n_elems / PEAK_F32, nbytes / PEAK_BYTES
-    return dict(flops=16 * n_elems, bytes=nbytes,
-                bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops > t_bytes else "bytes")
+    return roofline(16 * n_elems, nbytes, PEAK_F32)
 
 
 def time_optimizers(cfg, device, iters) -> dict:
@@ -735,6 +788,251 @@ def run_probe(cfg, device) -> tuple:
         f"{probe.BATCH}x{probe.SIZE}x")), rows[0])
     return dict(tool, library_ms=tool["conv_ms"]), worst, \
         probe.LAUNCHES["conv_bn_stats"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 2f: the fused backward B7 against its plain version and dq + dk/dv
+# ---------------------------------------------------------------------------
+
+
+def fused_inputs(case, device, seed):
+    """q and do (B, H, Sq, D), k and v (B, H, Sk, D), bf16."""
+    b, h, sq, sk, d = case[:5]
+    g = torch.Generator(device).manual_seed(seed)
+    return [torch.randn(b, h, s, d, generator=g, device=device).to(BF16)
+            for s in (sq, sk, sk, sq)]
+
+
+def fused_kwargs(case):
+    return dict(causal=case[5], sm_scale=case[4] ** -0.5, q_offset=case[6],
+                k_offset=case[7])
+
+
+def fused_bound(case) -> dict:
+    """B7's :func:`roofline`: its five products of 2 Sq Sk D over the
+    unmasked pairs, against the bf16 tensors q, do, dq (Sq rows) and k, v,
+    dk, dv (Sk rows) and the float32 rows lse, delta (Sq)."""
+    b, h, sq, sk, d, causal, q_off, k_off = case
+    bh = b * h
+    flops = 10 * bh * unmasked_pairs(sq, sk, causal, q_off, k_off) * d
+    return roofline(flops, 2 * bh * d * (3 * sq + 4 * sk) + 8 * bh * sq)
+
+
+def check_fused(name, case, device) -> float:
+    """B7 on bf16 inputs against its plain version on float32 copies (with
+    the plain forward's lse and delta) and against the dq and dk/dv kernels
+    on the same inputs: dq, dk, dv within 2e-2 relative to their norm.
+    Returns the largest absolute error against the plain version."""
+    q, k, v, do = fused_inputs(case, device, seed=len(name) + 10)
+    kw = fused_kwargs(case)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa.compute_delta(o, do)
+    got = fa.flash_bwd_fused(q, k, v, do, lse, delta, **kw)
+    two = (fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+           *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    f = [t.float() for t in (q, k, v, do)]
+    o_ref, lse_ref = fa.flash_fwd_reference(*f[:3], **kw)
+    ref = fa.flash_bwd_fused_reference(
+        *f, lse_ref, fa.compute_delta(o_ref.float(), f[3]), **kw)
+    names = ("dq", "dk", "dv")
+    err_ref = [rel(a, b) for a, b in zip(got, ref)]
+    err_two = [rel(a, b.float()) for a, b in zip(got, two)]
+    worst = max((a.float() - b).abs().max().item() for a, b in zip(got, ref))
+    masked = ~torch.isfinite(lse_ref)
+    b, h, sq, sk, d, causal, q_off, k_off = case
+    log(f"fused case {name} B{b} H{h} Sq{sq} Sk{sk} D{d} causal={causal} "
+        f"q_offset={q_off} k_offset={k_off}: rel to plain "
+        + " ".join(f"{n} {e:.3e}" for n, e in zip(names, err_ref))
+        + "; rel to dq + dk/dv "
+        + " ".join(f"{n} {e:.3e}" for n, e in zip(names, err_two))
+        + f"; fully masked rows {int(masked.sum())}")
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          f"fused case {name}: non-finite gradient")
+    check(bool((got[0][masked] == 0).all()),
+          f"fused case {name}: fully masked rows must get dq 0")
+    for n, e1, e2 in zip(names, err_ref, err_two):
+        check(e1 <= TOL["grad"] and e2 <= TOL["grad"],
+              f"fused case {name}: {n} error {e1} (plain), {e2} (dq + dk/dv)")
+    return worst
+
+
+def aten_flash_backward(q, k, v, do, kw):
+    """PyTorch's one-call flash attention backward on these inputs (its own
+    forward's output and lse), as a function of no argument: a yardstick
+    the port never calls. None on the CPU, which has no such kernel."""
+    if q.device.type != "cuda":
+        return None
+    out = torch.ops.aten._scaled_dot_product_flash_attention(
+        q, k, v, 0.0, kw["causal"], False, scale=kw["sm_scale"])
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        do, q, k, v, out[0], out[1], out[2], out[3], out[4], out[5], 0.0,
+        kw["causal"], out[6], out[7], scale=kw["sm_scale"])
+
+
+def time_fused(name, case, device, iters) -> dict:
+    """B7 timed with CUDA events beside its bound, its plain version, the
+    dq and dk/dv kernels (one call of each, summed) and PyTorch's flash
+    attention backward."""
+    q, k, v, do = fused_inputs(case, device, seed=len(name) + 10)
+    kw = fused_kwargs(case)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa.compute_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    lib = aten_flash_backward(q, k, v, do, kw)
+    row = dict(
+        ms=time_ms(lambda: fa.flash_bwd_fused(*args, **kw), iters, device),
+        plain_ms=time_ms(lambda: fa.flash_bwd_fused_reference(*args, **kw),
+                         iters, device),
+        two_ms=time_ms(lambda: (fa.flash_bwd_dq(*args, **kw),
+                                fa.flash_bwd_dkv(*args, **kw)), iters, device),
+        library_ms=time_ms(lib, iters, device) if lib else None,
+        **fused_bound(case))
+    lib_s = (f"{row['library_ms']:.4f} ms" if lib
+             else "not timed (no such kernel on the CPU)")
+    log(f"timing fused case {name} ({iters} launches each): B7 "
+        f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  dq + dk/dv "
+        f"{row['two_ms']:.4f} ms  aten flash backward {lib_s}  bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+        f"{row['flops'] / 1e9:.2f} GFLOP, {row['bytes'] / 1e6:.1f} MB)  "
+        f"share of bound {row['bound_ms'] / row['ms']:.3f}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 2g: the probe kernels B12-B14 through the flash_vpu_probe module
+# ---------------------------------------------------------------------------
+
+
+#: the probes' data: (name, scale of q, k and v), each drawn with
+#: ``RandomState(0)``. At the tool's scale of 0.3 the scores have a std of
+#: ~0.09 and the softmax is nearly uniform; at unit scale it is peaked.
+VPROBE_DATA = (("tool", 0.3), ("unit", 1.0))
+
+
+def probe_inputs(b, h, s, d, scale, device) -> list:
+    rng = np.random.RandomState(0)
+    return [torch.from_numpy(rng.randn(b, h, s, d).astype(np.float32)
+                             * scale).to(device, BF16) for _ in range(3)]
+
+
+def o_errors(got, want) -> tuple:
+    """(largest absolute error, error relative to the norm of ``want``)."""
+    return (got.float() - want).abs().max().item(), rel(got, want)
+
+
+def check_probes(data, q, k, v, sm) -> dict:
+    """B12, B13 and B14 on bf16 ``q, k, v`` against their plain versions on
+    float32 copies: o within ``TOL["o"]`` abs and ``TOL["o_rel"]`` relative
+    to its norm, lse within ``TOL["lse"]`` abs. Two outputs a wrong kernel
+    could give, attention that weights every key alike (v averaged over
+    the keys) and the plain version at half the sm_scale, must be off by
+    more than ``TOL["o_rel"]``, or the check could not tell them from the
+    right one. Returns the largest absolute error of each kernel."""
+    b, h, s, d = q.shape
+    f = [t.float() for t in (q, k, v)]
+    o_ref, lse_ref = vprobe.simple1_reference(*f, sm)
+    controls = {"uniform attention": f[2].mean(2, keepdim=True)
+                .expand_as(o_ref),
+                "half sm_scale": vprobe.simple1_reference(*f, sm / 2)[0]}
+    for cname, c in controls.items():
+        e = rel(c, o_ref)
+        log(f"probe data {data}: control {cname} is off by {e:.3e} relative "
+            f"(must exceed {TOL['o_rel']})")
+        check(e > TOL["o_rel"], f"probe data {data}: the {cname} control "
+                                f"passes the o limit ({e:.3e})")
+    q2, k2, v2 = vprobe.pack(q, k, v)
+    errs = {}
+    for name in vprobe.PROBES:
+        err_lse = None
+        if name == "pack2":
+            o2 = vprobe.pack2_fwd(q2, k2, v2, sm)
+            want = vprobe.pack2_reference(q2.float(), k2.float(), v2.float(),
+                                          sm)
+            # packed against the packed plain version, and unpacked against
+            # the heads' own attention
+            err_o = [max(a, b_) for a, b_ in zip(
+                o_errors(o2, want),
+                o_errors(o2.reshape(b, h // 2, 2, s, d).reshape(b, h, s, d),
+                         o_ref))]
+        else:
+            o, lse = vprobe.simple1_fwd(q, k, v, sm, name == "simple1_lse")
+            err_o = o_errors(o, o_ref)
+            if lse is not None:
+                err_lse = (lse - lse_ref).abs().max().item()
+        errs[name] = max(err_o[0], err_lse or 0.0)
+        lse_s = "" if err_lse is None else f"  max|lse-ref| {err_lse:.3e}"
+        log(f"probe {name} B{b} H{h} S{s} D{d}, {data} data: max|o-ref| "
+            f"{err_o[0]:.3e}, relative {err_o[1]:.3e}{lse_s} (limits o "
+            f"{TOL['o']} abs and {TOL['o_rel']} relative, lse {TOL['lse']})")
+        check(err_o[0] <= TOL["o"] and err_o[1] <= TOL["o_rel"],
+              f"probe {name}, {data} data: o error {err_o}")
+        check(err_lse is None or err_lse <= TOL["lse"],
+              f"probe {name}, {data} data: lse error {err_lse}")
+    return errs
+
+
+def run_vprobe(cfg, device, iters) -> tuple:
+    """B12, B13 and B14 at ``cfg["vprobe_case"]`` checked on each of
+    :data:`VPROBE_DATA` (:func:`check_probes`), then, on the tool's data,
+    each probe function driven once with the counts set to 0 just before
+    (the launches of the kernels line) and each kernel timed beside its
+    bound (4 S^2 D useful FLOPs per head against its own inputs and
+    outputs) and SDPA's forward. Returns (rows, largest errors,
+    launches)."""
+    b, h, s, d = cfg["vprobe_case"]
+    sm = d ** -0.5
+    errs = {}
+    for data, scale in VPROBE_DATA:
+        for name, e in check_probes(
+                data, *probe_inputs(b, h, s, d, scale, device), sm).items():
+            errs[name] = max(errs.get(name, 0.0), e)
+    q, k, v = probe_inputs(b, h, s, d, VPROBE_DATA[0][1], device)
+    q2, k2, v2 = vprobe.pack(q, k, v)
+    calls = {"simple1": lambda: vprobe.simple1_fwd(q, k, v, sm, False),
+             "simple1_lse": lambda: vprobe.simple1_fwd(q, k, v, sm, True),
+             "pack2": lambda: vprobe.pack2_fwd(q2, k2, v2, sm)}
+
+    vprobe.reset_launch_counts()  # the probe's own entry points, once each
+    for fn in (vprobe.pack2_attention, vprobe.simple1_attention,
+               vprobe.simple1_lse_attention):
+        fn(q, k, v, sm)
+    launches = dict(vprobe.LAUNCHES)
+    log(f"probe functions driven once each: kernel launches {launches}")
+    if device.type == "cuda":
+        check(launches == dict.fromkeys(vprobe.PROBES, 1),
+              f"probe launches {launches}, want one of each")
+
+    useful = 4 * b * h * s * s * d
+    mat = 2 * b * h * s * d  # bytes of one (B, H, S, D) bf16 tensor
+    sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, scale=sm), iters, device)
+    plain = {"simple1": lambda: vprobe.simple1_reference(q, k, v, sm),
+             "simple1_lse": lambda: vprobe.simple1_reference(q, k, v, sm),
+             "pack2": lambda: vprobe.pack2_reference(q2, k2, v2, sm)}
+    nbytes = {"simple1": 4 * mat, "simple1_lse": 4 * mat + 4 * b * h * s,
+              "pack2": 2 * (q2.numel() + k2.numel() + v2.numel()) + mat}
+    rows = {}
+    for name, call in calls.items():
+        rows[name] = dict(ms=time_ms(call, iters, device),
+                          plain_ms=time_ms(plain[name], iters, device),
+                          library_ms=sdpa_ms,
+                          **roofline(useful, nbytes[name]))
+    rows["pack2"]["executed_flops"] = 2 * useful
+    pack_ms = time_ms(lambda: vprobe.pack2_attention(q, k, v, sm), iters,
+                      device)
+    log(f"timing the probe kernels B{b} H{h} S{s} D{d} ({iters} launches "
+        f"each; SDPA forward {sdpa_ms:.4f} ms):")
+    for name, r in rows.items():
+        log(f"  {name:12s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f}"
+            f" ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{r['flops'] / 1e9:.2f} GFLOP useful, {r['bytes'] / 1e6:.1f} MB)"
+            f"  share of bound {r['bound_ms'] / r['ms']:.3f}")
+    log(f"  pack2 executes {rows['pack2']['executed_flops'] / 1e9:.2f} GFLOP "
+        f"(twice the useful work); pack2_attention with the torch packing "
+        f"{pack_ms:.4f} ms")
+    return rows, errs, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1025,7 +1323,8 @@ def train(cfg, device, card, path="hooks", profile=False) -> dict:
     check(counts == want, f"{path}: collectives {counts}, want {want}")
     if dev.type == "cuda":
         want_launches = {k: steps * per_step[1].get(k, 0) for k in launches}
-        want_launches.update(dict.fromkeys(fa.LAUNCHES, n_layers * steps))
+        want_launches.update(dict.fromkeys(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), n_layers * steps))
         check(launches == want_launches,
               f"{path}: kernel launches {launches}, want {want_launches}")
     step_s = statistics.median(times)
@@ -1158,6 +1457,117 @@ def train_inception(cfg, device, card, profile=False) -> dict:
     return dict(losses=losses, launches=launches, step_ms=1e3 * step_s)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the GPT-2-small slice, with each backward
+# ---------------------------------------------------------------------------
+
+
+def train_gpt(cfg, device, card, fused: bool, profile=False) -> dict:
+    """The bench's GPT-2 row (``transformer_main("gpt2")``), eager, one
+    process: ``hvd.init()``, ``GPT2Small`` from seed 0 on ``hvd.device()``,
+    ``broadcast_parameters``, ``DistributedOptimizer(AdamW(1e-4,
+    weight_decay=1e-4))``, the bench's tokens, the full-logits
+    ``causal_lm_loss``, 2 warm-up and 10 timed steps. ``fused`` sets
+    ``FLASH_FUSED_BWD=1`` for the run (unset otherwise)."""
+    batch, seq = cfg["gpt_batch"], cfg["gpt_seq"]
+    vocab = cfg["gpt"]["vocab_size"]
+    tokens = np.random.RandomState(0).randint(  # bench.py:454-455
+        0, vocab, (batch, seq)).astype(np.int32)
+    if fused:
+        os.environ[env.FLASH_FUSED_BWD] = "1"
+    else:
+        os.environ.pop(env.FLASH_FUSED_BWD, None)
+    try:
+        fa.reset_launch_counts()
+        collectives.COUNTS.update(dict.fromkeys(collectives.COUNTS, 0))
+        hvd.init(device=None if device.type == "cuda" else "cpu")
+        dev = hvd.device()
+        model = GPT2Small(**cfg["gpt"], device=dev, seed=0)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        params = dict(model.named_parameters())
+        zero_grad, update, _ = make_step("hooks", model, params, dev)
+        toks = torch.from_numpy(tokens).to(dev)
+        n_tensors, n_broadcast = len(params), len(model.state_dict())
+        n_params = sum(p.numel() for p in params.values())
+        n_layers, d_model = len(model.layers), model.token_embed.shape[1]
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+
+        def step():
+            zero_grad()
+            loss = causal_lm_loss(model(toks), toks)
+            loss.backward()
+            update()
+            return loss.detach()
+
+        losses, times = [], []
+        steps = cfg["warmup"] + cfg["steps"]
+        for i in range(steps):
+            t0 = time.perf_counter()
+            losses.append(step().item())  # waits for the step's last kernel
+            if i >= cfg["warmup"]:
+                times.append(time.perf_counter() - t0)
+        launches = dict(fa.LAUNCHES)
+        counts = dict(collectives.COUNTS)
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        step_s = statistics.median(times)
+        if profile:
+            breakdown(step, dev, step_s, cfg["profile_steps"])
+        del model, params, update, zero_grad, step
+        hvd.shutdown()
+        free_memory(device)
+    finally:
+        os.environ.pop(env.FLASH_FUSED_BWD, None)
+
+    bwd = "fused backward B7" if fused else "dq + dk/dv"
+    log(f"slice (GPT-2, {bwd}): {n_layers} layers x {d_model}, "
+        f"{n_params / 1e6:.1f}M params in {n_tensors} tensors, vocab {vocab},"
+        f" batch {batch} x seq {seq}, {cfg['warmup']} warm-up + "
+        f"{cfg['steps']} timed steps")
+    log("  losses: " + " ".join(f"{x:.4f}" for x in losses))
+    log(f"  kernel launches: {launches}; collectives: {counts}")
+    check(all(math.isfinite(x) for x in losses), f"GPT-2 ({bwd}): non-finite "
+                                                 f"loss")
+    check(losses[-1] < losses[0], f"GPT-2 ({bwd}): loss did not fall: "
+                                  f"{losses}")
+    want = {k: 0 for k in counts}
+    want.update(allreduce=n_tensors * steps, broadcast=n_broadcast)
+    check(counts == want, f"GPT-2 ({bwd}): collectives {counts}, want {want}")
+    if dev.type == "cuda":
+        per_step = dict(flash_fwd=n_layers, flash_bwd_dq=0, flash_bwd_dkv=0,
+                        flash_bwd_fused=0)
+        per_step.update(dict(flash_bwd_fused=n_layers) if fused else
+                        dict(flash_bwd_dq=n_layers, flash_bwd_dkv=n_layers))
+        want_launches = {k: steps * n for k, n in per_step.items()}
+        check(launches == want_launches,
+              f"GPT-2 ({bwd}): kernel launches {launches}, want "
+              f"{want_launches}")
+        # FLOPs/token as bench.py:498-503 counts them: 6N + the causal half
+        # of the attention term
+        flops_per_token = 6 * n_params + 12 * n_layers * seq * d_model // 2
+        tok_s = batch * seq / step_s
+        where = f"({card})"
+        log(f"  step {1e3 * step_s:.2f} ms median (mean "
+            f"{1e3 * statistics.mean(times):.2f} ms) {where}")
+        log(f"  tokens/s {tok_s:.1f} {where}")
+        log(f"  MFU {tok_s * flops_per_token / PEAK_FLOPS:.4f} against 989 "
+            f"TFLOP/s bf16, {flops_per_token / 1e9:.3f} GFLOP/token {where}")
+        log(f"  max_memory_allocated {peak / 2**30:.2f} GiB {where}")
+    return dict(losses=losses, launches=launches, step_ms=1e3 * step_s)
+
+
+def compare_gpt_runs(two: dict, fused: dict) -> None:
+    """The two backwards on the same weights, data and AdamW: losses within
+    1e-3 relative at every step, a tenth of one step's fall (bf16 compute;
+    the fused kernel sums dq in another order than the dq kernel)."""
+    worst = max(abs(a - b) / abs(b) for a, b in zip(fused["losses"],
+                                                    two["losses"]))
+    log(f"GPT-2 losses, fused backward vs dq + dk/dv: largest relative "
+        f"difference {worst:.3e} (limit 1e-3)")
+    check(worst <= 1e-3, f"GPT-2 losses of the two backwards differ by "
+                         f"{worst:.3e}")
+
+
 GROUPS = (  # kernel-name fragments -> group, first match wins
     ("flash_", "attention kernels (port)"),
     ("sba_kernel", "BN + ReLU kernel B10 (port)"),
@@ -1240,8 +1650,14 @@ def main() -> int:
               flush=True)
         return 1
     cfg = DRY if dry else FULL
+    # phase 7 sets the fused backward's switch for its second run only
+    os.environ.pop(env.FLASH_FUSED_BWD, None)
     device = torch.device("cpu" if dry else "cuda")
-    if not dry:  # float32 references: no TF32 in matmuls or convolutions
+    if dry:
+        # the tiny sizes gain nothing from more threads, and on a busy host
+        # a full thread pool spins against the other processes' pools
+        torch.set_num_threads(1)
+    else:  # float32 references: no TF32 in matmuls or convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     card = environment(dry)
@@ -1267,6 +1683,17 @@ def main() -> int:
     rows["sba"] = time_sba(shapes, device, cfg["sba_iters"])
     rows["conv_bn_stats"], errs["conv_bn_stats"], probe_launches = \
         run_probe(cfg, device)
+    errs["flash_bwd_fused"] = max(check_fused(name, case, device)
+                                  for name, case in cfg["fused_cases"].items())
+    log(f"fused backward agrees with its plain version and with dq + dk/dv "
+        f"in every case (limit: grads {TOL['grad']} relative)")
+    fused_rows = {name: time_fused(name, cfg["fused_cases"][name], device,
+                                   cfg["iters"])
+                  for name in cfg["fused_timed"]}
+    rows["flash_bwd_fused"] = fused_rows[cfg["fused_timed"][-1]]  # GPT-2's
+    vrows, verrs, vprobe_launches = run_vprobe(cfg, device, cfg["iters"])
+    rows.update(vrows)
+    errs.update(verrs)
     tiny_model_check(cfg, device)
     tiny_inception_check(cfg, device)
     runs = {path: train(cfg, device, card, path, args.profile)
@@ -1275,6 +1702,9 @@ def main() -> int:
     if args.turns > 1:
         compare_in_turns(cfg, device, card, runs, args.turns)
     inception = train_inception(cfg, device, card, args.profile)
+    gpt = {fused: train_gpt(cfg, device, card, fused, args.profile)
+           for fused in (False, True)}
+    compare_gpt_runs(gpt[False], gpt[True])
     if dry:
         log("DRY RUN complete: control flow rehearsed; no result line")
         return 0
@@ -1284,7 +1714,9 @@ def main() -> int:
                 "adamw_multi": runs["fused"]["launches"]["adamw_multi"],
                 "flat_adamw": runs["zero"]["launches"]["flat_adamw"],
                 "sba": inception["launches"]["sba"],
-                "conv_bn_stats": probe_launches}
+                "conv_bn_stats": probe_launches,
+                "flash_bwd_fused": gpt[True]["launches"]["flash_bwd_fused"],
+                **vprobe_launches}
     kernels = [dict(name=name, route="cuda", source=KERNELS[name][0],
                     replaces=KERNELS[name][1], launches=launches[name],
                     max_abs_err=errs[name], ms=rows[name]["ms"],

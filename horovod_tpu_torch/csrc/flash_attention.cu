@@ -1,11 +1,12 @@
-// Flash attention for Hopper (sm_90a): a forward kernel, a dq kernel and a
-// dk/dv kernel, behind a plain C interface (loaded with ctypes by
-// horovod_tpu_torch/ops/flash_attention.py).
+// Flash attention for Hopper (sm_90a): a forward kernel, a dq kernel, a
+// dk/dv kernel and a fused dq/dk/dv kernel, behind a plain C interface
+// (loaded with ctypes by horovod_tpu_torch/ops/flash_attention.py).
 //
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/pallas/flash_attention.py:
 //   flash_fwd_kernel     <- _fwd_kernel (:109) and _fwd_single_kernel (:205)
 //   flash_bwd_dq_kernel  <- _bwd_dq_kernel (:395) and _bwd_dq_single_kernel (:523)
 //   flash_bwd_dkv_kernel <- _bwd_dkv_kernel (:456) and _bwd_dkv_single_kernel (:591)
+//   flash_bwd_fused_kernel <- _bwd_single_kernel (:654), FLASH_FUSED_BWD=1
 // The TPU splits each function into a single-block and a multi-block kernel
 // because its VMEM holds a whole 1024-key extent; that is TPU tuning. Here
 // one tiled kernel per function takes any sequence length and masks the
@@ -42,121 +43,20 @@
 // loads are synchronous (no cp.async/TMA pipeline) and the products are
 // mma.sync, not wgmma, so it reaches a fraction of either bound. A wgmma/TMA
 // pipeline is later work.
+//
+// The fused backward computes s and p once for all three gradients, as the
+// TPU kernel does, but not over the TPU's whole-extent block: a 1024 x 1024
+// f32 score block is 4 MB against 227 KB of shared memory. One block per
+// batch*head (the TPU grid) walks 64-key blocks with dk and dv in
+// registers and sums dq in a float32 scratch of its own (below). Its five
+// products over the unmasked pairs bound it by operations: 64.5 GFLOP, 65 us
+// at GPT-2's shape (B16 H12 S1024 D64, causal). 192 blocks of 4 warps on 132
+// SMs leave most of each SM idle, so it is slower than dq + dk/dv there: the
+// TPU measured the same loss (the kernel's docstring).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "mma_tiles.cuh"
 
 namespace {
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-// Rows of the block's own side: queries for forward and dq, keys for dk/dv.
-// Each warp owns 16 of them (one m16 tile).
-constexpr int kRows = kWarps * 16;
-// bf16 elements of padding per shared-memory row (16 bytes).
-constexpr int kPad = 8;
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a * b for one m16n8k16 tile: bf16 operands, f32 accumulator.
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
-//   A (16x16): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
-//   B (16x8):  b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
-//   C (16x8):  c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
-
-// A fragment at (row0, col0) of a row-major shared tile.
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* s, int stride,
-                                       int row0, int col0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* p = s + (row0 + g) * stride + col0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * stride);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * stride + 8);
-}
-
-// B fragment from a shared tile that holds B transposed, row-major: row n of
-// the tile is column n of B, and k runs along the row.
-__device__ __forceinline__ void load_b(uint32_t b[2], const bf16* s, int stride,
-                                       int n0, int k0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* p = s + (n0 + g) * stride + k0 + 2 * t;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// Two neighbouring 16x8 accumulator tiles, rounded to bf16, are the A
-// fragment of a 16x16 operand (k columns 16kk..16kk+15 from tiles 2kk, 2kk+1).
-__device__ __forceinline__ void c_to_a(uint32_t a[4], const float c0[4],
-                                       const float c1[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// Rows [row0, row0 + rows) of an (S, D) bf16 matrix into a row-major shared
-// tile; rows past S are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* s, int stride, const bf16* g,
-                                          int row0, int rows, int S) {
-  constexpr int kVec = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < rows * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < S)
-      v = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(s + r * stride + c) = v;
-  }
-}
-
-// The same rows stored transposed: element (r, c) goes to s[c * stride + r].
-template <int D>
-__device__ __forceinline__ void load_tile_t(bf16* s, int stride, const bf16* g,
-                                            int row0, int rows, int S) {
-  constexpr int kVec = D / 8;
-  for (int i = threadIdx.x; i < rows * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < S)
-      v = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * D + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[(c + j) * stride + r] = e[j];
-  }
-}
-
-// Number of keys [0, n) that some query of rows [q_lo, q_hi) may see under
-// the causal mask (all of them when not causal).
-__device__ __forceinline__ int visible_keys(int Sk, int causal, int q_offset,
-                                            int k_offset, int q_hi) {
-  if (!causal) return Sk;
-  const long long lim = (long long)q_offset + q_hi - 1 - k_offset;  // last j
-  if (lim < 0) return 0;
-  return lim + 1 < Sk ? (int)(lim + 1) : Sk;
-}
 
 // ---------------------------------------------------------------------------
 // Forward: one block per (64 query rows, batch*head); loop over key blocks
@@ -465,11 +365,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int krow_lo = k0 + warp * 16 + g;  // this thread's keys: krow_lo, +8
 
   // Query blocks wholly before the block's first key see none of its keys.
-  int qstart = 0;
-  if (causal) {
-    const long long first = (long long)k_offset + k0 - q_offset;
-    qstart = first <= 0 ? 0 : (first >= Sq ? Sq : (int)first);
-  }
+  const int qstart = first_query(Sq, causal, q_offset, k_offset, k0);
   for (int q0 = (qstart / BM) * BM; q0 < Sq; q0 += BM) {
     __syncthreads();
     load_tile<D>(sQ, kStr, q, q0, BM, Sq);
@@ -549,15 +445,222 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Launchers. Shared memory above 48 KB needs the attribute set once per
-// kernel instance; a launch that is refused shows in cudaGetLastError().
+// Fused backward (B7): dq, dk and dv in one pass. One block per batch*head
+// walks the key blocks of kRows; for each it keeps dk and dv in registers
+// and walks the query blocks of BM that see it. s and p are computed once
+// per (key block, query block) and give all three products:
+//   dv += p^T do, dk += ds^T q (per warp, its 16 keys), and
+//   dq[query block] += ds k (the whole block, through shared memory).
+// dq is summed in float32 in dq_acc, a (Sq, D) scratch of this block alone:
+// each thread always owns the same elements of every query block, so the
+// sum runs in a fixed order (key block 0, 1, ...) with no atomics and no
+// barrier, and the same thread casts it to bf16 at the end.
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t launch_prep(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+template <int D, int BM>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv,
+                       float* __restrict__ dq_acc, int Sq, int Sk,
+                       float sm_scale, int causal, int q_offset,
+                       int k_offset) {
+  static_assert(kWarps % (BM / 16) == 0, "warps must tile the dq block");
+  constexpr int kStr = D + kPad;      // rows of D: k, v, q, do
+  constexpr int kStrT = BM + kPad;    // transposed q and do (query along row)
+  constexpr int kStrK = kRows + kPad; // transposed k and ds (key along row)
+  // dq block (BM x D) split among the warps: a 16-row tile and kDqN
+  // n8 tiles of columns each
+  constexpr int kDqN = BM * D / (16 * 8 * kWarps);
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);  // kRows x kStr
+  bf16* sV = sK + kRows * kStr;              // kRows x kStr
+  bf16* sKt = sV + kRows * kStr;             // D x kStrK
+  bf16* sQ = sKt + D * kStrK;                // BM x kStr
+  bf16* sQt = sQ + BM * kStr;                // D x kStrT
+  bf16* sO = sQt + D * kStrT;                // BM x kStr   (do)
+  bf16* sOt = sO + BM * kStr;                // D x kStrT   (do transposed)
+  bf16* sDs = sOt + D * kStrT;               // BM x kStrK  (ds, query rows)
+  float* sL = reinterpret_cast<float*>(sDs + BM * kStrK);  // BM: lse * log2e
+  float* sDl = sL + BM;                                    // BM: delta
+
+  const size_t bh = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  q += bh * Sq * D;
+  dout += bh * Sq * D;
+  dq += bh * Sq * D;
+  dq_acc += bh * Sq * D;
+  k += bh * Sk * D;
+  v += bh * Sk * D;
+  dk += bh * Sk * D;
+  dv += bh * Sk * D;
+  lse += bh * Sq;
+  delta += bh * Sq;
+
+  const float c = sm_scale * kLog2e;
+  const int dq_row = (warp % (BM / 16)) * 16;          // this warp's dq tile
+  const int dq_col = (warp / (BM / 16)) * kDqN * 8;
+
+  for (int k0 = 0; k0 < Sk; k0 += kRows) {
+    __syncthreads();  // the previous key block is done with sK, sV, sKt
+    load_tile<D>(sK, kStr, k, k0, kRows, Sk);
+    load_tile<D>(sV, kStr, v, k0, kRows, Sk);
+    load_tile_t<D>(sKt, kStrK, k, k0, kRows, Sk);
+
+    float ak[D / 8][4], av[D / 8][4];  // dk and dv of this warp's 16 keys
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      ak[n][0] = ak[n][1] = ak[n][2] = ak[n][3] = 0.f;
+      av[n][0] = av[n][1] = av[n][2] = av[n][3] = 0.f;
+    }
+    const int krow_lo = k0 + warp * 16 + g;  // this thread's keys: +0, +8
+    const int qstart = first_query(Sq, causal, q_offset, k_offset, k0);
+    for (int q0 = (qstart / BM) * BM; q0 < Sq; q0 += BM) {
+      __syncthreads();  // the previous query block is done with its tiles
+      load_tile<D>(sQ, kStr, q, q0, BM, Sq);
+      load_tile_t<D>(sQt, kStrT, q, q0, BM, Sq);
+      load_tile<D>(sO, kStr, dout, q0, BM, Sq);
+      load_tile_t<D>(sOt, kStrT, dout, q0, BM, Sq);
+      for (int i = threadIdx.x; i < BM; i += kThreads) {
+        const bool in = q0 + i < Sq;
+        const float x = in ? lse[q0 + i] : 0.f;
+        sL[i] = (x == -INFINITY ? 0.f : x) * kLog2e;
+        sDl[i] = in ? delta[q0 + i] : 0.f;
+      }
+      __syncthreads();
+
+      // s^T = k q^T and dp^T = v do^T for this warp's 16 keys
+      float s[BM / 8][4], dp[BM / 8][4];
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4], a2[4];
+        load_a(a, sK, kStr, warp * 16, kk * 16, lane);
+        load_a(a2, sV, kStr, warp * 16, kk * 16, lane);
+#pragma unroll
+        for (int j = 0; j < BM / 8; ++j) {
+          uint32_t b[2];
+          load_b(b, sQ, kStr, j * 8, kk * 16, lane);
+          mma16816(s[j], a, b);
+          load_b(b, sO, kStr, j * 8, kk * 16, lane);
+          mma16816(dp[j], a2, b);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int cl = j * 8 + 2 * t + (e & 1);  // query, local
+          const int col = q0 + cl;
+          const int rl = warp * 16 + g + ((e >> 1) << 3);  // key, local
+          const int row = k0 + rl;
+          const bool masked = col >= Sq || row >= Sk ||
+                              (causal && q_offset + col < k_offset + row);
+          const float p = masked ? 0.f : exp2f(s[j][e] * c - sL[cl]);
+          const float ds = p * (dp[j][e] - sDl[cl]) * sm_scale;
+          s[j][e] = p;
+          dp[j][e] = ds;
+          sDs[cl * kStrK + rl] = __float2bfloat16(ds);  // rounded as in c_to_a
+        }
+      // dv += p^T do, dk += ds^T q (contraction over the block's queries)
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) {
+        uint32_t pa[4], da[4];
+        c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+        c_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          uint32_t b[2];
+          load_b(b, sOt, kStrT, n * 8, kk * 16, lane);
+          mma16816(av[n], pa, b);
+          load_b(b, sQt, kStrT, n * 8, kk * 16, lane);
+          mma16816(ak[n], da, b);
+        }
+      }
+      __syncthreads();  // every warp's ds is in sDs
+
+      // dq[block] += ds k over the key block: this warp's 16 x (8 kDqN) tile
+      float aq[kDqN][4];
+#pragma unroll
+      for (int n = 0; n < kDqN; ++n)
+        aq[n][0] = aq[n][1] = aq[n][2] = aq[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        uint32_t a[4];
+        load_a(a, sDs, kStrK, dq_row, kk * 16, lane);
+#pragma unroll
+        for (int n = 0; n < kDqN; ++n) {
+          uint32_t b[2];
+          load_b(b, sKt, kStrK, dq_col + n * 8, kk * 16, lane);
+          mma16816(aq[n], a, b);
+        }
+      }
+      // key block 0 is the first to visit any query block (the query blocks
+      // a key block sees only shrink as k0 grows): it stores, later ones add
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + dq_row + g + 8 * r;
+        if (row >= Sq) continue;
+#pragma unroll
+        for (int n = 0; n < kDqN; ++n) {
+          float2* p = reinterpret_cast<float2*>(
+              dq_acc + (size_t)row * D + dq_col + n * 8 + 2 * t);
+          float2 x = make_float2(aq[n][2 * r], aq[n][2 * r + 1]);
+          if (k0 > 0) {
+            const float2 y = *p;
+            x.x += y.x;
+            x.y += y.y;
+          }
+          *p = x;
+        }
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = krow_lo + 8 * r;
+      if (row >= Sk) continue;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const size_t off = (size_t)row * D + n * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(dk + off) =
+            pack_bf16(ak[n][2 * r], ak[n][2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off) =
+            pack_bf16(av[n][2 * r], av[n][2 * r + 1]);
+      }
+    }
+  }
+
+  // dq to bf16 by the threads that summed it; query blocks that key block 0
+  // never visited see no key at all, so their dq is 0.
+  const int qstart0 = first_query(Sq, causal, q_offset, k_offset, 0);
+  const int visited0 = qstart0 < Sq ? (qstart0 / BM) * BM : Sq;
+  for (int q0 = 0; q0 < Sq; q0 += BM)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + dq_row + g + 8 * r;
+      if (row >= Sq) continue;
+#pragma unroll
+      for (int n = 0; n < kDqN; ++n) {
+        const size_t off = (size_t)row * D + dq_col + n * 8 + 2 * t;
+        float2 x = make_float2(0.f, 0.f);
+        if (q0 >= visited0) x = *reinterpret_cast<const float2*>(dq_acc + off);
+        *reinterpret_cast<uint32_t*>(dq + off) = pack_bf16(x.x, x.y);
+      }
+    }
 }
+
+// ---------------------------------------------------------------------------
+// Launchers (launch_prep: mma_tiles.cuh)
+// ---------------------------------------------------------------------------
 
 template <int D, int BN>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -609,6 +712,26 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
+template <int D, int BM>
+int launch_bwd_fused(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dq, void* dk, void* dv, void* dq_acc, int BH,
+                     int Sq, int Sk, float sm_scale, int causal, int q_offset,
+                     int k_offset, cudaStream_t stream) {
+  constexpr size_t smem =
+      sizeof(bf16) * ((2 * kRows + 2 * BM) * (D + kPad) +
+                      (D + BM) * (kRows + kPad) + 2 * D * (BM + kPad)) +
+      sizeof(float) * 2 * BM;
+  static const cudaError_t prep =
+      launch_prep(flash_bwd_fused_kernel<D, BM>, smem);
+  if (prep != cudaSuccess) return prep;
+  flash_bwd_fused_kernel<D, BM><<<BH, kThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dq, (bf16*)dk, (bf16*)dv,
+      (float*)dq_acc, Sq, Sk, sm_scale, causal, q_offset, k_offset);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The C interface. Each returns a cudaError_t (0 on success); the tile
@@ -654,6 +777,23 @@ int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (D == 128)
     return launch_dkv<128, 32>(q, k, v, dout, lse, delta, dk, dv, BH, Sq, Sk,
                                sm_scale, causal, q_offset, k_offset, s);
+  return cudaErrorInvalidValue;
+}
+
+int hvd_flash_bwd_fused(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dq, void* dk, void* dv, void* dq_acc, int BH,
+                        int Sq, int Sk, int D, float sm_scale, int causal,
+                        int q_offset, int k_offset, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D == 64)
+    return launch_bwd_fused<64, 64>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                    dq_acc, BH, Sq, Sk, sm_scale, causal,
+                                    q_offset, k_offset, s);
+  if (D == 128)
+    return launch_bwd_fused<128, 32>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                     dq_acc, BH, Sq, Sk, sm_scale, causal,
+                                     q_offset, k_offset, s);
   return cudaErrorInvalidValue;
 }
 

@@ -13,7 +13,11 @@ model constructors and the losses). Numerics follow the flax modules:
 * the output projection is tied to the token embedding, and the gathered
   MLM head casts the embedding to ``dtype`` (``:387``, ``:433``);
 * attention runs :func:`horovod_tpu_torch.ops.flash_attention` (the Hopper
-  kernels on the card, the plain version on the CPU).
+  kernels on the card, the plain version on the CPU; ``FLASH_FUSED_BWD=1``
+  sends its backward to the fused kernel);
+* :func:`causal_lm_loss_chunked` projects the vocab a chunk of positions at
+  a time under ``torch.utils.checkpoint``, as the JAX package's
+  ``jax.checkpoint`` scan does.
 
 The KV-cache ``decode``/``paged`` serving branches are not ported yet.
 Weights carry across from the JAX package with ``models/convert.py``.
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from horovod_tpu_torch.ops.flash_attention import flash_attention
 from horovod_tpu_torch.utils.device import resolve
@@ -193,6 +198,8 @@ BertLarge = partial(Transformer, d_model=1024, num_layers=24, num_heads=16,
 # GPT family (causal decoders).
 GPT2Small = partial(Transformer, d_model=768, num_layers=12, num_heads=12,
                     d_ff=3072, max_seq=1024, causal=True)
+GPT2Medium = partial(Transformer, d_model=1024, num_layers=24, num_heads=16,
+                     d_ff=4096, max_seq=1024, causal=True)
 
 
 def _cross_entropy(logits, labels):
@@ -226,6 +233,38 @@ def masked_lm_loss_gathered(hidden, embed_matrix, positions, labels,
 def causal_lm_loss(logits, token_ids):
     """Next-token prediction: shift-by-one cross-entropy."""
     return _cross_entropy(logits[:, :-1], token_ids[:, 1:]).mean()
+
+
+def _chunk_loss(hidden, emb, labels, weights):
+    logits = (hidden @ emb.T).float()
+    return (_cross_entropy(logits, labels) * weights).sum()
+
+
+def causal_lm_loss_chunked(hidden, embed_matrix, token_ids, chunk: int = 128):
+    """Next-token cross-entropy ``chunk`` positions at a time, the tied vocab
+    projection inside the loop, so the (batch, seq, vocab) float32 logits
+    never exist. Each chunk runs under ``torch.utils.checkpoint``: its
+    logits are recomputed in the backward instead of kept. Equals
+    :func:`causal_lm_loss` of the full logits up to float32 summation order.
+    ``hidden`` (batch, seq, d) from ``model(..., output="hidden")``,
+    ``embed_matrix`` the tied (vocab, d) embedding, ``token_ids`` (batch,
+    seq); ``chunk`` must divide seq."""
+    b, s, _ = hidden.shape
+    if s % chunk:
+        raise ValueError(f"chunk ({chunk}) must divide seq ({s})")
+    emb = embed_matrix.to(hidden.dtype)
+    # position i predicts token i+1; the last position is weighted 0 so
+    # every chunk is alike
+    labels = torch.cat([token_ids[:, 1:], token_ids.new_zeros(b, 1)], dim=1)
+    weights = torch.ones(b, s, device=hidden.device)
+    weights[:, -1] = 0.0
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, s, chunk):
+        c = slice(c0, c0 + chunk)
+        total = total + checkpoint(_chunk_loss, hidden[:, c], emb,
+                                   labels[:, c], weights[:, c],
+                                   use_reentrant=False)
+    return total / (b * (s - 1))
 
 
 def sample_masked_positions(rng: np.random.Generator, batch: int, seq: int,

@@ -9,12 +9,21 @@ are the global positions of the first query/key row, so the causal mask
 ``q_offset + i >= k_offset + j`` follows global positions (ring attention).
 A row whose keys are all masked gives ``o = 0`` and ``lse = -inf``.
 
-Three CUDA kernels (``csrc/flash_attention.cu``) do the work on the card:
-the forward, dq, and dk/dv. Each has a plain PyTorch version beside it here
-(``*_reference``), written from the JAX package's ``attention_reference``
-and the backward formulas. A wrapper runs the plain version only for a
-tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
-Each wrapper counts its launches in :data:`LAUNCHES`.
+Four CUDA kernels (``csrc/flash_attention.cu``) do the work on the card:
+the forward, dq, dk/dv, and the fused dq/dk/dv backward. Each has a plain
+PyTorch version beside it here (``*_reference``), written from the JAX
+package's ``attention_reference`` and the backward formulas. A wrapper runs
+the plain version only for a tensor on the CPU; for a CUDA tensor it
+launches the kernel or raises. Each wrapper counts its launches in
+:data:`LAUNCHES`.
+
+The backward takes the fused kernel when ``FLASH_FUSED_BWD=1`` and both
+extents are at most :data:`FUSED_MAX_SEQ` (the JAX package's rule at its
+default backward blocks of 1024, ``flash_attention.py:741-742``); else dq
+and dk/dv. The switch is read at each backward call (the JAX package reads
+it when it traces). ``FLASH_MXU_BF16`` is not read: the kernels always
+feed bf16 to the tensor cores and round p and dS to bf16, which is that
+switch's bf16 side.
 """
 
 from __future__ import annotations
@@ -26,12 +35,17 @@ from typing import Optional, Tuple
 import torch
 
 from horovod_tpu_torch.ops import kernel_build
+from horovod_tpu_torch.utils import env
 
 NEG_INF = float("-inf")
 HEAD_DIMS = (64, 128)
+#: longest query or key extent the fused backward takes under the switch
+#: (the JAX package's default backward block)
+FUSED_MAX_SEQ = 1024
 
 #: kernel launches since the last :func:`reset_launch_counts`, per kernel
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_bwd_fused": 0}
 
 
 def reset_launch_counts() -> None:
@@ -45,7 +59,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.hvd_flash_fwd.argtypes = [P] * 5 + scalars
     lib.hvd_flash_bwd_dq.argtypes = [P] * 7 + scalars
     lib.hvd_flash_bwd_dkv.argtypes = [P] * 8 + scalars
-    for fn in (lib.hvd_flash_fwd, lib.hvd_flash_bwd_dq, lib.hvd_flash_bwd_dkv):
+    lib.hvd_flash_bwd_fused.argtypes = [P] * 10 + scalars
+    for fn in (lib.hvd_flash_fwd, lib.hvd_flash_bwd_dq, lib.hvd_flash_bwd_dkv,
+               lib.hvd_flash_bwd_fused):
         fn.restype = ctypes.c_int
     lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
     lib.hvd_cuda_error_string.restype = ctypes.c_char_p
@@ -109,6 +125,18 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, *, causal, sm_scale,
     dv = p.transpose(-1, -2) @ do.float()
     dk = ds.transpose(-1, -2) @ q.float()
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_fused_reference(q, k, v, do, lse, delta, *, causal, sm_scale,
+                              q_offset, k_offset):
+    """Plain fused backward: p once, then dv = p^T do, ds = p (do.v -
+    delta) sm_scale, dq = ds k and dk = ds^T q from it."""
+    p = _probs(q, k, lse, causal, sm_scale, q_offset, k_offset)
+    ds = _dscores(p, v, do, delta, sm_scale)
+    dv = p.transpose(-1, -2) @ do.float()
+    dq = ds @ k.float()
+    dk = ds.transpose(-1, -2) @ q.float()
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def compute_delta(o, do) -> torch.Tensor:
@@ -226,6 +254,36 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal, sm_scale, q_offset,
     return dk, dv
 
 
+def flash_bwd_fused(q, k, v, do, lse, delta, *, causal, sm_scale, q_offset,
+                    k_offset):
+    """(dq, dk, dv) from one kernel that computes s and p once. The kernel
+    for CUDA tensors; it takes any extent, but the backward sends it only
+    extents up to :data:`FUSED_MAX_SEQ`. It sums dq in a float32 scratch of
+    (B, H, Sq, D) that the wrapper allocates."""
+    kw = dict(causal=causal, sm_scale=sm_scale, q_offset=q_offset,
+              k_offset=k_offset)
+    if _on_cpu(q, k, v, do, lse, delta):
+        return flash_bwd_fused_reference(q, k, v, do, lse, delta, **kw)
+    _check_kernel_inputs(q, k, v, do)
+    _check_rows(q, lse, delta)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    err = _lib().hvd_flash_bwd_fused(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dq_acc.data_ptr(), *_scalars(q, k, **kw))
+    _raise_on(err, "flash fused backward")
+    LAUNCHES["flash_bwd_fused"] += 1
+    return dq, dk, dv
+
+
+def uses_fused_bwd(q, k) -> bool:
+    """Whether a backward over these inputs takes the fused kernel:
+    ``FLASH_FUSED_BWD`` set and both extents within :data:`FUSED_MAX_SEQ`."""
+    return (env.flash_fused_bwd() and q.shape[2] <= FUSED_MAX_SEQ
+            and k.shape[2] <= FUSED_MAX_SEQ)
+
+
 def _check_rows(q, lse, delta):
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != q.shape[:3] or t.dtype != torch.float32 \
@@ -235,8 +293,8 @@ def _check_rows(q, lse, delta):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward kernel, then the dq and dk/dv kernels in the backward
-    (the ``jax.custom_vjp`` of the JAX package)."""
+    """Forward kernel, then the fused kernel or the dq and dk/dv kernels in
+    the backward (the ``jax.custom_vjp`` of the JAX package)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, q_offset, k_offset):
@@ -252,8 +310,11 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
         delta = compute_delta(o, do)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, **ctx.kw)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **ctx.kw)
+        if uses_fused_bwd(q, k):
+            dq, dk, dv = flash_bwd_fused(q, k, v, do, lse, delta, **ctx.kw)
+        else:
+            dq = flash_bwd_dq(q, k, v, do, lse, delta, **ctx.kw)
+            dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **ctx.kw)
         return dq, dk, dv, None, None, None, None
 
 

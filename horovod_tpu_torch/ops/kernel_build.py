@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` holds kernels behind a plain C interface. It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/horovod_tpu_torch/`` at the root of the checkout, named by a hash of
-the source and its flags (:data:`NVCC_FLAGS` plus the source's own
-:data:`EXTRA_FLAGS`), so an edited source is rebuilt and an unchanged
+the source, the ``csrc`` headers it includes (``#include "..."``) and its
+flags (:data:`NVCC_FLAGS` plus the source's own :data:`EXTRA_FLAGS`), so an
+edited source or header rebuilds the sources that use it and an unchanged
 one is built once. Nothing is built at import: the first call that needs a
 kernel builds it (or :func:`build` does, for every source at once).
 
@@ -23,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -39,6 +41,7 @@ EXTRA_FLAGS: Dict[str, tuple] = {"adamw": ("-fmad=false",),
                                  "conv_bn_act": ("-fmad=false",)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def nvcc() -> str:
@@ -58,8 +61,20 @@ def flags(name: str) -> tuple:
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, directly or
+    through another header, in the order first met."""
+    files = [CSRC / f"{name}.cu"]
+    for f in files:  # grows while it is walked
+        for inc in _LOCAL_INCLUDE.findall(f.read_bytes()):
+            header = CSRC / inc.decode()
+            if header not in files:
+                files.append(header)
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in sources(name))
     digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

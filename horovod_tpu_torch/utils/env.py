@@ -1,6 +1,6 @@
 """Environment knobs the port reads (port of ``horovod_tpu/utils/env.py``:
-the parsing helpers, the launcher's identity contract and the fusion
-bucket quantum)."""
+the parsing helpers, the launcher's identity contract, the fusion bucket
+quantum, and the flash attention's ``FLASH_FUSED_BWD`` switch)."""
 
 from __future__ import annotations
 
@@ -23,6 +23,12 @@ HOROVOD_LOG_HIDE_TIME = "HOROVOD_LOG_HIDE_TIME"
 HOROVOD_FUSION_BUCKET_QUANTUM = "HOROVOD_FUSION_BUCKET_QUANTUM"
 DEFAULT_FUSION_BUCKET_QUANTUM_BYTES = 64 * 1024
 
+# Fused attention backward (reference: horovod_tpu/ops/pallas/
+# flash_attention.py:741-742): "1" sends a backward whose query and key
+# extents both fit one 1024 block to the one kernel that writes dq, dk and
+# dv together; unset or "0" keeps the dq and dk/dv kernels.
+FLASH_FUSED_BWD = "FLASH_FUSED_BWD"
+
 
 def _get_int(name: str, default: int) -> int:
     value = os.environ.get(name)
@@ -39,3 +45,10 @@ def _get_bool(name: str, default: bool = False) -> bool:
     if value is None or value == "":
         return default
     return value.strip().lower() not in ("0", "false", "no", "off", "")
+
+
+def flash_fused_bwd() -> bool:
+    """``FLASH_FUSED_BWD``, default off. The JAX package reads it when it
+    traces the backward; the port runs eagerly and reads it at each
+    backward call, so a change takes effect at the next backward."""
+    return _get_bool(FLASH_FUSED_BWD, False)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-flash attention (csrc/flash_attention.cu) within stated tolerances, the
+flash attention and its fused backward (csrc/flash_attention.cu) and the
+attention probes (csrc/attention_probe.cu) within stated tolerances, the
 AdamW kernels (csrc/adamw.cu) and the fused BN + ReLU (csrc/conv_bn_act.cu)
 bit for bit, and the conv + BN-statistics probe (csrc/conv_bn_stats.cu)
 within the JAX tool's limits.
@@ -19,6 +20,7 @@ import torch
 from horovod_tpu_torch.ops import conv_bn_act as tcba
 from horovod_tpu_torch.ops import flash_attention as tfa
 from horovod_tpu_torch.tools import conv_bn_probe as tprobe
+from horovod_tpu_torch.tools import flash_vpu_probe as tvprobe
 
 
 @pytest.fixture
@@ -71,20 +73,121 @@ def test_kernels_match_plain_on_card(cuda, shape, causal, offsets):
 
 
 @pytest.mark.gpu
-def test_autograd_runs_the_kernels(cuda):
+def test_autograd_runs_the_kernels(cuda, monkeypatch):
     """``flash_attention`` on CUDA tensors launches the forward, dq and
-    dk/dv kernels once each, and its gradients match the plain path."""
+    dk/dv kernels once each (the fused backward's switch unset), and its
+    gradients match the plain path."""
+    monkeypatch.delenv("FLASH_FUSED_BWD", raising=False)
     g = torch.Generator(cuda).manual_seed(1)
     q, k, v = (torch.randn(2, 4, 128, 64, generator=g, device=cuda)
                .to(torch.bfloat16).requires_grad_() for _ in range(3))
     tfa.reset_launch_counts()
     tfa.flash_attention(q, k, v, causal=True).float().square().sum().backward()
     assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1,
-                            "flash_bwd_dkv": 1}
+                            "flash_bwd_dkv": 1, "flash_bwd_fused": 0}
     qf, kf, vf = (t.detach().float().cpu().requires_grad_() for t in (q, k, v))
     tfa.flash_attention(qf, kf, vf, causal=True).square().sum().backward()
     for a, b in ((q, qf), (k, kf), (v, vf)):
         assert _rel(a.grad.cpu(), b.grad) <= 3e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,causal,offsets", [
+    ((2, 4, 512, 512, 64), False, (0, 0)),    # BERT's shape class
+    ((1, 2, 1000, 1000, 64), True, (0, 0)),   # ragged edge, 16 key blocks
+    ((1, 2, 300, 700, 128), True, (400, 0)),  # head_dim 128, Sq != Sk
+    ((1, 2, 256, 256, 64), True, (16, 80)),   # fully masked rows
+])
+def test_fused_backward_matches_plain_on_card(cuda, shape, causal, offsets):
+    """B7 on bf16 inputs against its plain version on float32 copies and
+    against the dq and dk/dv kernels: each gradient within 2e-2 relative to
+    its norm; fully masked rows get dq 0."""
+    b, h, sq, sk, d = shape
+    g = torch.Generator(cuda).manual_seed(5)
+    q, do = (torch.randn(b, h, sq, d, generator=g, device=cuda)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, h, sk, d, generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    kw = dict(causal=causal, sm_scale=d ** -0.5, q_offset=offsets[0],
+              k_offset=offsets[1])
+    o, lse = tfa.flash_fwd(q, k, v, **kw)
+    delta = tfa.compute_delta(o, do)
+    tfa.reset_launch_counts()
+    got = tfa.flash_bwd_fused(q, k, v, do, lse, delta, **kw)
+    assert tfa.LAUNCHES["flash_bwd_fused"] == 1
+    two = (tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+           *tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    torch.cuda.synchronize()
+    f = [t.float() for t in (q, k, v, do)]
+    o_ref, lse_ref = tfa.flash_fwd_reference(*f[:3], **kw)
+    ref = tfa.flash_bwd_fused_reference(
+        *f, lse_ref, tfa.compute_delta(o_ref.float(), f[3]), **kw)
+    for a, r, t in zip(got, ref, two):
+        assert torch.isfinite(a).all()
+        assert _rel(a, r) <= 2e-2
+        assert _rel(a, t.float()) <= 2e-2
+    assert (got[0][~torch.isfinite(lse_ref)] == 0).all()
+
+
+@pytest.mark.gpu
+def test_autograd_under_the_switch_runs_the_fused_kernel(cuda, monkeypatch):
+    """With ``FLASH_FUSED_BWD=1`` the backward launches B7 once and neither
+    dq nor dk/dv, and its gradients match the plain path."""
+    monkeypatch.setenv("FLASH_FUSED_BWD", "1")
+    g = torch.Generator(cuda).manual_seed(6)
+    q, k, v = (torch.randn(2, 4, 192, 64, generator=g, device=cuda)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    tfa.reset_launch_counts()
+    tfa.flash_attention(q, k, v, causal=True).float().square().sum().backward()
+    assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0, "flash_bwd_fused": 1}
+    qf, kf, vf = (t.detach().float().cpu().requires_grad_() for t in (q, k, v))
+    tfa.flash_attention(qf, kf, vf, causal=True).square().sum().backward()
+    for a, b in ((q, qf), (k, kf), (v, vf)):
+        assert _rel(a.grad.cpu(), b.grad) <= 3e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,d", [(512, 64), (96, 64), (200, 128)])
+def test_probe_kernels_match_plain_on_card(cuda, s, d):
+    """B14 and B13 (o, lse) and, at head_dim 64, B12 on packed heads (S 96:
+    a 64-row tile straddles the half select at S) against their plain
+    versions on float32 copies: o within 2e-2 abs and 1e-2 relative to its
+    norm, lse within 2e-3 abs. On the tool's data (scale 0.3) the softmax
+    is nearly uniform, so unit-scale data, where it is peaked, is checked
+    too; on both, uniform attention and half the sm_scale must miss the
+    relative limit."""
+    sm = d ** -0.5
+    tvprobe.reset_launch_counts()
+    for seed, scale in ((7, 0.3), (8, 1.0)):
+        g = torch.Generator(cuda).manual_seed(seed)
+        q, k, v = (scale * torch.randn(2, 4, s, d, generator=g, device=cuda)
+                   .to(torch.bfloat16) for _ in range(3))
+        f = [t.float() for t in (q, k, v)]
+        o_ref, lse_ref = tvprobe.simple1_reference(*f, sm)
+        assert _rel(f[2].mean(2, keepdim=True).expand_as(o_ref), o_ref) > 1e-2
+        assert _rel(tvprobe.simple1_reference(*f, sm / 2)[0], o_ref) > 1e-2
+        o, none = tvprobe.simple1_fwd(q, k, v, sm, with_lse=False)
+        o2, lse = tvprobe.simple1_fwd(q, k, v, sm, with_lse=True)
+        torch.cuda.synchronize()
+        assert none is None
+        for got in (o, o2):
+            assert (got.float() - o_ref).abs().max().item() <= 2e-2
+            assert _rel(got, o_ref) <= 1e-2
+        assert (lse - lse_ref).abs().max().item() <= 2e-3
+        if d == 64:
+            q2, k2, v2 = tvprobe.pack(q, k, v)
+            p = tvprobe.pack2_fwd(q2, k2, v2, sm)
+            ref = tvprobe.pack2_reference(q2.float(), k2.float(), v2.float(),
+                                          sm)
+            whole = tvprobe.pack2_attention(q, k, v, sm)
+            torch.cuda.synchronize()
+            for got, want in ((p, ref), (whole, o_ref)):
+                assert (got.float() - want).abs().max().item() <= 2e-2
+                assert _rel(got, want) <= 1e-2
+    n = 2  # one launch of each entry point for each of the two data
+    assert tvprobe.LAUNCHES == {"simple1": n, "simple1_lse": n,
+                                "pack2": 2 * n if d == 64 else 0}
 
 
 def _adam_leaf(n, dtypes, gen, device):

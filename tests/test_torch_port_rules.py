@@ -22,6 +22,7 @@ from horovod_tpu_torch.ops import fused_adamw as tadam
 from horovod_tpu_torch.ops import kernel_build
 from horovod_tpu_torch.ops import fused_optimizer as topt
 from horovod_tpu_torch.tools import conv_bn_probe as tprobe
+from horovod_tpu_torch.tools import flash_vpu_probe as tvprobe
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
@@ -200,6 +201,62 @@ def test_cuda_tensor_does_not_fall_back_conv_bn_stats(no_card, monkeypatch):
     assert tprobe.LAUNCHES == before
 
 
+def test_cuda_tensor_does_not_fall_back_fused_backward(no_card, monkeypatch):
+    """Under ``FLASH_FUSED_BWD=1`` a backward over tensors taken as CUDA
+    ones reaches B7's build and raises: no plain result, no dq + dk/dv in
+    its place, no launch counted."""
+    q = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 16)
+    args = (q, q, q, q, lse, lse)
+    kw = dict(causal=True, sm_scale=0.125, q_offset=0, k_offset=0)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        tfa.flash_bwd_fused(*(t.to("meta") for t in args), **kw)
+    _raises_without_nvcc(monkeypatch)
+    monkeypatch.setattr(tfa, "_on_cpu", lambda *t: False)
+    monkeypatch.setenv("FLASH_FUSED_BWD", "1")
+    before = dict(tfa.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tfa.flash_bwd_fused(*args, **kw)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tfa._FlashAttention.backward(
+            type("Ctx", (), {"saved_tensors": (q, q, q, q, lse), "kw": kw}),
+            q)
+    assert tfa.LAUNCHES == before
+
+
+def test_cuda_tensor_does_not_fall_back_attention_probes(no_card,
+                                                         monkeypatch):
+    q = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        tvprobe.simple1_attention(q.to("meta"), q.to("meta"), q.to("meta"),
+                                  0.125)
+    _raises_without_nvcc(monkeypatch)
+    before = dict(tvprobe.LAUNCHES)
+    for fn in (tvprobe.pack2_attention, tvprobe.simple1_attention,
+               tvprobe.simple1_lse_attention):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            fn(q, q, q, 0.125)
+    assert tvprobe.LAUNCHES == before
+
+
+def test_library_hash_covers_only_the_headers_a_source_includes(
+        tmp_path, monkeypatch):
+    """A library is keyed by its source and the csrc headers it includes,
+    also through another header: editing a header rebuilds the sources
+    that use it and no other."""
+    (tmp_path / "a.cu").write_text('#include <stdint.h>\n#include "t.cuh"\n')
+    (tmp_path / "b.cu").write_text("#include <stdint.h>\n")
+    (tmp_path / "t.cuh").write_text('#include "u.cuh"\n')
+    (tmp_path / "u.cuh").write_text("// v1\n")
+    monkeypatch.setattr(kernel_build, "CSRC", tmp_path)
+    assert [p.name for p in kernel_build.sources("a")] == ["a.cu", "t.cuh",
+                                                           "u.cuh"]
+    before = {n: kernel_build.library_path(n) for n in "ab"}
+    (tmp_path / "u.cuh").write_text("// v2\n")
+    assert kernel_build.library_path("a") != before["a"]
+    assert kernel_build.library_path("b") == before["b"]
+
+
 def _smoke(*args):
     return subprocess.run([sys.executable, "chip_smoke.py", *args],
                           cwd=REPO, capture_output=True, text=True,
@@ -228,7 +285,15 @@ def test_chip_smoke_cpu_rehearsal_prints_no_result(no_card):
                   "conv_bn_stats 2x6x6x32->32",
                   "tiny Inception-V3 2 x 75^2 on cpu",
                   "InceptionE train mode on cpu",
-                  "slice (Inception-V3)"):
+                  "slice (Inception-V3)", "fused case e_d128",
+                  "timing fused case a", "probe pack2 B1 H2 S96 D64",
+                  "probe data tool: control uniform attention",
+                  "probe data unit: control half sm_scale",
+                  "probe simple1_lse B1 H2 S96 D64, unit data",
+                  "probe functions driven once each",
+                  "timing the probe kernels", "slice (GPT-2, dq + dk/dv)",
+                  "slice (GPT-2, fused backward B7)",
+                  "GPT-2 losses, fused backward vs dq + dk/dv"):
         assert phase in out.stdout, phase
     assert "BERT-Large MLM" in out.stdout
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout

@@ -10,7 +10,12 @@ Phases (any failure exits non-zero):
    build the kernels from ``horovod_tpu_torch/csrc`` (flash_attention.cu,
    adamw.cu, conv_bn_act.cu, conv_bn_stats.cu and attention_probe.cu: one
    nvcc per source, started together) and print what ptxas reports
-   (registers, spills).
+   (registers, spills). The witness that the attention forward is the
+   Hopper design: ``cuobjdump -sass`` of the flash_attention and
+   attention_probe libraries must show HGMMA (wgmma), UTMALDG (TMA loads)
+   and SYNCS (mbarriers) instructions in every instance of
+   flash_fwd_kernel and probe_fwd_kernel, and ptxas must report no wgmma
+   serialised.
 2. Flash-attention kernels against their plain PyTorch versions, in bf16 on
    the card, with the plain version run on float32 copies of the same bf16
    inputs: (a) B8 H16 S512 D64 (BERT-Large), (b) B16 H12 S1024 D64 causal
@@ -18,7 +23,10 @@ Phases (any failure exits non-zero):
    past; rows with every key masked). Limits: o 2e-2 abs, lse 2e-3 abs,
    dq/dk/dv 2e-2 relative to their norm. Then each kernel, its plain
    version and ``scaled_dot_product_attention`` (a yardstick the port never
-   calls) are timed with CUDA events at (a) and (b), beside their bounds.
+   calls) are timed at (a), (b) and (c), beside their bounds. Every time in
+   the script is ``utils.measure.time_ms``: CUDA events around a replay of
+   a CUDA graph of back-to-back calls, so no host time between launches
+   enters a kernel's reading, the yardsticks' or the plain versions'.
 2b. The AdamW kernels against their plain versions on the card, on copies
    of the same inputs with the same float32 scalars, for 3 steps: the
    multi-tensor kernel over BERT-Large's 388 parameter shapes and over a
@@ -70,7 +78,7 @@ Phases (any failure exits non-zero):
 Between them: 2d. kernel B10 (fused BN + ReLU) bit-equal to its plain
 version at every distinct BN input of Inception-V3 at batch 32 (bf16),
 three of them in f32, ragged C (3, 7, 1000) and 5 elements; then timed
-over one forward's 94 calls (device time from torch.profiler). 2e. kernel
+over one forward's 94 calls. 2e. kernel
 B11 (3x3 conv + BN statistics) through
 ``horovod_tpu_torch.tools.conv_bn_probe`` at its four ResNet-50 shapes
 (batch 128; 14 x 14 x 256 is the tool's own), within the tool's limits of
@@ -136,7 +144,7 @@ from horovod_tpu_torch.tools import conv_bn_probe as probe
 from horovod_tpu_torch.tools import flash_vpu_probe as vprobe
 from horovod_tpu_torch.training import make_train_step
 from horovod_tpu_torch.utils import env
-from horovod_tpu_torch.utils.measure import card_line, kernel_ms, time_ms
+from horovod_tpu_torch.utils.measure import card_line, time_ms
 
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -189,7 +197,7 @@ FULL = dict(
            "c": (1, 4, 2048, 128, True, 0, 0),
            "d_past": (2, 4, 512, 64, True, 512, 0),
            "d_masked": (2, 4, 512, 64, True, 64, 200)},
-    timed=("a", "b"), iters=50,
+    timed=("a", "b", "c"), iters=50,
     tiny=dict(vocab_size=512, d_model=128, num_layers=2, num_heads=2,
               d_ff=512, max_seq=128), tiny_batch=2,
     model=dict(vocab_size=30522, max_seq=512), batch=8, seq=512,
@@ -242,17 +250,79 @@ def log(msg: str) -> None:
 
 
 def kernel_name(line: str) -> str:
-    """The kernel of a ptxas line, template arguments demangled:
-    ..flash_fwd_kernelILi64ELi64EEv.. -> flash_fwd_kernel<64,64>,
-    ..flat_adamw_kernelI13__nv_bfloat16fEEv.. -> flat_adamw_kernel<bf16,f32>,
+    """The kernel of a ptxas or cuobjdump line, template arguments
+    demangled (the names nest in an anonymous namespace):
+    .._ZN<namespace>16flash_fwd_kernelILi64EEEv.. -> flash_fwd_kernel<64>,
+    ..16probe_fwd_kernelILi128ELi64ELb0EEEv.. ->
+    probe_fwd_kernel<128,64,false>,
+    ..17flat_adamw_kernelI13__nv_bfloat16fEEv.. ->
+    flat_adamw_kernel<bf16,f32>,
     ..adamw_multi_kernelI13__nv_bfloat16S1_ffEEv.. -> <bf16,bf16,f32,f32>."""
-    m = re.search(r"((?:[a-z]+_)+kernel)I(.*?)Ev", line)
+    m = re.search(r"_Z(N?)(\w+)", line)
     if not m:
-        return line.split("'")[1]
+        return line.strip()
+    mangled, name = m.group(2), ""
+    while mangled[:1].isdigit():  # <length><name>, the last one the kernel
+        digits = re.match(r"\d+", mangled).group(0)
+        end = len(digits) + int(digits)
+        name, mangled = mangled[len(digits):end], mangled[end:]
+        if not m.group(1):
+            break
+    t = re.match(r"I(.*?)Ev", mangled)
+    if not t:
+        return name
     # a repeated bf16 is mangled as a back-reference, S<n>_
-    args = [t.group(1) or {"f": "f32"}.get(t.group(0), "bf16") for t in
-            re.finditer(r"Li(\d+)E|13__nv_bfloat16|S\d*_|f", m.group(2))]
-    return f"{m.group(1)}<{','.join(args)}>"
+    names = {"f": "f32", "Lb0E": "false", "Lb1E": "true"}
+    args = [a.group(1) or names.get(a.group(0), "bf16") for a in re.finditer(
+        r"Li(\d+)E|Lb[01]E|13__nv_bfloat16|S\d*_|f", t.group(1))]
+    return f"{name}<{','.join(args)}>"
+
+
+#: the kernels built on the wgmma + TMA mainloop, by library, and the SASS
+#: instructions that show it: HGMMA (wgmma), UTMALDG (TMA loads), SYNCS
+#: (mbarriers)
+WGMMA_KERNELS = {"flash_attention": "flash_fwd_kernel",
+                 "attention_probe": "probe_fwd_kernel"}
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
+
+
+def sass_counts(name: str) -> dict:
+    """{kernel: {op: count}} over the SASS of the built library ``name``
+    (``cuobjdump -sass``), for the ops of :data:`SASS_OPS`."""
+    tool = os.path.join(os.path.dirname(kernel_build.nvcc()), "cuobjdump")
+    lib = str(kernel_build.library_path(name))
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    op = re.compile(r"\s(" + "|".join(SASS_OPS) + r")[.\s]")
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = kernel_name(line)
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn and (m := op.search(line)):
+            counts[fn][m.group(1)] += 1
+    return counts
+
+
+def wgmma_witness() -> None:
+    """The forward kernels reached the card as designed: each instance of
+    :data:`WGMMA_KERNELS` has HGMMA, UTMALDG and SYNCS instructions, and
+    ptxas serialised no wgmma (its ``Potential Performance Loss``
+    warning)."""
+    for lib, kernel in WGMMA_KERNELS.items():
+        serial = [line.strip() for line in
+                  kernel_build.build_log(lib).splitlines()
+                  if "wgmma" in line and "serialized" in line]
+        for line in serial:
+            log(f"  ptxas {lib}: {line}")
+        check(not serial, f"ptxas serialised wgmma in {lib}")
+        found = {fn: c for fn, c in sass_counts(lib).items()
+                 if fn.startswith(kernel + "<")}
+        check(bool(found), f"no {kernel} in the SASS of {lib}")
+        for fn, c in sorted(found.items()):
+            log(f"  SASS {fn}: " + ", ".join(f"{n} {op}"
+                                             for op, n in c.items()))
+            check(all(c.values()), f"{fn} lacks one of {SASS_OPS}: {c}")
 
 
 def environment(dry: bool) -> str:
@@ -278,6 +348,7 @@ def environment(dry: bool) -> str:
             elif fn and ("registers" in line or "spill" in line
                          or "smem" in line):
                 log(f"  ptxas {fn}: {line.split(':', 1)[-1].strip()}")
+    wgmma_witness()
     return card
 
 
@@ -392,13 +463,16 @@ def time_case(name, case, device, iters) -> dict:
     bnd = bounds(case)
     rows = {}
     for kname, (kernel, plain) in calls.items():
-        ms, plain_ms = time_ms(kernel, iters, device), time_ms(plain, iters,
-                                                                device)
-        rows[kname] = dict(ms=ms, plain_ms=plain_ms, **bnd[kname])
+        rows[kname] = dict(ms=time_ms(kernel, iters, device),
+                           plain_ms=time_ms(plain, iters, device),
+                           **bnd[kname])
     # yardstick only: PyTorch's fused attention, which the port never calls
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=kw["causal"],
-                                   scale=kw["sm_scale"]), iters, device)
+
+    def sdpa_fwd():
+        return sdpa(q, k, v, is_causal=kw["causal"], scale=kw["sm_scale"])
+
+    lib_fwd = time_ms(sdpa_fwd, iters, device)
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
 
     def fwd_bwd():
@@ -410,16 +484,19 @@ def time_case(name, case, device, iters) -> dict:
     for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
         rows[kname]["library_ms"] = None  # no single call computes it alone
     log(f"timing case {name} B{case[0]} H{case[1]} S{case[2]} D{case[3]} "
-        f"causal={case[4]} ({iters} launches each):")
+        f"causal={case[4]} ({iters} calls each in a CUDA graph):")
     for kname, r in rows.items():
-        log(f"  {kname:14s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f}"
-            f" ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+        log(f"  {kname:14s} kernel {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
             f"{r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.1f} MB)  "
             f"share of bound {r['bound_ms'] / r['ms']:.3f}")
     back = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
-    log(f"  yardstick scaled_dot_product_attention: forward {lib_fwd:.4f} ms,"
-        f" forward+backward {lib_fb:.4f} ms (port: forward "
-        f"{rows['flash_fwd']['ms']:.4f} ms, dq+dk/dv {back:.4f} ms)")
+    log(f"  yardstick scaled_dot_product_attention: forward {lib_fwd:.4f} ms, "
+        f"forward+backward {lib_fb:.4f} ms (port: forward "
+        f"{rows['flash_fwd']['ms']:.4f} ms, "
+        f"{rows['flash_fwd']['ms'] / lib_fwd:.2f}x SDPA's; dq+dk/dv "
+        f"{back:.4f} ms)")
     return rows
 
 
@@ -571,6 +648,8 @@ def time_optimizers(cfg, device, iters) -> dict:
     for p, g in zip(ps, gs):
         p.grad = g
     n = sum(p.numel() for p in ps)
+    # on the card the timer replays the step in a CUDA graph
+    hyper["capturable"] = device.type == "cuda"
     fused = torch.optim.AdamW(ps, fused=True, **hyper)
     foreach = torch.optim.AdamW(ps, foreach=True, **hyper)
     rows["adamw_multi"] = dict(
@@ -733,25 +812,22 @@ def check_sba(shapes, device) -> float:
 
 def time_sba(shapes, device, repeats) -> dict:
     """B10 and its plain version over the 94 BN inputs of one forward
-    (each shape as often as the model calls it): device time from the
-    profiler, beside the bound (each call reads and writes its bf16
-    activation once and reads s and b, 8 C bytes, at 3.35 TB/s) and the
-    host-inclusive time of the same calls (CUDA events)."""
+    (each shape as often as the model calls it), beside the bound (each
+    call reads and writes its bf16 activation once and reads s and b, 8 C
+    bytes, at 3.35 TB/s)."""
     inputs = {s: sba_inputs(s, BF16, device, seed=0) for s in set(shapes)}
 
     def forward(fn):
         return lambda: [fn(*inputs[s]) for s in shapes]
 
-    row = dict(ms=kernel_ms(forward(cba.sba), repeats, device),
-               plain_ms=kernel_ms(forward(cba.sba_plain), repeats, device),
-               wall_ms=time_ms(forward(cba.sba), repeats, device),
+    row = dict(ms=time_ms(forward(cba.sba), repeats, device),
+               plain_ms=time_ms(forward(cba.sba_plain), repeats, device),
                bound_ms=sum(1e3 * (4 * math.prod(s) + 8 * s[1]) / PEAK_BYTES
                             for s in shapes),
                bound_by="bytes", library_ms=None)  # no single torch call
     log(f"timing sba over one Inception-V3 forward ({len(shapes)} calls, "
         f"{len(inputs)} shapes, {repeats} repeats): kernel {row['ms']:.4f} ms"
-        f" of device time ({row['wall_ms']:.4f} ms with the host's launch "
-        f"gaps)  plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f}"
+        f"  plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f}"
         f" ms (bytes)  share of bound {row['bound_ms'] / row['ms']:.3f}")
     return row
 
@@ -872,7 +948,7 @@ def aten_flash_backward(q, k, v, do, kw):
 
 
 def time_fused(name, case, device, iters) -> dict:
-    """B7 timed with CUDA events beside its bound, its plain version, the
+    """B7 timed beside its bound, its plain version, the
     dq and dk/dv kernels (one call of each, summed) and PyTorch's flash
     attention backward."""
     q, k, v, do = fused_inputs(case, device, seed=len(name) + 10)
@@ -891,7 +967,7 @@ def time_fused(name, case, device, iters) -> dict:
         **fused_bound(case))
     lib_s = (f"{row['library_ms']:.4f} ms" if lib
              else "not timed (no such kernel on the CPU)")
-    log(f"timing fused case {name} ({iters} launches each): B7 "
+    log(f"timing fused case {name} ({iters} calls each in a CUDA graph): B7 "
         f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  dq + dk/dv "
         f"{row['two_ms']:.4f} ms  aten flash backward {lib_s}  bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
@@ -1006,8 +1082,9 @@ def run_vprobe(cfg, device, iters) -> tuple:
 
     useful = 4 * b * h * s * s * d
     mat = 2 * b * h * s * d  # bytes of one (B, H, S, D) bf16 tensor
-    sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, scale=sm), iters, device)
+    sdpa_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, scale=sm), iters, device)
     plain = {"simple1": lambda: vprobe.simple1_reference(q, k, v, sm),
              "simple1_lse": lambda: vprobe.simple1_reference(q, k, v, sm),
              "pack2": lambda: vprobe.pack2_reference(q2, k2, v2, sm)}
@@ -1019,19 +1096,21 @@ def run_vprobe(cfg, device, iters) -> tuple:
                           plain_ms=time_ms(plain[name], iters, device),
                           library_ms=sdpa_ms,
                           **roofline(useful, nbytes[name]))
-    rows["pack2"]["executed_flops"] = 2 * useful
+    rows["pack2"]["executed_flops"] = 3 * useful // 2
     pack_ms = time_ms(lambda: vprobe.pack2_attention(q, k, v, sm), iters,
                       device)
-    log(f"timing the probe kernels B{b} H{h} S{s} D{d} ({iters} launches "
-        f"each; SDPA forward {sdpa_ms:.4f} ms):")
+    log(f"timing the probe kernels B{b} H{h} S{s} D{d} ({iters} calls "
+        f"each in a CUDA graph; SDPA forward {sdpa_ms:.4f} ms):")
     for name, r in rows.items():
-        log(f"  {name:12s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f}"
-            f" ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
-            f"{r['flops'] / 1e9:.2f} GFLOP useful, {r['bytes'] / 1e6:.1f} MB)"
-            f"  share of bound {r['bound_ms'] / r['ms']:.3f}")
+        log(f"  {name:12s} kernel {r['ms']:.4f} ms ({r['ms'] / sdpa_ms:.2f}x "
+            f"SDPA's)  plain "
+            f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['flops'] / 1e9:.2f} GFLOP useful, "
+            f"{r['bytes'] / 1e6:.1f} MB)  share of bound "
+            f"{r['bound_ms'] / r['ms']:.3f}")
     log(f"  pack2 executes {rows['pack2']['executed_flops'] / 1e9:.2f} GFLOP "
-        f"(twice the useful work); pack2_attention with the torch packing "
-        f"{pack_ms:.4f} ms")
+        f"(1.5x the useful work: the zero half of q2 k2^T); pack2_attention "
+        f"with the torch packing {pack_ms:.4f} ms")
     return rows, errs, launches
 
 

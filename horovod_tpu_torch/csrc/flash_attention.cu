@@ -22,27 +22,36 @@
 // Inputs are bf16, contiguous (B, H, S, D) with D in {64, 128}, 16-byte
 // aligned; the Python wrapper checks all of that before it launches.
 //
-// Precision: every product takes bf16 operands and accumulates in f32
-// (mma.sync m16n8k16). The probability tile p and the dS tile are rounded
-// to bf16 before their products, as FLASH_MXU_BF16=1 does on the TPU. The
-// softmax max, exp2 and row sums stay f32: the row sum adds the f32 p, so
-// lse is exact to float32 and the backward, which recomputes p from lse,
-// sees the true softmax; only the p.v product sees bf16 p.
+// Precision: every product takes bf16 operands and accumulates in f32. The
+// probability tile p and the dS tile are rounded to bf16 before their
+// products, as FLASH_MXU_BF16=1 does on the TPU. The softmax max, exp2 and
+// row sums stay f32: the row sum adds the f32 p, so lse is exact to float32
+// and the backward, which recomputes p from lse, sees the true softmax;
+// only the p.v product sees bf16 p.
 //
-// What bounds it on this card: at the BERT-Large shape (B8 H16 S512 D64,
-// non-causal) the forward moves 33.8 MB and does 8.6 GFLOP: 10.1 us of HBM
-// at 3.35 TB/s against 8.7 us of bf16 tensor-core time at 989 TFLOP/s, so it
-// is bound by bytes. dq (12.9 GFLOP, 42.5 MB) and dk/dv (17.2 GFLOP,
-// 50.9 MB) are bound by operations (13.0 and 17.4 us).
-// What the design does about it: the (S, S) score matrix never leaves
-// registers, so HBM sees each operand about once per 64-row block of the
-// block's own side (q for forward and dq, k for dk/dv). Tiles are staged in
-// shared memory with 8 elements of padding per row, so the 32-bit fragment
-// loads of a warp hit 32 distinct banks; the products are warp-level
-// mma.sync on the tensor cores. This is the simple, right first version:
-// loads are synchronous (no cp.async/TMA pipeline) and the products are
-// mma.sync, not wgmma, so it reaches a fraction of either bound. A wgmma/TMA
-// pipeline is later work.
+// The forward, flash_fwd_kernel, runs the Hopper mainloop of
+// attention_fwd_sm90.cuh (shared with the attention probes): TMA loads of K
+// and V through a ring of shared-memory stages fed by a producer warp,
+// two consumer warpgroups of 64 query rows each, wgmma for q k^T (both
+// operands from shared memory) and for p v (p from registers, v MN-major
+// from shared memory). What bounds it: at the BERT-Large shape (a) (B8 H16
+// S512 D64, non-causal) it moves 33.8 MB and does 8.6 GFLOP: 10.1 us of
+// HBM at 3.35 TB/s against 8.7 us of bf16 tensor-core time at 989 TFLOP/s;
+// at GPT-2's shape (b) (B16 H12 S1024 D64, causal) 101.4 MB and 25.8 GFLOP
+// over the unmasked pairs: 30.3 us against 26.1 us. Both are bound by
+// bytes, the operations close behind. What the design does about it: each
+// operand is read from HBM about once per 128-row query block (K and V of a
+// head stay in L2 across its blocks), the (S, S) scores never leave
+// registers, the copies run ahead of the products through the stage ring,
+// and the products run at the wgmma rate, not mma.sync's.
+//
+// The three backward kernels are the first, simple design: warp-level
+// mma.sync m16n8k16 on tiles loaded synchronously by every thread into
+// shared memory padded by 8 elements a row (mma_tiles.cuh), dS and p
+// recomputed from lse. dq (12.9 GFLOP, 42.5 MB) and dk/dv (17.2 GFLOP,
+// 50.9 MB) at (a) are bound by operations (13.0 and 17.4 us); they reach a
+// fraction of it (PERF.md). Their redesign onto wgmma and TMA is later
+// work (ROADMAP B2).
 //
 // The fused backward computes s and p once for all three gradients, as the
 // TPU kernel does, but not over the TPU's whole-extent block: a 1024 x 1024
@@ -54,141 +63,25 @@
 // SMs leave most of each SM idle, so it is slower than dq + dk/dv there: the
 // TPU measured the same loss (the kernel's docstring).
 
+#include "attention_fwd_sm90.cuh"
 #include "mma_tiles.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// Forward: one block per (64 query rows, batch*head); loop over key blocks
-// of BN with an online softmax (running max m, sum l, accumulator acc).
+// Forward: one block per (128 query rows, batch*head) on the shared Hopper
+// mainloop (attention_fwd_sm90.cuh); q, k and v come in as tensor maps.
 // ---------------------------------------------------------------------------
 
-template <int D, int BN>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int Sq, int Sk, float sm_scale,
-                 int causal, int q_offset, int k_offset) {
-  constexpr int kStr = D + kPad;   // stride of the q and k tiles
-  constexpr int kStrT = BN + kPad; // stride of the transposed v tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // kRows x kStr
-  bf16* sK = sQ + kRows * kStr;              // BN x kStr
-  bf16* sVt = sK + BN * kStr;                // D x kStrT
-
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  q += bh * Sq * D;
-  o += bh * Sq * D;
-  k += bh * Sk * D;
-  v += bh * Sk * D;
-  lse += bh * Sq;
-
-  load_tile<D>(sQ, kStr, q, q0, kRows, Sq);
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    load_a(qa[kk], sQ, kStr, warp * 16, kk * 16, lane);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  const float c = sm_scale * kLog2e;
-  const int row_lo = q0 + warp * 16 + g;  // this thread's rows: row_lo, +8
-
-  const int q_hi = min(q0 + kRows, Sq);
-  const int nk = visible_keys(Sk, causal, q_offset, k_offset, q_hi);
-  for (int k0 = 0; k0 < nk; k0 += BN) {
-    __syncthreads();  // the previous iteration is done with sK and sVt
-    load_tile<D>(sK, kStr, k, k0, BN, Sk);
-    load_tile_t<D>(sVt, kStrT, v, k0, BN, Sk);
-    __syncthreads();
-
-    float s[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b[2];
-        load_b(b, sK, kStr, j * 8, kk * 16, lane);
-        mma16816(s[j], qa[kk], b);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const int row = row_lo + ((e >> 1) << 3);
-        const bool masked =
-            col >= Sk || (causal && q_offset + row < k_offset + col);
-        s[j][e] = masked ? -INFINITY : s[j][e] * c;
-      }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      // a row with every key masked so far shifts by 0, so p is 0, not NaN
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = exp2f(m[r] - m_safe);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          const float p = exp2f(s[j][e] - m_safe);
-          s[j][e] = p;  // c_to_a rounds it to bf16 for the p.v product
-          sum += p;
-        }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[r] = l[r] * alpha + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc[n][2 * r] *= alpha;
-        acc[n][2 * r + 1] *= alpha;
-      }
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t pa[4];
-      c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b[2];
-        load_b(b, sVt, kStrT, n * 8, kk * 16, lane);
-        mma16816(acc[n], pa, b);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_lo + 8 * r;
-    if (row >= Sq) continue;
-    const bool empty = l[r] == 0.f;
-    const float inv = empty ? 0.f : 1.f / l[r];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(o + (size_t)row * D + n * 8 + 2 * t) =
-          pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    if (t == 0) lse[row] = empty ? -INFINITY : m[r] * kLn2 + logf(l[r]);
-  }
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                 float* __restrict__ lse, int BH, int Sq, int Sk,
+                 float sm_scale, int causal, int q_offset, int k_offset) {
+  attention_fwd_sm90<D, D, true>(tq, tk, tv, o, lse, BH, Sq, Sk, sm_scale,
+                                 causal, q_offset, k_offset);
 }
 
 // ---------------------------------------------------------------------------
@@ -662,19 +555,16 @@ flash_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Launchers (launch_prep: mma_tiles.cuh)
 // ---------------------------------------------------------------------------
 
-template <int D, int BN>
+template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                int BH, int Sq, int Sk, float sm_scale, int causal,
                int q_offset, int k_offset, cudaStream_t stream) {
-  constexpr size_t smem =
-      sizeof(bf16) * ((kRows + BN) * (D + kPad) + D * (BN + kPad));
-  static const cudaError_t prep = launch_prep(flash_fwd_kernel<D, BN>, smem);
+  static const cudaError_t prep =
+      launch_prep(flash_fwd_kernel<D>, FwdLayout<D, D>::kSmem);
   if (prep != cudaSuccess) return prep;
-  dim3 grid((Sq + kRows - 1) / kRows, BH);
-  flash_fwd_kernel<D, BN><<<grid, kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
-      Sq, Sk, sm_scale, causal, q_offset, k_offset);
-  return cudaGetLastError();
+  return launch_attention_fwd<D, D>(flash_fwd_kernel<D>, q, k, v, o, lse, BH,
+                                    Sq, Sk, sm_scale, causal, q_offset,
+                                    k_offset, stream);
 }
 
 template <int D, int BN>
@@ -743,11 +633,11 @@ int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   int causal, int q_offset, int k_offset, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (D == 64)
-    return launch_fwd<64, 64>(q, k, v, o, lse, BH, Sq, Sk, sm_scale, causal,
-                              q_offset, k_offset, s);
+    return launch_fwd<64>(q, k, v, o, lse, BH, Sq, Sk, sm_scale, causal,
+                          q_offset, k_offset, s);
   if (D == 128)
-    return launch_fwd<128, 64>(q, k, v, o, lse, BH, Sq, Sk, sm_scale, causal,
-                               q_offset, k_offset, s);
+    return launch_fwd<128>(q, k, v, o, lse, BH, Sq, Sk, sm_scale, causal,
+                           q_offset, k_offset, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,10 @@
-// Warp-level bf16 tile helpers shared by the attention kernels
-// (flash_attention.cu, attention_probe.cu): the mma.sync m16n8k16 product,
-// its fragment loads from padded shared tiles, and the tile loads from
-// global memory. A block has kWarps warps; each warp owns 16 rows of the
-// block's own side (one m16 tile), so a block covers kRows rows.
+// Warp-level bf16 tile helpers of the attention backward kernels
+// (flash_attention.cu): the mma.sync m16n8k16 product, its fragment loads
+// from padded shared tiles, and the tile loads from global memory. A block
+// has kWarps warps; each warp owns 16 rows of the block's own side (one m16
+// tile), so a block covers kRows rows. The constants, pack_bf16,
+// visible_keys and launch_prep are shared with the forward mainloop
+// (attention_fwd_sm90.cuh).
 
 #pragma once
 

@@ -14,7 +14,7 @@ layouts and give the lse. For CUDA tensors they launch the kernels of
 ``csrc/attention_probe.cu``; for CPU tensors their plain versions
 (``*_reference``). :data:`LAUNCHES` counts each kernel's launches. The
 probes are non-causal, as the tool's are. ``block_q`` is accepted and does
-not change the result: the kernels' 64-row tiles are fixed, so the tool's
+not change the result: the kernels' 128-row tiles are fixed, so the tool's
 ``blocks:BQxBK`` override (TPU block tuning) is not ported either.
 
     python3 -m horovod_tpu_torch.tools.flash_vpu_probe --shape bert-large \\
@@ -135,8 +135,6 @@ def _check_kernel(what, *tensors):
                 or t.data_ptr() % 16:
             raise ValueError(f"{what} kernel takes contiguous, 16-byte "
                              f"aligned bfloat16 tensors")
-    if tensors[0].shape[0] * tensors[0].shape[1] > 65535:
-        raise ValueError(f"{what}: batch*heads exceeds the grid limit 65535")
 
 
 def _stream(t):

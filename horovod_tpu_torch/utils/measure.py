@@ -19,41 +19,39 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int, device) -> float:
-    """Mean time of one call: CUDA events around ``iters`` calls after
-    warm-up (the host clock after a synchronise on the CPU)."""
-    for _ in range(3):
-        fn()
+    """Mean time of one call of ``fn`` on the card: CUDA events around one
+    replay of a CUDA graph that holds ``iters`` calls, captured after a
+    warm-up on a side stream. The graph replays the launches back to back,
+    so the host's time per call (a wrapper's checks, its allocations, its
+    launch) stays out of the reading, as it does for a library call; with
+    launches from the host, a wrapper whose host time exceeds its kernel's
+    would be timed by the host. The graph is freed before returning. On
+    the CPU, the host clock around ``iters`` calls after warm-up."""
     if device.type != "cuda":
+        for _ in range(3):
+            fn()
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         return 1e3 * (time.perf_counter() - t0) / iters
-    torch.cuda.synchronize()
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    main.wait_stream(side)
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()  # the first replay uploads the graph
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def kernel_ms(fn, repeats: int, device) -> float:
-    """Device time of one ``fn()``: what torch.profiler records for the
-    kernels of ``repeats`` calls, over ``repeats``. Unlike :func:`time_ms`
-    it leaves out the host's time between launches, which is most of a
-    small kernel's wall time. On the CPU, :func:`time_ms`."""
-    if device.type != "cuda":
-        return time_ms(fn, repeats, device)
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False))
-    return us / 1e3 / repeats
+    torch.cuda.synchronize(device)
+    ms = start.elapsed_time(end) / iters
+    graph.reset()
+    return ms

@@ -35,27 +35,48 @@ def _rel(a, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,causal,offsets", [
-    ((2, 4, 512, 64), False, (0, 0)),     # BERT's shape class
-    ((1, 2, 1000, 64), True, (0, 0)),     # ragged edge, many k blocks
-    ((1, 2, 300, 128), True, (0, 0)),     # head_dim 128, ragged
-    ((1, 2, 256, 64), True, (256, 0)),    # every key in the past
-    ((1, 2, 256, 64), True, (16, 80)),    # fully masked rows
+@pytest.mark.parametrize("shape,causal,offsets,identity_v", [
+    ((2, 4, 512, 64), False, (0, 0), False),     # BERT's shape class
+    ((1, 2, 1000, 64), True, (0, 0), False),     # ragged edge, many k blocks
+    ((1, 2, 300, 128), True, (0, 0), False),     # head_dim 128, ragged
+    ((1, 2, 256, 64), True, (256, 0), False),    # every key in the past
+    ((1, 2, 256, 64), True, (16, 80), False),    # fully masked rows
+    ((2, 3, 200, 64), False, (0, 0), False),     # B*H 6, ragged: a box past
+    #                                              S must not read the next head
+    ((1, 2, 40, 64), False, (0, 0), False),      # Sq < 64, Sk 40
+    ((1, 2, 300, 100, 64), False, (0, 0), False),  # Sk under one key tile
+    ((1, 2, 700, 1000, 128), True, (300, 0), False),  # D128, Sq != Sk, offsets
+    ((1, 2, 64, 64), False, (0, 0), True),       # V the identity: o is p
+    ((16, 12, 300, 64), True, (0, 0), False),    # 576 items: each block
+    #                                              takes several, of 1-3 tiles
+    ((1, 2, 1, 64), False, (0, 0), False),       # one row, one key
 ])
-def test_kernels_match_plain_on_card(cuda, shape, causal, offsets):
+def test_kernels_match_plain_on_card(cuda, shape, causal, offsets,
+                                     identity_v):
     """bf16 kernels against the plain version on float32 copies of the same
     bf16 inputs: o within 2e-2 abs, lse within 2e-3 abs, gradients within
     2e-2 relative to their norm (p and dS are rounded to bf16 before their
-    products, as the kernels' source states)."""
+    products, as the kernels' source states). ``shape`` is (B, H, S, D) or
+    (B, H, Sq, Sk, D). With V the identity (Sk = D) each row of o is that
+    row's softmax, which pins the register A operand of the forward's p.v
+    product; o, whose entries are then about 1/Sk, must also be within
+    1e-2 of its norm there."""
+    b, h, sq, *rest = shape
+    sk, d = rest if len(rest) == 2 else (sq, rest[0])
     g = torch.Generator(cuda).manual_seed(0)
-    q, k, v, do = (torch.randn(shape, generator=g, device=cuda)
-                   .to(torch.bfloat16) for _ in range(4))
-    kw = dict(causal=causal, sm_scale=shape[-1] ** -0.5,
+    q, k, v, do = (torch.randn(b, h, n, d, generator=g, device=cuda)
+                   .to(torch.bfloat16) for n in (sq, sk, sk, sq))
+    if identity_v:
+        v = torch.eye(sk, d, device=cuda, dtype=torch.bfloat16) \
+            .expand(b, h, sk, d).contiguous()
+    kw = dict(causal=causal, sm_scale=d ** -0.5,
               q_offset=offsets[0], k_offset=offsets[1])
     o, lse = tfa.flash_fwd(q, k, v, **kw)
     f = [t.float() for t in (q, k, v, do)]
     o_ref, lse_ref = tfa.flash_fwd_reference(*f[:3], **kw)
     assert (o.float() - o_ref).abs().max().item() <= 2e-2
+    if identity_v:
+        assert _rel(o, o_ref.float()) <= 1e-2
     fin = torch.isfinite(lse_ref)
     assert torch.equal(torch.isfinite(lse), fin)
     assert (lse - lse_ref)[fin].abs().max().item() <= 2e-3
@@ -148,12 +169,17 @@ def test_autograd_under_the_switch_runs_the_fused_kernel(cuda, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s,d", [(512, 64), (96, 64), (200, 128)])
+@pytest.mark.parametrize("s,d", [(512, 64), (96, 64), (200, 128), (40, 64),
+                                 (192, 64), (200, 64)])
 def test_probe_kernels_match_plain_on_card(cuda, s, d):
-    """B14 and B13 (o, lse) and, at head_dim 64, B12 on packed heads (S 96:
-    a 64-row tile straddles the half select at S) against their plain
-    versions on float32 copies: o within 2e-2 abs and 1e-2 relative to its
-    norm, lse within 2e-3 abs. On the tool's data (scale 0.3) the softmax
+    """B14 and B13 (o, lse) and, at head_dim 64, B12 on packed heads
+    against their plain versions on float32 copies: o within 2e-2 abs and
+    1e-2 relative to its norm, lse within 2e-3 abs. At S 96, 192 and 200
+    a packed item of B12 is cut short at S inside q2 (S is not a multiple
+    of the 128 rows of an item), while its q box loads rows of the other
+    half, which it must not write; S 40: fewer rows than a warpgroup; S
+    200: a ragged edge in every one of the B*H 8 heads, at D64 and D128.
+    On the tool's data (scale 0.3) the softmax
     is nearly uniform, so unit-scale data, where it is peaked, is checked
     too; on both, uniform attention and half the sm_scale must miss the
     relative limit."""

@@ -257,6 +257,55 @@ def test_library_hash_covers_only_the_headers_a_source_includes(
     assert kernel_build.library_path("b") == before["b"]
 
 
+def test_forward_mainloop_header_is_a_source_of_both_forward_libraries():
+    """The flash forward and the attention probes run one Hopper mainloop,
+    ``csrc/attention_fwd_sm90.cuh``: both libraries list it among their
+    sources, so an edit to it rebuilds both, and it is the only place that
+    issues wgmma; neither forward kernel keeps a mma.sync path beside it."""
+    header = "attention_fwd_sm90.cuh"
+    for name in ("flash_attention", "attention_probe"):
+        assert header in [p.name for p in kernel_build.sources(name)], name
+    wgmma = [p.name for p in kernel_build.CSRC.iterdir()
+             if "wgmma.mma_async" in p.read_text()]
+    assert wgmma == [header]
+    probe_src = (kernel_build.CSRC / "attention_probe.cu").read_text()
+    assert "attention_fwd_sm90<" in probe_src and "mma16816" not in probe_src
+    flash_src = (kernel_build.CSRC / "flash_attention.cu").read_text()
+    fwd = flash_src[flash_src.index("flash_fwd_kernel("):
+                    flash_src.index("flash_bwd_dq_kernel(")]
+    assert "attention_fwd_sm90<" in fwd and "mma16816" not in fwd
+
+
+def test_sass_witness_counts_the_forward_kernels_instructions(monkeypatch):
+    """``chip_smoke.py``'s witness that the design reached the card: the
+    functions of ``cuobjdump -sass`` are demangled with their template
+    arguments, and their HGMMA, UTMALDG and SYNCS instructions counted,
+    predicated ones included."""
+    import types
+
+    import chip_smoke
+
+    sass = """
+        code for sm_90a
+                Function : _ZN51_GLOBAL__N__d4d25e85_18_attention_probe_cu_6706b63e16probe_fwd_kernelILi128ELi64ELb0EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiifiii
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0090*/                   SYNCS.EXCH.64 URZ, [UR4], UR6 ;
+        /*00a0*/              @!P0 UTMALDG.3D [UR8], [UR10] ;
+        /*00b0*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*00c0*/                   HGMMA.64x64x16.F32.BF16 R24, R8, gdesc[UR8], R24 ;
+                Function : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64ELi64EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_iifiii
+        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+"""
+    monkeypatch.setattr(chip_smoke.kernel_build, "nvcc",
+                        lambda: "/opt/cuda/bin/nvcc")
+    monkeypatch.setattr(chip_smoke.subprocess, "run",
+                        lambda *a, **k: types.SimpleNamespace(stdout=sass))
+    assert chip_smoke.sass_counts("attention_probe") == {
+        "probe_fwd_kernel<128,64,false>": {"HGMMA": 2, "UTMALDG": 1,
+                                           "SYNCS": 1},
+        "flash_bwd_dq_kernel<64,64>": {"HGMMA": 0, "UTMALDG": 0, "SYNCS": 0}}
+
+
 def _smoke(*args):
     return subprocess.run([sys.executable, "chip_smoke.py", *args],
                           cwd=REPO, capture_output=True, text=True,
@@ -297,3 +346,31 @@ def test_chip_smoke_cpu_rehearsal_prints_no_result(no_card):
         assert phase in out.stdout, phase
     assert "BERT-Large MLM" in out.stdout
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_time_ms_on_the_cpu_times_the_calls_after_warm_up():
+    """``utils.measure.time_ms`` on the CPU: three warm-up calls, then the
+    host clock around ``iters`` calls."""
+    from horovod_tpu_torch.utils import measure
+
+    calls = []
+    ms = measure.time_ms(lambda: calls.append(1), 5, torch.device("cpu"))
+    assert len(calls) == 3 + 5 and ms >= 0.0
+
+
+def test_forward_before_after_tool_reads_chip_smokes_shapes_by_its_timer():
+    """``tools/fwd_before_after.py`` times the forward at ``chip_smoke.py``'s
+    timed flash cases, its probes at the probe phase's shape, and with this
+    checkout's ``time_ms`` whichever checkout it imports, so its numbers and
+    the kernels line's are read by one method."""
+    import chip_smoke
+    from horovod_tpu_torch.tools import fwd_before_after as tool
+    from horovod_tpu_torch.utils import measure
+
+    assert set(tool.SHAPES) == set(chip_smoke.FULL["timed"])
+    for name, shape in tool.SHAPES.items():
+        assert chip_smoke.FULL["cases"][name] == (*shape, 0, 0), name
+    assert chip_smoke.FULL["vprobe_case"] == tool.SHAPES["a"][:4]
+    timer = tool.this_timer()
+    assert Path(timer.__file__).resolve() == Path(measure.__file__).resolve()
+    assert timer.time_ms.__doc__ == measure.time_ms.__doc__

@@ -10,20 +10,23 @@ Phases (any failure exits non-zero):
    build the kernels from ``horovod_tpu_torch/csrc`` (flash_attention.cu,
    adamw.cu, conv_bn_act.cu, conv_bn_stats.cu and attention_probe.cu: one
    nvcc per source, started together) and print what ptxas reports
-   (registers, spills). The witness that the attention forward is the
+   (registers, spills). The witness that the attention kernels are the
    Hopper design: ``cuobjdump -sass`` of the flash_attention and
    attention_probe libraries must show HGMMA (wgmma), UTMALDG (TMA loads)
-   and SYNCS (mbarriers) instructions in every instance of
-   flash_fwd_kernel and probe_fwd_kernel, and ptxas must report no wgmma
-   serialised.
+   and SYNCS (mbarriers) instructions in every instance, D64 and D128, of
+   flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel and
+   probe_fwd_kernel, and ptxas must report no wgmma serialised.
 2. Flash-attention kernels against their plain PyTorch versions, in bf16 on
    the card, with the plain version run on float32 copies of the same bf16
    inputs: (a) B8 H16 S512 D64 (BERT-Large), (b) B16 H12 S1024 D64 causal
    (GPT-2), (c) B1 H4 S2048 D128 causal, (d) ring offsets (all keys in the
-   past; rows with every key masked). Limits: o 2e-2 abs, lse 2e-3 abs,
-   dq/dk/dv 2e-2 relative to their norm. Then each kernel, its plain
-   version and ``scaled_dot_product_attention`` (a yardstick the port never
-   calls) are timed at (a), (b) and (c), beside their bounds. Every time in
+   past; rows with every key masked, whose dq must be exactly 0), (e) D128
+   causal with Sq 700 != Sk 1000 and q_offset 300. Limits: o 2e-2 abs, lse
+   2e-3 abs, dq/dk/dv 2e-2 relative to their norm. Then each kernel, its
+   plain version and a yardstick the port never calls
+   (``scaled_dot_product_attention``'s forward; aten's flash attention
+   backward, one call for dq, dk and dv, beside dq + dk/dv) are timed at
+   (a), (b) and (c), beside their bounds. Every time in
    the script is ``utils.measure.time_ms``: CUDA events around a replay of
    a CUDA graph of back-to-back calls, so no host time between launches
    enters a kernel's reading, the yardsticks' or the plain versions'.
@@ -196,7 +199,10 @@ FULL = dict(
            "b": (16, 12, 1024, 64, True, 0, 0),
            "c": (1, 4, 2048, 128, True, 0, 0),
            "d_past": (2, 4, 512, 64, True, 512, 0),
-           "d_masked": (2, 4, 512, 64, True, 64, 200)},
+           "d_masked": (2, 4, 512, 64, True, 64, 200),
+           # (B, H, Sq, Sk, D, causal, q_offset, k_offset): neither extent
+           # a multiple of 128
+           "e_d128": (2, 4, 700, 1000, 128, True, 300, 0)},
     timed=("a", "b", "c"), iters=50,
     tiny=dict(vocab_size=512, d_model=128, num_layers=2, num_heads=2,
               d_ff=512, max_seq=128), tiny_batch=2,
@@ -217,7 +223,8 @@ FULL = dict(
     gpt=dict(vocab_size=50257), gpt_batch=16, gpt_seq=1024)
 DRY = dict(
     cases={"a": (1, 2, 64, 64, False, 0, 0), "b": (1, 2, 96, 64, True, 0, 0),
-           "d_masked": (1, 2, 64, 64, True, 8, 40)},
+           "d_masked": (1, 2, 64, 64, True, 8, 40),
+           "e_d128": (1, 2, 40, 96, 128, True, 30, 0)},
     timed=("a",), iters=2,
     tiny=dict(vocab_size=64, d_model=128, num_layers=1, num_heads=2,
               d_ff=256, max_seq=32), tiny_batch=2,
@@ -278,11 +285,13 @@ def kernel_name(line: str) -> str:
     return f"{name}<{','.join(args)}>"
 
 
-#: the kernels built on the wgmma + TMA mainloop, by library, and the SASS
+#: the kernels built on the wgmma + TMA mainloops, by library, and the SASS
 #: instructions that show it: HGMMA (wgmma), UTMALDG (TMA loads), SYNCS
 #: (mbarriers)
-WGMMA_KERNELS = {"flash_attention": "flash_fwd_kernel",
-                 "attention_probe": "probe_fwd_kernel"}
+WGMMA_KERNELS = {"flash_attention": ["flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                     "flash_bwd_dkv_kernel"],
+                 "attention_probe": ["probe_fwd_kernel"]}
+HEAD_DIMS = ("64", "128")
 SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
 
 
@@ -305,24 +314,30 @@ def sass_counts(name: str) -> dict:
 
 
 def wgmma_witness() -> None:
-    """The forward kernels reached the card as designed: each instance of
-    :data:`WGMMA_KERNELS` has HGMMA, UTMALDG and SYNCS instructions, and
-    ptxas serialised no wgmma (its ``Potential Performance Loss``
-    warning)."""
-    for lib, kernel in WGMMA_KERNELS.items():
+    """The attention kernels reached the card as designed: every instance of
+    each kernel of :data:`WGMMA_KERNELS`, a D64 and a D128 one at least,
+    has HGMMA, UTMALDG and SYNCS instructions, and ptxas serialised no
+    wgmma (its ``Potential Performance Loss`` warning)."""
+    for lib, kernels in WGMMA_KERNELS.items():
         serial = [line.strip() for line in
                   kernel_build.build_log(lib).splitlines()
                   if "wgmma" in line and "serialized" in line]
         for line in serial:
             log(f"  ptxas {lib}: {line}")
         check(not serial, f"ptxas serialised wgmma in {lib}")
-        found = {fn: c for fn, c in sass_counts(lib).items()
-                 if fn.startswith(kernel + "<")}
-        check(bool(found), f"no {kernel} in the SASS of {lib}")
-        for fn, c in sorted(found.items()):
-            log(f"  SASS {fn}: " + ", ".join(f"{n} {op}"
-                                             for op, n in c.items()))
-            check(all(c.values()), f"{fn} lacks one of {SASS_OPS}: {c}")
+        counts = sass_counts(lib)
+        for kernel in kernels:
+            found = {fn: c for fn, c in counts.items()
+                     if fn.startswith(kernel + "<")}
+            dims = {fn[len(kernel) + 1:].split(",")[0].rstrip(">")
+                    for fn in found}
+            check(set(HEAD_DIMS) <= dims,
+                  f"{kernel} in the SASS of {lib} lacks a head_dim of "
+                  f"{HEAD_DIMS}: {sorted(found)}")
+            for fn, c in sorted(found.items()):
+                log(f"  SASS {fn}: " + ", ".join(f"{n} {op}"
+                                                 for op, n in c.items()))
+                check(all(c.values()), f"{fn} lacks one of {SASS_OPS}: {c}")
 
 
 def environment(dry: bool) -> str:
@@ -375,29 +390,44 @@ def roofline(flops, nbytes, peak=PEAK_FLOPS) -> dict:
                 bound_by="operations" if t_ops > t_bytes else "bytes")
 
 
+def extents(case) -> tuple:
+    """(B, H, Sq, Sk, D, causal, q_offset, k_offset) of a flash case, given
+    as that or as (B, H, S, D, causal, q_offset, k_offset) with Sq = Sk."""
+    if len(case) == 8:
+        return tuple(case)
+    b, h, s, *rest = case
+    return (b, h, s, s, *rest)
+
+
 def bounds(case) -> dict:
     """Each flash kernel's :func:`roofline` at a case."""
-    b, h, s, d, causal, q_off, k_off = case
-    bh, pairs = b * h, unmasked_pairs(s, s, causal, q_off, k_off)
-    mat = 2 * bh * s * d  # bytes of one (B, H, S, D) bf16 tensor
-    row = 4 * bh * s      # bytes of one (B, H, S) f32 row vector
-    work = {"flash_fwd": (4 * bh * pairs * d, 4 * mat + row),  # q k v o, lse
-            "flash_bwd_dq": (6 * bh * pairs * d, 5 * mat + 2 * row),
-            "flash_bwd_dkv": (8 * bh * pairs * d, 6 * mat + 2 * row)}
+    b, h, sq, sk, d, causal, q_off, k_off = extents(case)
+    bh, pairs = b * h, unmasked_pairs(sq, sk, causal, q_off, k_off)
+    q_mat, k_mat = 2 * bh * sq * d, 2 * bh * sk * d  # bf16 (B, H, S, D)
+    row = 4 * bh * sq     # bytes of one (B, H, Sq) f32 row vector
+    work = {"flash_fwd": (4 * bh * pairs * d,  # q k v o, lse
+                          2 * q_mat + 2 * k_mat + row),
+            "flash_bwd_dq": (6 * bh * pairs * d,  # q k v do lse delta, dq
+                             3 * q_mat + 2 * k_mat + 2 * row),
+            "flash_bwd_dkv": (8 * bh * pairs * d,  # q k v do lse delta, dk dv
+                              2 * q_mat + 4 * k_mat + 2 * row)}
     return {name: roofline(*w) for name, w in work.items()}
 
 
 def make_inputs(case, device, seed):
-    b, h, s, d = case[:4]
+    """q, k, v, do in bf16: (B, H, Sq, D), (B, H, Sk, D) twice, (B, H, Sq,
+    D)."""
+    b, h, sq, sk, d = extents(case)[:5]
     g = torch.Generator(device).manual_seed(seed)
     dtype = torch.bfloat16
-    return [torch.randn(b, h, s, d, generator=g, device=device).to(dtype)
-            for _ in range(4)]
+    return [torch.randn(b, h, n, d, generator=g, device=device).to(dtype)
+            for n in (sq, sk, sk, sq)]
 
 
 def kwargs(case):
-    return dict(causal=case[4], sm_scale=case[3] ** -0.5, q_offset=case[5],
-                k_offset=case[6])
+    b, h, sq, sk, d, causal, q_off, k_off = extents(case)
+    return dict(causal=causal, sm_scale=d ** -0.5, q_offset=q_off,
+                k_offset=k_off)
 
 
 def rel(a, b) -> float:
@@ -428,8 +458,9 @@ def check_case(name, case, device) -> dict:
            else 0.0,
            **{g: rel(a, b) for g, (a, b) in grads.items()}}
     masked = int((~live).sum())
-    log(f"case {name} B{case[0]} H{case[1]} S{case[2]} D{case[3]} "
-        f"causal={case[4]} q_offset={case[5]} k_offset={case[6]}: "
+    b, h, sq, sk, d, causal, q_off, k_off = extents(case)
+    log(f"case {name} B{b} H{h} Sq{sq} Sk{sk} D{d} "
+        f"causal={causal} q_offset={q_off} k_offset={k_off}: "
         f"max|o-ref| {err['o']:.3e}  max|lse-ref| {err['lse']:.3e}  "
         f"rel dq {err['dq']:.3e} dk {err['dk']:.3e} dv {err['dv']:.3e}  "
         f"fully masked rows {masked}")
@@ -437,6 +468,8 @@ def check_case(name, case, device) -> dict:
           f"case {name}: lse is -inf on other rows than the plain version's")
     check(bool((o[~live] == 0).all()) and bool((lse[~live] == -math.inf).all()),
           f"case {name}: fully masked rows must give o 0 and lse -inf")
+    check(bool((dq[~live] == 0).all()),
+          f"case {name}: fully masked rows must give dq exactly 0")
     check(all(bool(torch.isfinite(t).all()) for t in (o, dq, dk, dv)),
           f"case {name}: non-finite output or gradient")
     check(err["o"] <= TOL["o"], f"case {name}: o error {err['o']}")
@@ -481,10 +514,15 @@ def time_case(name, case, device, iters) -> dict:
 
     lib_fb = time_ms(fwd_bwd, iters, device)
     rows["flash_fwd"]["library_ms"] = lib_fwd
+    # aten's flash attention backward computes dq, dk and dv in one call:
+    # the pair's yardstick, so each of the two rows carries it
+    aten = aten_flash_backward(q, k, v, do, kw)
+    lib_bwd = time_ms(aten, iters, device) if aten else None
     for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
-        rows[kname]["library_ms"] = None  # no single call computes it alone
-    log(f"timing case {name} B{case[0]} H{case[1]} S{case[2]} D{case[3]} "
-        f"causal={case[4]} ({iters} calls each in a CUDA graph):")
+        rows[kname]["library_ms"] = lib_bwd
+    b, h, sq, sk, d, causal = extents(case)[:6]
+    log(f"timing case {name} B{b} H{h} Sq{sq} Sk{sk} D{d} causal={causal} "
+        f"({iters} calls each in a CUDA graph):")
     for kname, r in rows.items():
         log(f"  {kname:14s} kernel {r['ms']:.4f} ms  plain "
             f"{r['plain_ms']:.4f} ms  bound "
@@ -495,8 +533,14 @@ def time_case(name, case, device, iters) -> dict:
     log(f"  yardstick scaled_dot_product_attention: forward {lib_fwd:.4f} ms, "
         f"forward+backward {lib_fb:.4f} ms (port: forward "
         f"{rows['flash_fwd']['ms']:.4f} ms, "
-        f"{rows['flash_fwd']['ms'] / lib_fwd:.2f}x SDPA's; dq+dk/dv "
-        f"{back:.4f} ms)")
+        f"{rows['flash_fwd']['ms'] / lib_fwd:.2f}x SDPA's)")
+    if lib_bwd is None:
+        log(f"  dq+dk/dv {back:.4f} ms; aten flash backward not timed (no "
+            f"such kernel on the CPU)")
+    else:
+        log(f"  yardstick aten flash backward (dq, dk and dv in one call): "
+            f"{lib_bwd:.4f} ms; port dq+dk/dv {back:.4f} ms, "
+            f"{back / lib_bwd:.2f}x aten's")
     return rows
 
 
@@ -871,19 +915,6 @@ def run_probe(cfg, device) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def fused_inputs(case, device, seed):
-    """q and do (B, H, Sq, D), k and v (B, H, Sk, D), bf16."""
-    b, h, sq, sk, d = case[:5]
-    g = torch.Generator(device).manual_seed(seed)
-    return [torch.randn(b, h, s, d, generator=g, device=device).to(BF16)
-            for s in (sq, sk, sk, sq)]
-
-
-def fused_kwargs(case):
-    return dict(causal=case[5], sm_scale=case[4] ** -0.5, q_offset=case[6],
-                k_offset=case[7])
-
-
 def fused_bound(case) -> dict:
     """B7's :func:`roofline`: its five products of 2 Sq Sk D over the
     unmasked pairs, against the bf16 tensors q, do, dq (Sq rows) and k, v,
@@ -899,8 +930,8 @@ def check_fused(name, case, device) -> float:
     the plain forward's lse and delta) and against the dq and dk/dv kernels
     on the same inputs: dq, dk, dv within 2e-2 relative to their norm.
     Returns the largest absolute error against the plain version."""
-    q, k, v, do = fused_inputs(case, device, seed=len(name) + 10)
-    kw = fused_kwargs(case)
+    q, k, v, do = make_inputs(case, device, seed=len(name) + 10)
+    kw = kwargs(case)
     o, lse = fa.flash_fwd(q, k, v, **kw)
     delta = fa.compute_delta(o, do)
     got = fa.flash_bwd_fused(q, k, v, do, lse, delta, **kw)
@@ -951,8 +982,8 @@ def time_fused(name, case, device, iters) -> dict:
     """B7 timed beside its bound, its plain version, the
     dq and dk/dv kernels (one call of each, summed) and PyTorch's flash
     attention backward."""
-    q, k, v, do = fused_inputs(case, device, seed=len(name) + 10)
-    kw = fused_kwargs(case)
+    q, k, v, do = make_inputs(case, device, seed=len(name) + 10)
+    kw = kwargs(case)
     o, lse = fa.flash_fwd(q, k, v, **kw)
     delta = fa.compute_delta(o, do)
     args = (q, k, v, do, lse, delta)

@@ -1,9 +1,9 @@
-"""Gradient compression (port of ``horovod_tpu/compression.py``).
+"""Gradient compression (port of ``horovod_tpu/torch/compression.py``,
+whose public names the port keeps).
 
 A compressor casts a tensor to its wire type before the collective and
-back after it. ``Compression.fp16`` uses bfloat16 on the wire, as the JAX
-package does (same exponent range as float32); integer tensors pass
-through."""
+back after it: ``Compression.fp16`` sends IEEE float16,
+``Compression.bf16`` bfloat16; integer tensors pass through."""
 
 from __future__ import annotations
 
@@ -35,12 +35,11 @@ class NoneCompressor(Compressor):
         return tensor
 
 
-class FP16Compressor(Compressor):
-    """Floating tensors travel as bfloat16 and are cast back after
-    (reference: torch/compression.py:45-60, fp16 -> bf16 as in the JAX
-    package)."""
+class _CastCompressor(Compressor):
+    """Floating tensors travel as :attr:`wire_dtype` and are cast back
+    after; integer tensors pass through."""
 
-    wire_dtype = torch.bfloat16
+    wire_dtype: torch.dtype
 
     @classmethod
     def compress(cls, tensor):
@@ -53,9 +52,26 @@ class FP16Compressor(Compressor):
         return tensor if ctx is None else tensor.to(ctx)
 
 
+class FP16Compressor(_CastCompressor):
+    """IEEE float16 on the wire (reference:
+    horovod_tpu/torch/compression.py:40-55): a value past 65504 arrives
+    as inf."""
+
+    wire_dtype = torch.float16
+
+
+class BF16Compressor(_CastCompressor):
+    """bfloat16 on the wire (reference:
+    horovod_tpu/torch/compression.py:58-73): float16's bytes with
+    float32's exponent range."""
+
+    wire_dtype = torch.bfloat16
+
+
 class Compression:
     """Gradient compression used during allreduce (reference:
     torch/compression.py:63-78)."""
 
     none = NoneCompressor
     fp16 = FP16Compressor
+    bf16 = BF16Compressor

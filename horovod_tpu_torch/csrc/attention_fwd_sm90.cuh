@@ -1,5 +1,7 @@
 // The Hopper attention-forward mainloop shared by flash_fwd_kernel
-// (flash_attention.cu) and probe_fwd_kernel (attention_probe.cu): TMA loads
+// (flash_attention.cu) and probe_fwd_kernel (attention_probe.cu), and the
+// sm_90a primitives (mbarriers, TMA, wgmma) that the backward mainloops of
+// attention_bwd_sm90.cuh build on too: TMA loads
 // of K and V through a ring of shared-memory stages, wgmma for both products,
 // an online softmax in registers. Built for sm_90a only (wgmma, setmaxnreg).
 //
@@ -240,6 +242,30 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[N], uint64_t da,
         "+f"(d[OFF + 52]), "+f"(d[OFF + 53]), "+f"(d[OFF + 54]), "+f"(d[OFF + 55]),
         "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
         "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[0 .. 32) (+)= A(64x16, shared) * B(16x64, shared), both K-major (the
+// backward's score tiles, attention_bwd_sm90.cuh)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -45,13 +45,19 @@
 // registers, the copies run ahead of the products through the stage ring,
 // and the products run at the wgmma rate, not mma.sync's.
 //
-// The three backward kernels are the first, simple design: warp-level
-// mma.sync m16n8k16 on tiles loaded synchronously by every thread into
-// shared memory padded by 8 elements a row (mma_tiles.cuh), dS and p
-// recomputed from lse. dq (12.9 GFLOP, 42.5 MB) and dk/dv (17.2 GFLOP,
-// 50.9 MB) at (a) are bound by operations (13.0 and 17.4 us); they reach a
-// fraction of it (PERF.md). Their redesign onto wgmma and TMA is later
-// work (ROADMAP B2).
+// dq and dk/dv, flash_bwd_dq_kernel and flash_bwd_dkv_kernel, run the
+// Hopper backward mainloops of attention_bwd_sm90.cuh on the same
+// primitives: persistent blocks of a TMA producer and two wgmma consumer
+// warpgroups; every product is a wgmma on its operands as they lie in HBM
+// (K-major or MN-major descriptors, no hand transposes), dS and p
+// recomputed from lse in registers, each gradient row summed in one block.
+// What bounds them: at (a), dq does 12.9 GFLOP and moves 42.5 MB (13.0 us
+// of tensor-core time against 12.7 us of HBM), dk/dv 17.2 GFLOP and 50.9
+// MB (17.4 against 15.2 us): operations, by a little. The design keeps the
+// tensor cores fed: the ring's copies run ahead of the products, the
+// register products take dS and p without a trip through shared memory,
+// and a tile's exponentials run while the previous tile's products do
+// (dk/dv at D 128 excepted: its register budget, in the header).
 //
 // The fused backward computes s and p once for all three gradients, as the
 // TPU kernel does, but not over the TPU's whole-extent block: a 1024 x 1024
@@ -63,6 +69,7 @@
 // SMs leave most of each SM idle, so it is slower than dq + dk/dv there: the
 // TPU measured the same loss (the kernel's docstring).
 
+#include "attention_bwd_sm90.cuh"
 #include "attention_fwd_sm90.cuh"
 #include "mma_tiles.cuh"
 
@@ -85,256 +92,38 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// dq: one block per (64 query rows, batch*head); loop over key blocks of BN.
-//   p = exp2(s*log2e - lse*log2e), dp = do v^T, ds = p (dp - delta) sm_scale,
-//   dq = sum ds k.
+// dq and dk/dv: persistent blocks on the Hopper backward mainloops
+// (attention_bwd_sm90.cuh); q, k, v and do come in as tensor maps.
+//   dq: items of 128 query rows, key tiles of 64 through the ring;
+//   dk/dv: items of 128 key rows, query tiles of 64 through the ring.
 // ---------------------------------------------------------------------------
 
-template <int D, int BN>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int Sq, int Sk, float sm_scale, int causal, int q_offset,
-                    int k_offset) {
-  constexpr int kStr = D + kPad;
-  constexpr int kStrT = BN + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // kRows x kStr (q, then do)
-  bf16* sK = sQ + kRows * kStr;              // BN x kStr
-  bf16* sKt = sK + BN * kStr;                // D x kStrT
-  bf16* sV = sKt + D * kStrT;                // BN x kStr
-
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  q += bh * Sq * D;
-  dout += bh * Sq * D;
-  dq += bh * Sq * D;
-  k += bh * Sk * D;
-  v += bh * Sk * D;
-  lse += bh * Sq;
-  delta += bh * Sq;
-
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  load_tile<D>(sQ, kStr, q, q0, kRows, Sq);
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    load_a(qa[kk], sQ, kStr, warp * 16, kk * 16, lane);
-  __syncthreads();
-  load_tile<D>(sQ, kStr, dout, q0, kRows, Sq);
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    load_a(da[kk], sQ, kStr, warp * 16, kk * 16, lane);
-
-  const int row_lo = q0 + warp * 16 + g;
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_lo + 8 * r;
-    const float x = row < Sq ? lse[row] : 0.f;
-    lse2[r] = (x == -INFINITY ? 0.f : x) * kLog2e;
-    dl[r] = row < Sq ? delta[row] : 0.f;
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const float c = sm_scale * kLog2e;
-
-  const int q_hi = min(q0 + kRows, Sq);
-  const int nk = visible_keys(Sk, causal, q_offset, k_offset, q_hi);
-  for (int k0 = 0; k0 < nk; k0 += BN) {
-    __syncthreads();
-    load_tile<D>(sK, kStr, k, k0, BN, Sk);
-    load_tile_t<D>(sKt, kStrT, k, k0, BN, Sk);
-    load_tile<D>(sV, kStr, v, k0, BN, Sk);
-    __syncthreads();
-
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b[2];
-        load_b(b, sK, kStr, j * 8, kk * 16, lane);
-        mma16816(s[j], qa[kk], b);
-        load_b(b, sV, kStr, j * 8, kk * 16, lane);
-        mma16816(dp[j], da[kk], b);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const int r = e >> 1;
-        const int row = row_lo + 8 * r;
-        const bool masked =
-            col >= Sk || (causal && q_offset + row < k_offset + col);
-        const float p = masked ? 0.f : exp2f(s[j][e] * c - lse2[r]);
-        s[j][e] = p * (dp[j][e] - dl[r]) * sm_scale;  // ds
-      }
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b[2];
-        load_b(b, sKt, kStrT, n * 8, kk * 16, lane);
-        mma16816(acc[n], a, b);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_lo + 8 * r;
-    if (row >= Sq) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dq + (size_t)row * D + n * 8 + 2 * t) =
-          pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
-  }
+                    int BH, int Sq, int Sk, float sm_scale, int causal,
+                    int q_offset, int k_offset) {
+  attention_bwd_dq_sm90<D>(tq, tk, tv, tdo, lse, delta, dq, BH, Sq, Sk,
+                           sm_scale, causal, q_offset, k_offset);
 }
 
-// ---------------------------------------------------------------------------
-// dk/dv: one block per (64 key rows, batch*head); loop over query blocks of
-// BM, working on the transposed scores s^T = k q^T (rows are keys):
-//   dv = sum p^T do, dk = sum ds^T q.
-// ---------------------------------------------------------------------------
-
-template <int D, int BM>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int Sq, int Sk, float sm_scale,
-                     int causal, int q_offset, int k_offset) {
-  constexpr int kStr = D + kPad;
-  constexpr int kStrT = BM + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);  // kRows x kStr
-  bf16* sV = sK + kRows * kStr;              // kRows x kStr
-  bf16* sQ = sV + kRows * kStr;              // BM x kStr
-  bf16* sQt = sQ + BM * kStr;                // D x kStrT
-  bf16* sO = sQt + D * kStrT;                // BM x kStr   (do)
-  bf16* sOt = sO + BM * kStr;                // D x kStrT   (do transposed)
-  float* sL = reinterpret_cast<float*>(sOt + D * kStrT);  // BM: lse * log2e
-  float* sDl = sL + BM;                                   // BM: delta
-
-  const size_t bh = blockIdx.y;
-  const int k0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  q += bh * Sq * D;
-  dout += bh * Sq * D;
-  k += bh * Sk * D;
-  v += bh * Sk * D;
-  dk += bh * Sk * D;
-  dv += bh * Sk * D;
-  lse += bh * Sq;
-  delta += bh * Sq;
-
-  load_tile<D>(sK, kStr, k, k0, kRows, Sk);
-  load_tile<D>(sV, kStr, v, k0, kRows, Sk);
-
-  float ak[D / 8][4], av[D / 8][4];  // dk and dv accumulators
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    ak[n][0] = ak[n][1] = ak[n][2] = ak[n][3] = 0.f;
-    av[n][0] = av[n][1] = av[n][2] = av[n][3] = 0.f;
-  }
-  const float c = sm_scale * kLog2e;
-  const int krow_lo = k0 + warp * 16 + g;  // this thread's keys: krow_lo, +8
-
-  // Query blocks wholly before the block's first key see none of its keys.
-  const int qstart = first_query(Sq, causal, q_offset, k_offset, k0);
-  for (int q0 = (qstart / BM) * BM; q0 < Sq; q0 += BM) {
-    __syncthreads();
-    load_tile<D>(sQ, kStr, q, q0, BM, Sq);
-    load_tile_t<D>(sQt, kStrT, q, q0, BM, Sq);
-    load_tile<D>(sO, kStr, dout, q0, BM, Sq);
-    load_tile_t<D>(sOt, kStrT, dout, q0, BM, Sq);
-    for (int i = threadIdx.x; i < BM; i += kThreads) {
-      const bool in = q0 + i < Sq;
-      const float x = in ? lse[q0 + i] : 0.f;
-      sL[i] = (x == -INFINITY ? 0.f : x) * kLog2e;
-      sDl[i] = in ? delta[q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    float s[BM / 8][4], dp[BM / 8][4];
-#pragma unroll
-    for (int j = 0; j < BM / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4], a2[4];
-      load_a(a, sK, kStr, warp * 16, kk * 16, lane);
-      load_a(a2, sV, kStr, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int j = 0; j < BM / 8; ++j) {
-        uint32_t b[2];
-        load_b(b, sQ, kStr, j * 8, kk * 16, lane);
-        mma16816(s[j], a, b);
-        load_b(b, sO, kStr, j * 8, kk * 16, lane);
-        mma16816(dp[j], a2, b);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BM / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cl = j * 8 + 2 * t + (e & 1);  // query, local to the block
-        const int col = q0 + cl;
-        const int row = krow_lo + ((e >> 1) << 3);  // key
-        const bool masked =
-            col >= Sq || (causal && q_offset + col < k_offset + row);
-        const float p = masked ? 0.f : exp2f(s[j][e] * c - sL[cl]);
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - sDl[cl]) * sm_scale;  // ds^T
-      }
-#pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-      c_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b[2];
-        load_b(b, sOt, kStrT, n * 8, kk * 16, lane);
-        mma16816(av[n], pa, b);
-        load_b(b, sQt, kStrT, n * 8, kk * 16, lane);
-        mma16816(ak[n], da, b);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = krow_lo + 8 * r;
-    if (row >= Sk) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const size_t off = (size_t)row * D + n * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(dk + off) =
-          pack_bf16(ak[n][2 * r], ak[n][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off) =
-          pack_bf16(av[n][2 * r], av[n][2 * r + 1]);
-    }
-  }
+                     bf16* __restrict__ dv, int BH, int Sq, int Sk,
+                     float sm_scale, int causal, int q_offset, int k_offset) {
+  attention_bwd_dkv_sm90<D>(tq, tk, tv, tdo, lse, delta, dk, dv, BH, Sq, Sk,
+                            sm_scale, causal, q_offset, k_offset);
 }
 
 // ---------------------------------------------------------------------------
@@ -567,38 +356,45 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                     k_offset, stream);
 }
 
-template <int D, int BN>
+// The backward launchers: the four maps come from bwd_map's cache, so the
+// dk/dv launch of a backward reuses the maps its dq launch encoded.
+template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int BH, int Sq,
               int Sk, float sm_scale, int causal, int q_offset, int k_offset,
               cudaStream_t stream) {
-  constexpr size_t smem =
-      sizeof(bf16) * ((kRows + 2 * BN) * (D + kPad) + D * (BN + kPad));
-  static const cudaError_t prep = launch_prep(flash_bwd_dq_kernel<D, BN>, smem);
+  static const cudaError_t prep =
+      launch_prep(flash_bwd_dq_kernel<D>, BwdLayout<D>::kSmem);
   if (prep != cudaSuccess) return prep;
-  dim3 grid((Sq + kRows - 1) / kRows, BH);
-  flash_bwd_dq_kernel<D, BN><<<grid, kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, Sq, Sk, sm_scale,
-      causal, q_offset, k_offset);
+  CUtensorMap m[4];
+  int grid = 0;
+  const cudaError_t err =
+      bwd_setup(m, q, k, v, dout, BH, Sq, Sk, D,
+                (long long)BH * ((Sq + kBwdItem - 1) / kBwdItem), &grid);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<D><<<grid, kBwdThreads, BwdLayout<D>::kSmem, stream>>>(
+      m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta,
+      (bf16*)dq, BH, Sq, Sk, sm_scale, causal, q_offset, k_offset);
   return cudaGetLastError();
 }
 
-template <int D, int BM>
+template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int BH,
                int Sq, int Sk, float sm_scale, int causal, int q_offset,
                int k_offset, cudaStream_t stream) {
-  constexpr size_t smem =
-      sizeof(bf16) * ((2 * kRows + 2 * BM) * (D + kPad) + 2 * D * (BM + kPad)) +
-      sizeof(float) * 2 * BM;
-  static const cudaError_t prep = launch_prep(flash_bwd_dkv_kernel<D, BM>, smem);
+  static const cudaError_t prep =
+      launch_prep(flash_bwd_dkv_kernel<D>, BwdLayout<D>::kSmem);
   if (prep != cudaSuccess) return prep;
-  dim3 grid((Sk + kRows - 1) / kRows, BH);
-  flash_bwd_dkv_kernel<D, BM><<<grid, kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, Sq, Sk,
-      sm_scale, causal, q_offset, k_offset);
+  CUtensorMap m[4];
+  int grid = 0;
+  const cudaError_t err =
+      bwd_setup(m, q, k, v, dout, BH, Sq, Sk, D,
+                (long long)BH * ((Sk + kBwdItem - 1) / kBwdItem), &grid);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_kernel<D><<<grid, kBwdThreads, BwdLayout<D>::kSmem, stream>>>(
+      m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta,
+      (bf16*)dk, (bf16*)dv, BH, Sq, Sk, sm_scale, causal, q_offset, k_offset);
   return cudaGetLastError();
 }
 
@@ -624,8 +420,9 @@ int launch_bwd_fused(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// The C interface. Each returns a cudaError_t (0 on success); the tile
-// widths per head_dim keep the f32 accumulators within the register file.
+// The C interface. Each returns a cudaError_t (0 on success); the fused
+// backward's tile widths per head_dim keep its f32 accumulators within the
+// register file.
 extern "C" {
 
 int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
@@ -647,11 +444,11 @@ int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                      int causal, int q_offset, int k_offset, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (D == 64)
-    return launch_dq<64, 64>(q, k, v, dout, lse, delta, dq, BH, Sq, Sk,
-                             sm_scale, causal, q_offset, k_offset, s);
+    return launch_dq<64>(q, k, v, dout, lse, delta, dq, BH, Sq, Sk, sm_scale,
+                         causal, q_offset, k_offset, s);
   if (D == 128)
-    return launch_dq<128, 32>(q, k, v, dout, lse, delta, dq, BH, Sq, Sk,
-                              sm_scale, causal, q_offset, k_offset, s);
+    return launch_dq<128>(q, k, v, dout, lse, delta, dq, BH, Sq, Sk,
+                          sm_scale, causal, q_offset, k_offset, s);
   return cudaErrorInvalidValue;
 }
 
@@ -662,11 +459,11 @@ int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (D == 64)
-    return launch_dkv<64, 64>(q, k, v, dout, lse, delta, dk, dv, BH, Sq, Sk,
-                              sm_scale, causal, q_offset, k_offset, s);
+    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, BH, Sq, Sk,
+                          sm_scale, causal, q_offset, k_offset, s);
   if (D == 128)
-    return launch_dkv<128, 32>(q, k, v, dout, lse, delta, dk, dv, BH, Sq, Sk,
-                               sm_scale, causal, q_offset, k_offset, s);
+    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, BH, Sq, Sk,
+                           sm_scale, causal, q_offset, k_offset, s);
   return cudaErrorInvalidValue;
 }
 

@@ -98,12 +98,16 @@ def allreduce_async_(tensor: torch.Tensor, average: Optional[bool] = None,
 
 def _average(out: torch.Tensor, red: int, world: int) -> torch.Tensor:
     """A SUM turned into the Average: ``div_`` by the world for floats (the
-    bits of a mean over the ranks), floor division for integers."""
+    bits of a mean over the ranks), division rounded toward zero for
+    integers, as the reference divides and casts back
+    (``horovod_tpu/runtime/executor.py:927-949, 1146-1148``,
+    ``horovod_tpu/torch/mpi_ops.py:65-75``): a sum of -5 over 2 ranks
+    averages to -2."""
     if red != Average:
         return out
     if out.is_floating_point():
         return out.div_(world)
-    return torch.div(out, world, rounding_mode="floor")
+    return torch.div(out, world, rounding_mode="trunc")
 
 
 def allreduce_async(tensor, average=None, name=None, op=None,

@@ -96,34 +96,17 @@ def worker(checkout: Path, iters: int, calls: int) -> dict:
             "host_us": host}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--other", type=Path,
-                    help="the checkout to compare with this one")
-    ap.add_argument("--turns", type=int, default=2)
-    ap.add_argument("--iters", type=int, default=50)
-    ap.add_argument("--calls", type=int, default=500)
-    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.worker:
-        print(json.dumps(worker(args.worker.resolve(), args.iters,
-                                args.calls)), flush=True)
-        return 0
-    import torch
-
-    if not torch.cuda.is_available():
-        print("fwd_before_after needs a CUDA device", file=sys.stderr)
-        return 1
-    if args.other is None:
-        ap.error("--other is required")
-    pair = (args.other.resolve(), HERE)
+def in_turns(script: Path, other: Path, turns: int, args: list) -> int:
+    """Run ``script --worker <checkout> *args`` in ``2 * turns`` processes,
+    other, this, this, other, ..., print each one's JSON line, then each
+    checkout's medians beside the card's name and power limit."""
+    pair = (other.resolve(), HERE)
     rows = []
-    for turn in range(args.turns):
+    for turn in range(turns):
         for checkout in (pair if turn % 2 == 0 else pair[::-1]):
             out = subprocess.run(
-                [sys.executable, __file__, "--worker", str(checkout),
-                 "--iters", str(args.iters), "--calls", str(args.calls)],
-                capture_output=True, text=True)
+                [sys.executable, str(script), "--worker", str(checkout),
+                 *args], capture_output=True, text=True)
             if out.returncode:
                 print(out.stderr[-4000:], file=sys.stderr)
                 return out.returncode
@@ -136,11 +119,38 @@ def main() -> int:
             what: {key: statistics.median(r[what][key] for r in mine)
                    for key in mine[0][what]}
             for what in ("ms", "host_us")}
-    print(json.dumps({"medians": medians, "iters": args.iters,
-                      "calls": args.calls,
-                      "card": this_timer().card_line()}),
-          flush=True)
+    print(json.dumps({"medians": medians, "args": args,
+                      "card": this_timer().card_line()}), flush=True)
     return 0
+
+
+def parse_args(description: str) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=description)
+    ap.add_argument("--other", type=Path,
+                    help="the checkout to compare with this one")
+    ap.add_argument("--turns", type=int, default=2)
+    ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--calls", type=int, default=500)
+    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if not args.worker and args.other is None:
+        ap.error("--other is required")
+    return args
+
+
+def main() -> int:
+    args = parse_args(__doc__.split("\n")[0])
+    if args.worker:
+        print(json.dumps(worker(args.worker.resolve(), args.iters,
+                                args.calls)), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("fwd_before_after needs a CUDA device", file=sys.stderr)
+        return 1
+    return in_turns(Path(__file__).resolve(), args.other, args.turns,
+                    ["--iters", str(args.iters), "--calls", str(args.calls)])
 
 
 if __name__ == "__main__":

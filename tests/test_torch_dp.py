@@ -164,7 +164,7 @@ def test_two_rank_gloo_world_matches_jax(tmp_path):
         np.testing.assert_array_equal(out["counts"], [2, r])
         np.testing.assert_allclose(out["mean"], mean, rtol=1e-6, atol=0)
         np.testing.assert_allclose(out["sum_fp16"], grads.sum(0),
-                                   rtol=2e-2, atol=2e-2)  # bf16 wire
+                                   rtol=2e-2, atol=2e-2)  # fp16 wire
         np.testing.assert_array_equal(out["max"], grads.max(0))
         np.testing.assert_array_equal(out["g_untouched"], grads[r])
         np.testing.assert_array_equal(out["mean_inplace"], out["mean"])

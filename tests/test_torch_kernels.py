@@ -46,6 +46,10 @@ def _rel(a, b):
     ((1, 2, 40, 64), False, (0, 0), False),      # Sq < 64, Sk 40
     ((1, 2, 300, 100, 64), False, (0, 0), False),  # Sk under one key tile
     ((1, 2, 700, 1000, 128), True, (300, 0), False),  # D128, Sq != Sk, offsets
+    ((2, 4, 700, 1000, 128), True, (300, 0), False),  # chip_smoke.py's e_d128:
+    #                                          neither extent a multiple of 128
+    ((1, 3, 333, 517, 64), True, (200, 17), False),  # D64, Sq < Sk, offsets:
+    #                                          dk/dv warpgroups skip tiles
     ((1, 2, 64, 64), False, (0, 0), True),       # V the identity: o is p
     ((16, 12, 300, 64), True, (0, 0), False),    # 576 items: each block
     #                                              takes several, of 1-3 tiles

@@ -280,7 +280,8 @@ def test_sass_witness_counts_the_forward_kernels_instructions(monkeypatch):
     """``chip_smoke.py``'s witness that the design reached the card: the
     functions of ``cuobjdump -sass`` are demangled with their template
     arguments, and their HGMMA, UTMALDG and SYNCS instructions counted,
-    predicated ones included."""
+    predicated ones included: the forward's, the probe's and the
+    backward's (dq, dk/dv) kernels, and none in a mma.sync kernel."""
     import types
 
     import chip_smoke
@@ -293,7 +294,16 @@ def test_sass_witness_counts_the_forward_kernels_instructions(monkeypatch):
         /*00a0*/              @!P0 UTMALDG.3D [UR8], [UR10] ;
         /*00b0*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
         /*00c0*/                   HGMMA.64x64x16.F32.BF16 R24, R8, gdesc[UR8], R24 ;
-                Function : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64ELi64EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_iifiii
+                Function : _ZN51_GLOBAL__N__614f4d45_18_flash_attention_cu_6c7cf8a419flash_bwd_dq_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiifiii
+        /*0010*/                   SYNCS.ARRIVE.TRANS64.RED.A1T0 RZ, [UR4], RZ ;
+        /*0020*/              @!P1 UTMALDG.3D [UR16], [UR6] ;
+        /*0030*/                   HGMMA.64x64x16.F32.BF16 R88, gdesc[UR8], R88, gsb0 ;
+        /*0040*/                   HGMMA.64x128x16.F32.BF16 R24, R152, gdesc[UR12], R24, gsb0 ;
+                Function : _ZN51_GLOBAL__N__614f4d45_18_flash_attention_cu_6c7cf8a420flash_bwd_dkv_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiifiii
+        /*0010*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], R3 ;
+        /*0020*/                   UTMALDG.3D [UR8], [UR10] ;
+        /*0030*/                   HGMMA.64x64x16.F32.BF16 R24, R8, gdesc[UR8], R24 ;
+                Function : _ZN12_GLOBAL__N_122flash_bwd_fused_kernelILi64ELi64EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_S6_Pfiifiii
         /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
 """
     monkeypatch.setattr(chip_smoke.kernel_build, "nvcc",
@@ -303,7 +313,80 @@ def test_sass_witness_counts_the_forward_kernels_instructions(monkeypatch):
     assert chip_smoke.sass_counts("attention_probe") == {
         "probe_fwd_kernel<128,64,false>": {"HGMMA": 2, "UTMALDG": 1,
                                            "SYNCS": 1},
-        "flash_bwd_dq_kernel<64,64>": {"HGMMA": 0, "UTMALDG": 0, "SYNCS": 0}}
+        "flash_bwd_dq_kernel<128>": {"HGMMA": 2, "UTMALDG": 1, "SYNCS": 1},
+        "flash_bwd_dkv_kernel<64>": {"HGMMA": 1, "UTMALDG": 1, "SYNCS": 1},
+        "flash_bwd_fused_kernel<64,64>": {"HGMMA": 0, "UTMALDG": 0,
+                                          "SYNCS": 0}}
+
+
+def _witness_counts(missing=None, lacking=None):
+    """SASS counts of every instance the witness expects, less the
+    instance ``missing`` and with no UTMALDG in ``lacking``."""
+    import chip_smoke
+
+    counts = {lib: {} for lib in chip_smoke.WGMMA_KERNELS}
+    for lib, kernels in chip_smoke.WGMMA_KERNELS.items():
+        for kernel in kernels:
+            args = ("64,64,true", "128,128,true", "128,64,false") \
+                if kernel == "probe_fwd_kernel" else ("64", "128")
+            for a in args:
+                counts[lib][f"{kernel}<{a}>"] = {"HGMMA": 8, "UTMALDG": 4,
+                                                 "SYNCS": 20}
+        counts[lib]["flash_bwd_fused_kernel<64,64>"] = dict.fromkeys(
+            chip_smoke.SASS_OPS, 0)  # a mma.sync kernel, not witnessed
+    for lib in counts:
+        counts[lib].pop(missing, None)
+        if lacking in counts[lib]:
+            counts[lib][lacking]["UTMALDG"] = 0
+    return counts
+
+
+@pytest.mark.parametrize("fault", [None, "missing", "lacking", "serialised"])
+def test_sass_witness_holds_every_wgmma_kernel_at_both_head_dims(
+        monkeypatch, fault):
+    """``chip_smoke.wgmma_witness`` holds the forward, dq and dk/dv kernels
+    of ``flash_attention`` and the probe kernel of ``attention_probe`` to
+    HGMMA, UTMALDG and SYNCS in a D64 and a D128 instance each: it fails
+    when an instance is missing or lacks one of them, or when ptxas
+    reports a serialised wgmma."""
+    import chip_smoke
+
+    assert chip_smoke.WGMMA_KERNELS["flash_attention"] == [
+        "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"]
+    counts = _witness_counts(
+        missing="flash_bwd_dkv_kernel<128>" if fault == "missing" else None,
+        lacking="flash_bwd_dq_kernel<64>" if fault == "lacking" else None)
+    ptxas = ("ptxas info    : (C7512) Potential Performance Loss: "
+             "wgmma.mma_async instructions are serialized due to "
+             "insufficient register resources" if fault == "serialised"
+             else "ptxas info    : Used 168 registers")
+    monkeypatch.setattr(chip_smoke, "sass_counts", lambda lib: counts[lib])
+    monkeypatch.setattr(chip_smoke.kernel_build, "build_log",
+                        lambda lib: ptxas)
+    monkeypatch.setattr(chip_smoke, "log", lambda msg: None)
+    if fault is None:
+        chip_smoke.wgmma_witness()
+    else:
+        with pytest.raises(SystemExit):
+            chip_smoke.wgmma_witness()
+
+
+def test_backward_kernels_run_the_hopper_backward_mainloop():
+    """dq and dk/dv run ``csrc/attention_bwd_sm90.cuh``, a source of the
+    flash_attention library (its edits rebuild it) built on the forward
+    header's wgmma primitives; neither keeps the mma.sync tiles or the
+    hand transposes (``mma16816``, ``load_tile_t``) of their first
+    design, which the fused backward B7 still uses."""
+    header = "attention_bwd_sm90.cuh"
+    assert header in [p.name for p in kernel_build.sources("flash_attention")]
+    src = (kernel_build.CSRC / "flash_attention.cu").read_text()
+    bwd = src[src.index("flash_bwd_dq_kernel("):
+              src.index("flash_bwd_fused_kernel(")]
+    assert "attention_bwd_dq_sm90<" in bwd and "attention_bwd_dkv_sm90<" in bwd
+    mainloop = (kernel_build.CSRC / header).read_text()
+    for old in ("mma16816", "load_tile_t", "load_b(", "c_to_a("):
+        assert old not in bwd and old not in mainloop, old
+    assert "load_tile_t" in src[src.index("flash_bwd_fused_kernel("):]
 
 
 def _smoke(*args):
@@ -374,3 +457,24 @@ def test_forward_before_after_tool_reads_chip_smokes_shapes_by_its_timer():
     timer = tool.this_timer()
     assert Path(timer.__file__).resolve() == Path(measure.__file__).resolve()
     assert timer.time_ms.__doc__ == measure.time_ms.__doc__
+
+
+def test_backward_before_after_tool_reads_chip_smokes_shapes_by_its_timer():
+    """``tools/bwd_before_after.py`` times dq, dk/dv, the two together and
+    aten's flash backward at ``chip_smoke.py``'s timed flash cases (the
+    forward tool's shapes), by this checkout's ``time_ms`` whichever
+    checkout it imports, and runs its turns through the forward tool's
+    loop."""
+    import chip_smoke
+    from horovod_tpu_torch.tools import bwd_before_after as tool
+    from horovod_tpu_torch.tools import fwd_before_after as fwd
+    from horovod_tpu_torch.utils import measure
+
+    assert tool.SHAPES == fwd.SHAPES
+    assert set(tool.SHAPES) == set(chip_smoke.FULL["timed"])
+    for name, shape in tool.SHAPES.items():
+        assert chip_smoke.FULL["cases"][name] == (*shape, 0, 0), name
+    timer = tool.this_timer()
+    assert Path(timer.__file__).resolve() == Path(measure.__file__).resolve()
+    assert Path(tool.FWD.__file__).resolve() == Path(fwd.__file__).resolve()
+    assert tool.FWD.HERE == fwd.HERE == REPO

@@ -96,7 +96,12 @@ def test_two_rank_gloo_world_matches_jax(tmp_path):
     rng = np.random.RandomState(0)
     shapes = {"a": (3,), "b": (5, 14), "c.w": (11,), "h": (9,)}
     inputs = {"x_float32": rng.randn(2, 6, 5).astype(np.float32),
-              "x_int32": rng.randint(-50, 50, (2, 6, 5)).astype(np.int32)}
+              "x_int32": rng.randint(-50, 50, (2, 6, 5)).astype(np.int32),
+              # odd sums of both signs: -5 averages to -2 by the
+              # reference's rule, to -3 by floor division
+              "odd_int32": np.asarray([[-3, -2, -1, 0, 1, 2, -4, 3],
+                                       [-2, -1, -2, -1, 2, -5, 1, 0]],
+                                      np.int32)}
     for k, s in shapes.items():
         inputs[f"p_{k}"] = rng.randn(*s).astype(np.float32)
         for step in range(4):
@@ -128,12 +133,21 @@ def test_two_rank_gloo_world_matches_jax(tmp_path):
                 np.testing.assert_array_equal(out[f"rs_{dt}_{op}"],
                                               ar[3 * r:3 * r + 3])
             total = x.sum(0)
-            want = total if op == "sum" else (
-                total / 2 if dt == "float32" else total // 2)
+            # Average: divide, then cast back to the input's dtype, which
+            # truncates integers toward zero (the reference's rule,
+            # horovod_tpu/runtime/executor.py:927-949, 1146-1148)
+            want = total if op == "sum" else (total / 2).astype(x.dtype)
             np.testing.assert_array_equal(got[0][f"ar_{dt}_{op}"], want)
         for out in got:
             np.testing.assert_array_equal(out[f"rsag_async_{dt}"],
                                           out[f"ar_{dt}_avg"])
+    # an integer Average rounds toward zero in allreduce and reducescatter
+    odd = inputs["odd_int32"]
+    want = (odd.sum(0) / 2).astype(np.int32)
+    np.testing.assert_array_equal(want, [-2, -1, -1, 0, 1, -1, -1, 1])
+    for r, out in enumerate(got):
+        np.testing.assert_array_equal(out["ar_odd_avg"], want)
+        np.testing.assert_array_equal(out["rs_odd_avg"], want[4 * r:4 * r + 4])
     for out in got:
         assert "must divide evenly" in str(out["err_reducescatter"])
         assert "ragged dim 0 ([2, 3])" in str(out["err_allgather"])

@@ -8,6 +8,8 @@ got to ``rank<r>.npz``:
 * reduce-scatter then allgather against allreduce, sum and average, f32
   and i32, synchronous and async, and the errors for a dim 0 that does not
   divide by the world and for a ragged allgather;
+* an integer Average of odd sums of both signs, by allreduce and by
+  reducescatter;
 * 4 steps of ``sharded_adamw`` on uneven leaves in two dtype groups, with
   this rank's gradients, and its state's shards;
 * the leaf-count and world-mismatch errors of ``apply``.
@@ -41,6 +43,9 @@ def run(rank: int, size: int, tmpdir: str) -> None:
             h = hvd.reducescatter_async(x)  # op omitted: Average
             out[f"rsag_async_{dt}"] = hvd.synchronize(
                 hvd.allgather_async(hvd.synchronize(h))).numpy()
+        odd = torch.from_numpy(inp["odd_int32"][rank])
+        out["ar_odd_avg"] = hvd.allreduce(odd, op=hvd.Average).numpy()
+        out["rs_odd_avg"] = hvd.reducescatter(odd, op=hvd.Average).numpy()
         for fn, arg in ((hvd.reducescatter, torch.zeros(3, 2)),
                         (hvd.allgather, torch.zeros(2 + rank, 2))):
             try:

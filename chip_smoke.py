@@ -10,12 +10,14 @@ Phases (any failure exits non-zero):
    build the kernels from ``horovod_tpu_torch/csrc`` (flash_attention.cu,
    adamw.cu, conv_bn_act.cu, conv_bn_stats.cu and attention_probe.cu: one
    nvcc per source, started together) and print what ptxas reports
-   (registers, spills). The witness that the attention kernels are the
-   Hopper design: ``cuobjdump -sass`` of the flash_attention and
-   attention_probe libraries must show HGMMA (wgmma), UTMALDG (TMA loads)
+   (registers, spills). The witness that the kernels are the Hopper
+   design: ``cuobjdump -sass`` of the flash_attention, attention_probe and
+   conv_bn_stats libraries must show HGMMA (wgmma), UTMALDG (TMA loads)
    and SYNCS (mbarriers) instructions in every instance, D64 and D128, of
-   flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel and
-   probe_fwd_kernel, and ptxas must report no wgmma serialised.
+   flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel,
+   flash_bwd_fused_kernel and probe_fwd_kernel, and in both N-tile
+   instances (64, 128) of conv3x3_stats_kernel, and ptxas must report no
+   wgmma serialised.
 2. Flash-attention kernels against their plain PyTorch versions, in bf16 on
    the card, with the plain version run on float32 copies of the same bf16
    inputs: (a) B8 H16 S512 D64 (BERT-Large), (b) B16 H12 S1024 D64 causal
@@ -85,14 +87,15 @@ over one forward's 94 calls. 2e. kernel
 B11 (3x3 conv + BN statistics) through
 ``horovod_tpu_torch.tools.conv_bn_probe`` at its four ResNet-50 shapes
 (batch 128; 14 x 14 x 256 is the tool's own), within the tool's limits of
-its plain version, timed beside cuDNN's conv alone and conv plus a stats
-pass. 3b. a small Inception-V3 (8 x 128 x 128, f32) on the card
+its plain version and a second call bit-equal to the first, timed beside
+its bound, cuDNN's conv alone and conv plus a stats pass. 3b. a small Inception-V3 (8 x 128 x 128, f32) on the card
 against the CPU (eval mode: logits and loss 1e-3, gradient 1e-2; train
 mode: twice what one ulp of input moves the CPU's own result), the ReLU
 mask elements that differ counted; each mixed block alone in train mode
 at 1e-3. 2f. the fused backward B7 against its plain version and against
 the dq and dk/dv kernels at (a), (b), a D128 causal case with q_offset !=
-k_offset and Sq != Sk, and (d_masked): dq/dk/dv within 2e-2 relative; then
+k_offset and Sq != Sk, and (d_masked): dq/dk/dv within 2e-2 relative, dq
+exactly 0 on fully masked rows, a second call bit-equal to the first; then
 timed at (a) and (b) beside its bound, its plain version, dq + dk/dv and
 PyTorch's one-call flash attention backward (a yardstick the port never
 calls). 2g. the probe kernels B12-B14 through
@@ -285,13 +288,19 @@ def kernel_name(line: str) -> str:
     return f"{name}<{','.join(args)}>"
 
 
-#: the kernels built on the wgmma + TMA mainloops, by library, and the SASS
-#: instructions that show it: HGMMA (wgmma), UTMALDG (TMA loads), SYNCS
-#: (mbarriers)
-WGMMA_KERNELS = {"flash_attention": ["flash_fwd_kernel", "flash_bwd_dq_kernel",
-                                     "flash_bwd_dkv_kernel"],
-                 "attention_probe": ["probe_fwd_kernel"]}
 HEAD_DIMS = ("64", "128")
+#: the kernels built on wgmma, TMA and mbarriers, by library, each with the
+#: first template arguments its instances must cover: a D64 and a D128
+#: instance of every attention kernel; the conv kernel has no head dim, and
+#: its instances are its N tiles of 64 and 128 output channels
+WGMMA_KERNELS = {"flash_attention": dict.fromkeys(
+                     ["flash_fwd_kernel", "flash_bwd_dq_kernel",
+                      "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel"],
+                     HEAD_DIMS),
+                 "attention_probe": {"probe_fwd_kernel": HEAD_DIMS},
+                 "conv_bn_stats": {"conv3x3_stats_kernel": ("64", "128")}}
+#: the SASS instructions that show it: HGMMA (wgmma), UTMALDG (TMA loads;
+#: the conv kernel's are its weights'), SYNCS (mbarriers)
 SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
 
 
@@ -314,8 +323,8 @@ def sass_counts(name: str) -> dict:
 
 
 def wgmma_witness() -> None:
-    """The attention kernels reached the card as designed: every instance of
-    each kernel of :data:`WGMMA_KERNELS`, a D64 and a D128 one at least,
+    """The Hopper kernels reached the card as designed: every instance of
+    each kernel of :data:`WGMMA_KERNELS`, the instances it names at least,
     has HGMMA, UTMALDG and SYNCS instructions, and ptxas serialised no
     wgmma (its ``Potential Performance Loss`` warning)."""
     for lib, kernels in WGMMA_KERNELS.items():
@@ -326,14 +335,14 @@ def wgmma_witness() -> None:
             log(f"  ptxas {lib}: {line}")
         check(not serial, f"ptxas serialised wgmma in {lib}")
         counts = sass_counts(lib)
-        for kernel in kernels:
+        for kernel, wanted in kernels.items():
             found = {fn: c for fn, c in counts.items()
                      if fn.startswith(kernel + "<")}
-            dims = {fn[len(kernel) + 1:].split(",")[0].rstrip(">")
-                    for fn in found}
-            check(set(HEAD_DIMS) <= dims,
-                  f"{kernel} in the SASS of {lib} lacks a head_dim of "
-                  f"{HEAD_DIMS}: {sorted(found)}")
+            firsts = {fn[len(kernel) + 1:].split(",")[0].rstrip(">")
+                      for fn in found}
+            check(set(wanted) <= firsts,
+                  f"{kernel} in the SASS of {lib} lacks an instance of "
+                  f"{wanted}: {sorted(found)}")
             for fn, c in sorted(found.items()):
                 log(f"  SASS {fn}: " + ", ".join(f"{n} {op}"
                                                  for op, n in c.items()))
@@ -894,15 +903,21 @@ def run_probe(cfg, device) -> tuple:
         worst = max(worst, e["y"], e["sum"], e["sumsq"])
         log(f"conv_bn_stats {r['shape']}: max|kernel-plain| y {e['y']:.3e} "
             f"sum {e['sum']:.3e} sumsq {e['sumsq']:.3e} (limits y 2e-2 "
-            f"rel+abs, sum 1e-2 rel + 2.0, sumsq 1e-2 rel)")
+            f"rel+abs, sum 1e-2 rel + 2.0, sumsq 1e-2 rel); a second call "
+            f"bit-equal: {e['repeat_equal']}")
         check(e["ok"], f"conv_bn_stats {r['shape']}: outside the limits")
+        check(e["repeat_equal"], f"conv_bn_stats {r['shape']}: a second "
+                                 f"call gave other bits")
         if device.type == "cuda":
-            log(f"  kernel {r['ms']:.4f} ms (MFU {r['mfu']:.4f})  plain "
+            log(f"  kernel {r['ms']:.4f} ms (MFU {r['mfu']:.4f}, share of "
+                f"bound {r['bound_ms'] / r['ms']:.3f})  plain "
                 f"{r['plain_ms']:.4f} ms  cuDNN conv alone {r['conv_ms']:.4f}"
-                f" ms (MFU {r['conv_mfu']:.4f})  conv + stats pass "
-                f"{r['conv_stats_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']}; {r['flops'] / 1e9:.2f} GFLOP, "
-                f"{r['bytes'] / 1e6:.1f} MB)")
+                f" ms (MFU {r['conv_mfu']:.4f}; kernel "
+                f"{r['ms'] / r['conv_ms']:.2f}x)  conv + stats pass "
+                f"{r['conv_stats_ms']:.4f} ms (kernel "
+                f"{r['ms'] / r['conv_stats_ms']:.2f}x)  bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+                f"{r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.1f} MB)")
         rows.append(r)
     tool = next((r for r in rows if r["shape"].startswith(
         f"{probe.BATCH}x{probe.SIZE}x")), rows[0])
@@ -928,17 +943,20 @@ def fused_bound(case) -> dict:
 def check_fused(name, case, device) -> float:
     """B7 on bf16 inputs against its plain version on float32 copies (with
     the plain forward's lse and delta) and against the dq and dk/dv kernels
-    on the same inputs: dq, dk, dv within 2e-2 relative to their norm.
-    Returns the largest absolute error against the plain version."""
+    on the same inputs: dq, dk, dv within 2e-2 relative to their norm, dq
+    exactly 0 on fully masked rows, and a second call bit-equal to the
+    first. Returns the largest absolute error against the plain version."""
     q, k, v, do = make_inputs(case, device, seed=len(name) + 10)
     kw = kwargs(case)
     o, lse = fa.flash_fwd(q, k, v, **kw)
     delta = fa.compute_delta(o, do)
     got = fa.flash_bwd_fused(q, k, v, do, lse, delta, **kw)
+    again = fa.flash_bwd_fused(q, k, v, do, lse, delta, **kw)
     two = (fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
            *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
     if device.type == "cuda":
         torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
     f = [t.float() for t in (q, k, v, do)]
     o_ref, lse_ref = fa.flash_fwd_reference(*f[:3], **kw)
     ref = fa.flash_bwd_fused_reference(
@@ -954,7 +972,9 @@ def check_fused(name, case, device) -> float:
         + " ".join(f"{n} {e:.3e}" for n, e in zip(names, err_ref))
         + "; rel to dq + dk/dv "
         + " ".join(f"{n} {e:.3e}" for n, e in zip(names, err_two))
-        + f"; fully masked rows {int(masked.sum())}")
+        + f"; fully masked rows {int(masked.sum())}; a second call "
+        f"bit-equal: {same}")
+    check(same, f"fused case {name}: a second call gave other bits")
     check(all(bool(torch.isfinite(t).all()) for t in got),
           f"fused case {name}: non-finite gradient")
     check(bool((got[0][masked] == 0).all()),
@@ -996,11 +1016,13 @@ def time_fused(name, case, device, iters) -> dict:
                                 fa.flash_bwd_dkv(*args, **kw)), iters, device),
         library_ms=time_ms(lib, iters, device) if lib else None,
         **fused_bound(case))
-    lib_s = (f"{row['library_ms']:.4f} ms" if lib
+    lib_s = (f"{row['library_ms']:.4f} ms (B7 "
+             f"{row['ms'] / row['library_ms']:.2f}x)" if lib
              else "not timed (no such kernel on the CPU)")
     log(f"timing fused case {name} ({iters} calls each in a CUDA graph): B7 "
         f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  dq + dk/dv "
-        f"{row['two_ms']:.4f} ms  aten flash backward {lib_s}  bound "
+        f"{row['two_ms']:.4f} ms (B7 {row['ms'] / row['two_ms']:.2f}x)  aten "
+        f"flash backward {lib_s}  bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
         f"{row['flops'] / 1e9:.2f} GFLOP, {row['bytes'] / 1e6:.1f} MB)  "
         f"share of bound {row['bound_ms'] / row['ms']:.3f}")

@@ -59,10 +59,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.hvd_flash_fwd.argtypes = [P] * 5 + scalars
     lib.hvd_flash_bwd_dq.argtypes = [P] * 7 + scalars
     lib.hvd_flash_bwd_dkv.argtypes = [P] * 8 + scalars
-    lib.hvd_flash_bwd_fused.argtypes = [P] * 10 + scalars
+    lib.hvd_flash_bwd_fused.argtypes = [P] * 11 + scalars
     for fn in (lib.hvd_flash_fwd, lib.hvd_flash_bwd_dq, lib.hvd_flash_bwd_dkv,
                lib.hvd_flash_bwd_fused):
         fn.restype = ctypes.c_int
+    lib.hvd_flash_bwd_fused_turns.argtypes = [I, I]
+    lib.hvd_flash_bwd_fused_turns.restype = ctypes.c_longlong
     lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
     lib.hvd_cuda_error_string.restype = ctypes.c_char_p
 
@@ -258,8 +260,10 @@ def flash_bwd_fused(q, k, v, do, lse, delta, *, causal, sm_scale, q_offset,
                     k_offset):
     """(dq, dk, dv) from one kernel that computes s and p once. The kernel
     for CUDA tensors; it takes any extent, but the backward sends it only
-    extents up to :data:`FUSED_MAX_SEQ`. It sums dq in a float32 scratch of
-    (B, H, Sq, D) that the wrapper allocates."""
+    extents up to :data:`FUSED_MAX_SEQ`. It sums dq across its key items
+    in a fixed order in a float32 scratch of (B, H, Sq, D), with int32 turn
+    counters (two per batch*head and query tile of 64, zeroed by the
+    launch); the wrapper allocates both."""
     kw = dict(causal=causal, sm_scale=sm_scale, q_offset=q_offset,
               k_offset=k_offset)
     if _on_cpu(q, k, v, do, lse, delta):
@@ -268,10 +272,15 @@ def flash_bwd_fused(q, k, v, do, lse, delta, *, causal, sm_scale, q_offset,
     _check_rows(q, lse, delta)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    err = _lib().hvd_flash_bwd_fused(
+    lib = _lib()
+    turns = torch.empty(
+        lib.hvd_flash_bwd_fused_turns(q.shape[0] * q.shape[1], q.shape[2]),
+        dtype=torch.int32, device=q.device)
+    err = lib.hvd_flash_bwd_fused(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dq_acc.data_ptr(), *_scalars(q, k, **kw))
+        dv.data_ptr(), dq_acc.data_ptr(), turns.data_ptr(),
+        *_scalars(q, k, **kw))
     _raise_on(err, "flash fused backward")
     LAUNCHES["flash_bwd_fused"] += 1
     return dq, dk, dv

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The attention backward of two checkouts on one card, in turns: the time
-of the dq and dk/dv kernels and their wrappers' host time per call.
+of the dq, dk/dv and fused (B7) kernels and their wrappers' host time per
+call.
 
     python3 horovod_tpu_torch/tools/bwd_before_after.py --other <checkout>
 
@@ -12,8 +13,10 @@ forward tool's shapes (a) B8 H16 S512 D64, (b) B16 H12 S1024 D64 causal and
 (c) B1 H4 S2048 D128 causal:
 
 - ``ms``: ``flash_bwd_dq``, ``flash_bwd_dkv``, the two back to back (one
-  backward), and aten's flash attention backward (dq, dk and dv in one
-  call, a yardstick the port never calls), all by THIS checkout's
+  backward), the fused backward ``flash_bwd_fused`` (B7) at the shapes
+  within ``FUSED_MAX_SEQ`` ((a) and (b): :data:`FUSED`), and aten's flash
+  attention backward (dq, dk and dv in one call, a yardstick the port
+  never calls), all by THIS checkout's
   ``utils.measure.time_ms`` (CUDA events around a CUDA graph of
   ``--iters`` calls), so both checkouts are read by one method;
 - ``host_us``: the wall time of each wrapper, and of the two back to back,
@@ -46,6 +49,8 @@ def _forward_tool():
 
 FWD = _forward_tool()
 SHAPES = FWD.SHAPES
+#: the shapes B7 is timed at: those the backward sends it (Sq, Sk <= 1024)
+FUSED = ("a", "b")
 this_timer = FWD.this_timer
 
 
@@ -79,8 +84,13 @@ def worker(checkout: Path, iters: int, calls: int) -> dict:
         def pair():
             return dq(), dkv()
 
+        def fused():
+            return fa.flash_bwd_fused(*args, **kw)
+
         calls_of = {f"dq_{name}": dq, f"dkv_{name}": dkv,
                     f"pair_{name}": pair}
+        if name in FUSED:
+            calls_of[f"fused_{name}"] = fused
         for key, fn in calls_of.items():
             ms[key] = timer.time_ms(fn, iters, dev)
             host[key] = FWD.host_us(fn, calls)

@@ -8,8 +8,9 @@ each side, so the conv is SAME on the image) and ``w`` (3, 3, Cin, Cout)
 bf16; it returns ``y`` (N, H, W, Cout) bf16 and the per-channel ``sum`` and
 ``sumsq`` (Cout,) float32 of the unrounded float32 conv, as the TPU kernel
 takes them. For CUDA tensors that is kernel B11 (``csrc/conv_bn_stats.cu``:
-the implicit-GEMM conv with the sums in its epilogue, then a kernel that
-sums the per-tile scratch in a fixed order); for CPU tensors its plain
+the implicit-GEMM conv on wgmma, weights by TMA and the im2col gather by
+cp.async, with the sums in its epilogue into a per-tile scratch, then a
+kernel that sums the scratch in a fixed order); for CPU tensors its plain
 version :func:`conv3x3_bn_stats_plain` (a float32 conv of the bf16 values,
 ``y`` rounded to bf16, the sums over the float32 result: the tool's own
 check). :data:`LAUNCHES` counts both kernels' launches.
@@ -22,6 +23,8 @@ time beside cuDNN's conv alone and cuDNN's conv plus a separate statistics
 pass (yardsticks the port never calls), each as MFU against the H100's
 989 TFLOP/s, with the card's name and power limit. No model calls this
 probe, as no model of the JAX package calls the tool.
+``tools/conv_before_after.py --other <checkout>`` times this kernel of two
+checkouts in turns.
 """
 
 from __future__ import annotations
@@ -179,14 +182,18 @@ def errors(got, want) -> dict:
 
 def measure(n: int, size: int, cin: int, cout: int, device,
             iters: int = 20) -> dict:
-    """Check B11 against its plain version at one shape, then time it, its
-    plain version, cuDNN's conv alone and conv plus a stats pass."""
+    """Check B11 against its plain version at one shape (and a second call
+    against the first, bit for bit), then time it, its plain version,
+    cuDNN's conv alone and conv plus a stats pass."""
     x, xp, w = inputs(n, size, cin, cout, device)
     got = conv3x3_bn_stats(xp, w)
+    again = conv3x3_bn_stats(xp, w)
     want = conv3x3_bn_stats_plain(xp, w)
     row = dict(shape=f"{n}x{size}x{size}x{cin}->{cout} 3x3",
                err=errors(got, want), **work(n, size, cin, cout))
-    del got, want
+    row["err"]["repeat_equal"] = all(torch.equal(a, b)
+                                     for a, b in zip(got, again))
+    del got, again, want
     row["ms"] = time_ms(lambda: conv3x3_bn_stats(xp, w), iters, device)
     row["plain_ms"] = time_ms(lambda: conv3x3_bn_stats_plain(xp, w), iters,
                               device)
@@ -217,7 +224,7 @@ def main(argv=None) -> int:
     for size, c in shapes:
         row = measure(BATCH, size, c, c, torch.device("cuda"))
         row["card"] = card
-        ok = ok and row["err"]["ok"]
+        ok = ok and row["err"]["ok"] and row["err"]["repeat_equal"]
         print(json.dumps(row), flush=True)
     return 0 if ok else 1
 

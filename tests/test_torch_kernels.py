@@ -122,11 +122,16 @@ def test_autograd_runs_the_kernels(cuda, monkeypatch):
     ((1, 2, 1000, 1000, 64), True, (0, 0)),   # ragged edge, 16 key blocks
     ((1, 2, 300, 700, 128), True, (400, 0)),  # head_dim 128, Sq != Sk
     ((1, 2, 256, 256, 64), True, (16, 80)),   # fully masked rows
+    ((8, 16, 1024, 1024, 64), True, (0, 0)),  # 1,024 items, ~8 a block:
+    #                                    the ordered dq sum across waves
+    ((1, 3, 333, 517, 128), True, (200, 17)),  # D128, ragged Sq and Sk
+    ((2, 2, 200, 40, 64), False, (0, 0)),     # Sk under half a key item
 ])
 def test_fused_backward_matches_plain_on_card(cuda, shape, causal, offsets):
     """B7 on bf16 inputs against its plain version on float32 copies and
     against the dq and dk/dv kernels: each gradient within 2e-2 relative to
-    its norm; fully masked rows get dq 0."""
+    its norm; fully masked rows get dq 0; a second call on the same inputs
+    gives the same bits (dq is summed across key items in a fixed order)."""
     b, h, sq, sk, d = shape
     g = torch.Generator(cuda).manual_seed(5)
     q, do = (torch.randn(b, h, sq, d, generator=g, device=cuda)
@@ -147,10 +152,13 @@ def test_fused_backward_matches_plain_on_card(cuda, shape, causal, offsets):
     o_ref, lse_ref = tfa.flash_fwd_reference(*f[:3], **kw)
     ref = tfa.flash_bwd_fused_reference(
         *f, lse_ref, tfa.compute_delta(o_ref.float(), f[3]), **kw)
-    for a, r, t in zip(got, ref, two):
+    again = tfa.flash_bwd_fused(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    for a, r, t, b in zip(got, ref, two, again):
         assert torch.isfinite(a).all()
         assert _rel(a, r) <= 2e-2
         assert _rel(a, t.float()) <= 2e-2
+        assert torch.equal(a, b)
     assert (got[0][~torch.isfinite(lse_ref)] == 0).all()
 
 
@@ -361,16 +369,30 @@ def test_scale_bias_act_refuses_nchw_on_card(cuda):
 
 
 @pytest.mark.gpu
-def test_conv_bn_stats_within_the_tools_limits_on_card(cuda):
-    """B11 at the tool's shape, 128 x 14 x 14 x 256 -> 256, against its
-    plain version (a float32 conv of the same bf16 values; cuDNN's TF32
-    off): y 2e-2 rel + abs, sum 1e-2 rel + 2.0 abs, sumsq 1e-2 rel."""
+@pytest.mark.parametrize("n,size,cin,cout", [
+    *((tprobe.BATCH, size, c, c) for size, c in tprobe.SWEEP),  # 14^2: the
+    #                                                    tool's own shape
+    (3, 7, 64, 64),     # N*H*W 147: a ragged last tile of 19 pixels
+    (2, 9, 32, 64),     # Cin 32: each chunk's upper 32 channels zero-filled
+    (2, 6, 96, 192),    # Cin 96 (a half chunk), Cout 192 (N tiles of 64)
+])
+def test_conv_bn_stats_within_the_tools_limits_on_card(cuda, n, size, cin,
+                                                       cout):
+    """B11 against its plain version (a float32 conv of the same bf16
+    values; cuDNN's TF32 off) at ResNet-50's four 3x3 stages at batch 128
+    and at shapes off the sweep: y 2e-2 rel + abs, sum 1e-2 rel + 2.0 abs,
+    sumsq 1e-2 rel (the tool's limits); a second call gives the same bits
+    (the sums run in a fixed order, with no atomics)."""
     torch.backends.cudnn.allow_tf32 = False
-    _, xp, w = tprobe.inputs(tprobe.BATCH, tprobe.SIZE, tprobe.CHANNELS,
-                             tprobe.CHANNELS, cuda)
+    _, xp, w = tprobe.inputs(n, size, cin, cout, cuda)
+    tprobe.LAUNCHES["conv_bn_stats"] = 0
     got = tprobe.conv3x3_bn_stats(xp, w)
+    again = tprobe.conv3x3_bn_stats(xp, w)
     want = tprobe.conv3x3_bn_stats_plain(xp, w)
+    assert tprobe.LAUNCHES["conv_bn_stats"] == 4  # conv + column sums, twice
     assert tprobe.errors(got, want)["ok"]
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

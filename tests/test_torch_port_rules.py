@@ -280,8 +280,10 @@ def test_sass_witness_counts_the_forward_kernels_instructions(monkeypatch):
     """``chip_smoke.py``'s witness that the design reached the card: the
     functions of ``cuobjdump -sass`` are demangled with their template
     arguments, and their HGMMA, UTMALDG and SYNCS instructions counted,
-    predicated ones included: the forward's, the probe's and the
-    backward's (dq, dk/dv) kernels, and none in a mma.sync kernel."""
+    predicated ones included: the forward's, the probe's, the backward's
+    (dq, dk/dv, fused) and the conv's kernels (an instance by its N tile,
+    not a head dim), and none in a kernel without them, read by its name
+    alone when it has no template arguments."""
     import types
 
     import chip_smoke
@@ -303,8 +305,16 @@ def test_sass_witness_counts_the_forward_kernels_instructions(monkeypatch):
         /*0010*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], R3 ;
         /*0020*/                   UTMALDG.3D [UR8], [UR10] ;
         /*0030*/                   HGMMA.64x64x16.F32.BF16 R24, R8, gdesc[UR8], R24 ;
-                Function : _ZN12_GLOBAL__N_122flash_bwd_fused_kernelILi64ELi64EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_S6_Pfiifiii
-        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+                Function : _ZN51_GLOBAL__N__614f4d45_18_flash_attention_cu_6c7cf8a422flash_bwd_fused_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_S5_PfPiiiifiii
+        /*0010*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], R3 ;
+        /*0020*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;
+        /*0030*/              @!P2 UTMALDG.3D [UR8], [UR10] ;
+                Function : _ZN49_GLOBAL__N__2a1f5c3b_16_conv_bn_stats_cu_5b1d9e2e20conv3x3_stats_kernelILi128EEEv14CUtensorMap_stPK13__nv_bfloat16PS2_PfS6_iiiii
+        /*0010*/                   UTMALDG.2D [UR8], [UR10] ;
+        /*0020*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24, gsb0 ;
+        /*0030*/                   SYNCS.ARRIVE.TRANS64.A1T0 RZ, [UR4], RZ ;
+                Function : _ZN49_GLOBAL__N__2a1f5c3b_16_conv_bn_stats_cu_5b1d9e2e17column_sum_kernelEPKfS1_PfS2_ii
+        /*0010*/                   FADD R4, R4, R5 ;
 """
     monkeypatch.setattr(chip_smoke.kernel_build, "nvcc",
                         lambda: "/opt/cuda/bin/nvcc")
@@ -315,8 +325,9 @@ def test_sass_witness_counts_the_forward_kernels_instructions(monkeypatch):
                                            "SYNCS": 1},
         "flash_bwd_dq_kernel<128>": {"HGMMA": 2, "UTMALDG": 1, "SYNCS": 1},
         "flash_bwd_dkv_kernel<64>": {"HGMMA": 1, "UTMALDG": 1, "SYNCS": 1},
-        "flash_bwd_fused_kernel<64,64>": {"HGMMA": 0, "UTMALDG": 0,
-                                          "SYNCS": 0}}
+        "flash_bwd_fused_kernel<128>": {"HGMMA": 1, "UTMALDG": 1, "SYNCS": 1},
+        "conv3x3_stats_kernel<128>": {"HGMMA": 1, "UTMALDG": 1, "SYNCS": 1},
+        "column_sum_kernel": {"HGMMA": 0, "UTMALDG": 0, "SYNCS": 0}}
 
 
 def _witness_counts(missing=None, lacking=None):
@@ -326,14 +337,15 @@ def _witness_counts(missing=None, lacking=None):
 
     counts = {lib: {} for lib in chip_smoke.WGMMA_KERNELS}
     for lib, kernels in chip_smoke.WGMMA_KERNELS.items():
-        for kernel in kernels:
+        for kernel, firsts in kernels.items():
             args = ("64,64,true", "128,128,true", "128,64,false") \
-                if kernel == "probe_fwd_kernel" else ("64", "128")
+                if kernel == "probe_fwd_kernel" else firsts
             for a in args:
                 counts[lib][f"{kernel}<{a}>"] = {"HGMMA": 8, "UTMALDG": 4,
                                                  "SYNCS": 20}
-        counts[lib]["flash_bwd_fused_kernel<64,64>"] = dict.fromkeys(
-            chip_smoke.SASS_OPS, 0)  # a mma.sync kernel, not witnessed
+    # a kernel of a witnessed library that is not witnessed
+    counts["conv_bn_stats"]["column_sum_kernel"] = dict.fromkeys(
+        chip_smoke.SASS_OPS, 0)
     for lib in counts:
         counts[lib].pop(missing, None)
         if lacking in counts[lib]:
@@ -341,21 +353,29 @@ def _witness_counts(missing=None, lacking=None):
     return counts
 
 
-@pytest.mark.parametrize("fault", [None, "missing", "lacking", "serialised"])
+@pytest.mark.parametrize("fault", [None, "missing", "lacking", "serialised",
+                                   "conv missing", "fused lacking"])
 def test_sass_witness_holds_every_wgmma_kernel_at_both_head_dims(
         monkeypatch, fault):
-    """``chip_smoke.wgmma_witness`` holds the forward, dq and dk/dv kernels
-    of ``flash_attention`` and the probe kernel of ``attention_probe`` to
-    HGMMA, UTMALDG and SYNCS in a D64 and a D128 instance each: it fails
+    """``chip_smoke.wgmma_witness`` holds the forward, dq, dk/dv and fused
+    backward kernels of ``flash_attention`` and the probe kernel of
+    ``attention_probe`` to HGMMA, UTMALDG and SYNCS in a D64 and a D128
+    instance each, and the conv kernel of ``conv_bn_stats`` in its N-tile
+    instances of 64 and 128 (its own entry: it has no head dim): it fails
     when an instance is missing or lacks one of them, or when ptxas
     reports a serialised wgmma."""
     import chip_smoke
 
-    assert chip_smoke.WGMMA_KERNELS["flash_attention"] == [
-        "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"]
+    assert chip_smoke.WGMMA_KERNELS["flash_attention"] == dict.fromkeys(
+        ["flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+         "flash_bwd_fused_kernel"], chip_smoke.HEAD_DIMS)
+    assert chip_smoke.WGMMA_KERNELS["conv_bn_stats"] == {
+        "conv3x3_stats_kernel": ("64", "128")}
     counts = _witness_counts(
-        missing="flash_bwd_dkv_kernel<128>" if fault == "missing" else None,
-        lacking="flash_bwd_dq_kernel<64>" if fault == "lacking" else None)
+        missing={"missing": "flash_bwd_dkv_kernel<128>",
+                 "conv missing": "conv3x3_stats_kernel<64>"}.get(fault),
+        lacking={"lacking": "flash_bwd_dq_kernel<64>",
+                 "fused lacking": "flash_bwd_fused_kernel<128>"}.get(fault))
     ptxas = ("ptxas info    : (C7512) Potential Performance Loss: "
              "wgmma.mma_async instructions are serialized due to "
              "insufficient register resources" if fault == "serialised"
@@ -372,21 +392,38 @@ def test_sass_witness_holds_every_wgmma_kernel_at_both_head_dims(
 
 
 def test_backward_kernels_run_the_hopper_backward_mainloop():
-    """dq and dk/dv run ``csrc/attention_bwd_sm90.cuh``, a source of the
-    flash_attention library (its edits rebuild it) built on the forward
-    header's wgmma primitives; neither keeps the mma.sync tiles or the
-    hand transposes (``mma16816``, ``load_tile_t``) of their first
-    design, which the fused backward B7 still uses."""
+    """dq, dk/dv and the fused backward B7 run ``csrc/attention_bwd_sm90.cuh``,
+    a source of the flash_attention library (its edits rebuild it) built on
+    the forward header's wgmma primitives; none keeps the mma.sync tiles or
+    the hand transposes (``mma16816``, ``load_tile_t``) of the first
+    designs, and the header that held them is gone."""
     header = "attention_bwd_sm90.cuh"
     assert header in [p.name for p in kernel_build.sources("flash_attention")]
+    assert not (kernel_build.CSRC / "mma_tiles.cuh").exists()
     src = (kernel_build.CSRC / "flash_attention.cu").read_text()
-    bwd = src[src.index("flash_bwd_dq_kernel("):
-              src.index("flash_bwd_fused_kernel(")]
-    assert "attention_bwd_dq_sm90<" in bwd and "attention_bwd_dkv_sm90<" in bwd
+    bwd = src[src.index("flash_bwd_dq_kernel("):]
+    for mainloop in ("attention_bwd_dq_sm90<", "attention_bwd_dkv_sm90<",
+                     "attention_bwd_fused_sm90<"):
+        assert mainloop in bwd, mainloop
     mainloop = (kernel_build.CSRC / header).read_text()
-    for old in ("mma16816", "load_tile_t", "load_b(", "c_to_a("):
-        assert old not in bwd and old not in mainloop, old
-    assert "load_tile_t" in src[src.index("flash_bwd_fused_kernel("):]
+    for old in ("mma16816", "load_tile_t", "load_b(", "c_to_a(",
+                "mma.sync.aligned"):
+        assert old not in src and old not in mainloop, old
+
+
+def test_conv_kernel_is_a_wgmma_implicit_gemm_on_the_forward_primitives():
+    """B11 runs on the forward header's wgmma, TMA and mbarrier primitives
+    (an edit to the header rebuilds it): its weights come in by a 2-D TMA
+    map, its activations by cp.async into the swizzled stages, and no
+    mma.sync body of its first design is left."""
+    header = "attention_fwd_sm90.cuh"
+    assert header in [p.name for p in kernel_build.sources("conv_bn_stats")]
+    src = (kernel_build.CSRC / "conv_bn_stats.cu").read_text()
+    for used in ("wgmma_ss_n128<", "wgmma_ss_n64<", "tma_load_2d(",
+                 "encode_2d(", "cp.async.cg.shared.global", "mbar_wait("):
+        assert used in src, used
+    for old in ("mma16816", "mma.sync.aligned", "Bs[(nv + j)"):
+        assert old not in src, old
 
 
 def _smoke(*args):
@@ -462,7 +499,8 @@ def test_forward_before_after_tool_reads_chip_smokes_shapes_by_its_timer():
 def test_backward_before_after_tool_reads_chip_smokes_shapes_by_its_timer():
     """``tools/bwd_before_after.py`` times dq, dk/dv, the two together and
     aten's flash backward at ``chip_smoke.py``'s timed flash cases (the
-    forward tool's shapes), by this checkout's ``time_ms`` whichever
+    forward tool's shapes), and B7 at phase 2f's timed cases, the shapes
+    the backward sends it, by this checkout's ``time_ms`` whichever
     checkout it imports, and runs its turns through the forward tool's
     loop."""
     import chip_smoke
@@ -474,7 +512,57 @@ def test_backward_before_after_tool_reads_chip_smokes_shapes_by_its_timer():
     assert set(tool.SHAPES) == set(chip_smoke.FULL["timed"])
     for name, shape in tool.SHAPES.items():
         assert chip_smoke.FULL["cases"][name] == (*shape, 0, 0), name
+    assert tool.FUSED == chip_smoke.FULL["fused_timed"]
+    for name in tool.FUSED:
+        b, h, s, d, causal = tool.SHAPES[name]
+        assert s <= tfa.FUSED_MAX_SEQ
+        assert chip_smoke.FULL["fused_cases"][name] == (b, h, s, s, d, causal,
+                                                        0, 0), name
     timer = tool.this_timer()
     assert Path(timer.__file__).resolve() == Path(measure.__file__).resolve()
     assert Path(tool.FWD.__file__).resolve() == Path(fwd.__file__).resolve()
     assert tool.FWD.HERE == fwd.HERE == REPO
+
+
+def test_conv_before_after_tool_reads_the_probes_sweep_by_its_timer():
+    """``tools/conv_before_after.py`` times B11 and its two cuDNN
+    yardsticks at the probe's sweep (``chip_smoke.py``'s phase-2e shapes),
+    by this checkout's ``time_ms`` whichever checkout it imports, and runs
+    its turns through the forward tool's loop; its module imports nothing
+    of the package at its top, so a worker can import another checkout's."""
+    import chip_smoke
+    from horovod_tpu_torch.tools import conv_before_after as tool
+    from horovod_tpu_torch.tools import fwd_before_after as fwd
+    from horovod_tpu_torch.utils import measure
+
+    assert tool.SWEEP == tprobe.SWEEP and tool.BATCH == tprobe.BATCH
+    assert chip_smoke.FULL["probe_shapes"] == tuple(
+        (tool.BATCH, size, c) for size, c in tool.SWEEP)
+    timer = tool.this_timer()
+    assert Path(timer.__file__).resolve() == Path(measure.__file__).resolve()
+    assert Path(tool.FWD.__file__).resolve() == Path(fwd.__file__).resolve()
+    assert tool.FWD.HERE == REPO
+    top = ast.parse(Path(tool.__file__).read_text()).body
+    imported = [a.name for node in top if isinstance(node, ast.Import)
+                for a in node.names]
+    imported += [node.module for node in top
+                 if isinstance(node, ast.ImportFrom)]
+    assert not [m for m in imported if m.startswith("horovod_tpu_torch")]
+
+
+def test_fused_wait_probe_patches_the_kernel_the_package_runs(tmp_path):
+    """``tools/fused_wait_probe.py`` measures B7's waits for a dq turn in a
+    patched copy of the sources: each of its anchors occurs once in the
+    package's current sources (so the copy is the kernel the package runs,
+    plus counters), the copy gains the counters and their reader, and the
+    package's own sources carry none."""
+    from horovod_tpu_torch.tools import fused_wait_probe as tool
+
+    copy = tool.patched_sources(tmp_path / "csrc")
+    header = (copy / "attention_bwd_sm90.cuh").read_text()
+    assert header.count("atomicAdd(&g_wait_cycles") == 1
+    assert header.count("atomicAdd(&g_span_cycles") == 1
+    assert "hvd_wait_cycles" in (copy / "flash_attention.cu").read_text()
+    for name in ("attention_bwd_sm90.cuh", "flash_attention.cu"):
+        assert "g_wait_cycles" not in (kernel_build.CSRC / name).read_text()
+    assert set(tool.SHAPES) >= {"a", "b"}

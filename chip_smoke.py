@@ -52,8 +52,20 @@ Phases (any failure exits non-zero):
    from seed 0, ``broadcast_parameters``, ``DistributedOptimizer(AdamW(1e-4,
    weight_decay=1e-4))``, the bench's MLM data (gathered head), 2 warm-up
    and 10 timed steps. The loss must be finite and fall, every kernel must
-   have launched 24 times per step and the hooks one allreduce per
-   parameter per step.
+   have launched 24 times per step and the hooks requested one allreduce
+   per parameter per step. Every collective goes through the enqueue
+   runtime (``runtime/``); what it issued each step is printed from
+   ``runtime.COUNTS`` (allreduce calls, responses, response-cache hits,
+   fusion slabs, process groups, cycle host ms), here and in phases 5-7.
+   The runtime must issue fewer than a quarter of the 388 allreduces a step
+   after the first (fused bins), answer all 388 from its response cache
+   from the second step on, and create no slab or group after warm-up.
+4b. The hooks path again at ``HOROVOD_FUSION_THRESHOLD=0`` (one allreduce a
+   tensor: 388 a step), in turns with phase 4 (fused, 0, 0, fused). At
+   world 1 each reduction is the identity, so every run's losses must
+   equal phase 4's, bit for bit unless a library kernel is
+   nondeterministic, within 1e-5 relative; both step times are printed
+   beside the card's name and power limit.
 5. The optimizer paths, each on the same model, data and steps as phase 4:
    (P1) ``allreduce_gradients`` then ``fused_adamw(1e-4).apply`` (the
    multi-tensor kernel once a step, 388 allreduces a step); (P2) ZeRO-1
@@ -146,6 +158,7 @@ from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import fused_adamw as fadam
 from horovod_tpu_torch.ops import fused_optimizer as fopt
 from horovod_tpu_torch.parallel.zero import LeafMeta, build_spec, dtype_name
+from horovod_tpu_torch.runtime import runtime as hrt
 from horovod_tpu_torch.tools import conv_bn_probe as probe
 from horovod_tpu_torch.tools import flash_vpu_probe as vprobe
 from horovod_tpu_torch.training import make_train_step
@@ -1321,6 +1334,54 @@ def tiny_inception_check(cfg, device) -> None:
 # ---------------------------------------------------------------------------
 
 
+RUNTIME_KEYS = ("allreduce", "reducescatter", "allgather", "broadcast",
+                "responses", "cache_hits", "slabs", "groups", "cycle_ms")
+
+
+def runtime_steps(snaps: list) -> dict:
+    """Per-step deltas of ``runtime.COUNTS`` from snapshots taken before
+    the first step and after each one."""
+    return {k: [b[k] - a[k] for a, b in zip(snaps, snaps[1:])]
+            for k in RUNTIME_KEYS}
+
+
+def log_runtime(label: str, per_step: dict) -> None:
+    """What the runtime issued a step: collectives per kind, responses
+    (a fused bin is one), response-cache hits, fusion slabs and process
+    groups created, and the cycles' host ms."""
+    log(f"  runtime per step ({label}):")
+    for k in RUNTIME_KEYS:
+        vals = per_step[k]
+        text = (" ".join(f"{v:.1f}" for v in vals) if k == "cycle_ms"
+                else " ".join(str(int(v)) for v in vals))
+        log(f"    {k:13s} {text}")
+
+
+def check_hooks_runtime(cfg, per_step: dict, n_tensors: int,
+                        threshold: int, card: bool) -> None:
+    """Phase 4's runtime checks: every step after the first answered
+    every gradient from the response cache, and no fusion slab or process
+    group appeared after the warm-up steps; at threshold 0 one allreduce a
+    tensor every step; fused (the default threshold), on the card, fewer
+    than a quarter of the tensors' allreduces a step after the first (on
+    the CPU rehearsal the host's speed sets how many cycles a backward
+    spans, so there only at most one a tensor)."""
+    ar, warm = per_step["allreduce"], cfg["warmup"]
+    if threshold == 0:
+        check(all(n == n_tensors for n in ar),
+              f"threshold 0: {ar} allreduces a step, want {n_tensors}")
+    else:
+        limit = n_tensors / 4 if card else n_tensors + 1
+        check(all(n < limit for n in ar[1:]),
+              f"fused: {ar} allreduces a step, want < {limit}")
+    hits = per_step["cache_hits"]
+    check(all(h == n_tensors for h in hits[1:]),
+          f"cache hits a step {hits}, want {n_tensors} after the first")
+    for k in ("slabs", "groups"):
+        check(not any(per_step[k][warm:]),
+              f"new {k} after warm-up: {per_step[k]}")
+
+
 PATHS = {  # phase 4 and the optimizer paths of phase 5
     "hooks": "DistributedOptimizer(torch.optim.AdamW), per-parameter hooks",
     "fused": "P1: allreduce_gradients + fused_adamw (multi-tensor kernel)",
@@ -1383,10 +1444,23 @@ def make_step(path, model, params, dev):
     return (lambda: model.zero_grad(set_to_none=True)), update, state_bytes
 
 
-def train(cfg, device, card, path="hooks", profile=False) -> dict:
+def train(cfg, device, card, path="hooks", profile=False,
+          threshold=None) -> dict:
     """Drive one path of the slice: 2 warm-up and 10 timed steps of
-    BERT-Large MLM from seed-0 weights. Returns the losses and the kernel
-    launches of the run (every count is set to 0 just before it)."""
+    BERT-Large MLM from seed-0 weights. Returns the losses, the kernel
+    launches of the run (every count is set to 0 just before it) and what
+    the runtime issued a step. ``threshold`` sets
+    ``HOROVOD_FUSION_THRESHOLD`` for the run (0: one allreduce a tensor)."""
+    if threshold is None:
+        return _train(cfg, device, card, path, profile)
+    os.environ[env.HOROVOD_FUSION_THRESHOLD] = str(threshold)
+    try:
+        return _train(cfg, device, card, path, profile, threshold)
+    finally:
+        os.environ.pop(env.HOROVOD_FUSION_THRESHOLD, None)
+
+
+def _train(cfg, device, card, path, profile, threshold=None) -> dict:
     batch, seq = cfg["batch"], cfg["seq"]
     vocab = cfg["model"]["vocab_size"]
     tokens, positions, labels, n_pred = mlm_data(cfg)
@@ -1419,12 +1493,13 @@ def train(cfg, device, card, path="hooks", profile=False) -> dict:
         update()
         return loss.detach()
 
-    losses, times = [], []
+    losses, times, snaps = [], [], [dict(hrt.COUNTS)]
     steps = cfg["warmup"] + cfg["steps"]
     for i in range(steps):
         t0 = time.perf_counter()
         loss = step()
         losses.append(loss.item())  # waits for the step's last kernel
+        snaps.append(dict(hrt.COUNTS))
         if i >= cfg["warmup"]:
             times.append(time.perf_counter() - t0)
     launches = {**fa.LAUNCHES, **fadam.LAUNCHES, **fopt.LAUNCHES}
@@ -1437,11 +1512,20 @@ def train(cfg, device, card, path="hooks", profile=False) -> dict:
     hvd.shutdown()
     free_memory(device)
 
-    log(f"slice ({path}: {PATHS[path]}): BERT-Large MLM, {n_layers} layers, "
+    label = path if threshold is None else f"{path}, fusion threshold " \
+                                              f"{threshold}"
+    log(f"slice ({label}: {PATHS[path]}): BERT-Large MLM, {n_layers} layers, "
         f"{n_params / 1e6:.1f}M params in {n_tensors} tensors, batch {batch} "
         f"x seq {seq}, {cfg['warmup']} warm-up + {cfg['steps']} timed steps")
     log("  losses: " + " ".join(f"{x:.4f}" for x in losses))
     log(f"  kernel launches: {launches}; collectives: {counts}")
+    issued = runtime_steps(snaps)
+    log_runtime(label, issued)
+    if path == "hooks":
+        check_hooks_runtime(cfg, issued, n_tensors,
+                            env.DEFAULT_FUSION_THRESHOLD_BYTES
+                            if threshold is None else threshold,
+                            dev.type == "cuda")
     check(all(math.isfinite(x) for x in losses), f"{path}: non-finite loss")
     check(losses[-1] < losses[0], f"{path}: loss did not fall: {losses}")
     per_step = {  # collectives and optimizer launches each path must issue
@@ -1475,7 +1559,42 @@ def train(cfg, device, card, path="hooks", profile=False) -> dict:
             f"{where}")
         log(f"  max_memory_allocated {peak / 2**30:.2f} GiB, optimizer "
             f"state on the card {opt_bytes / 2**30:.2f} GiB {where}")
-    return dict(losses=losses, launches=launches, step_ms=1e3 * step_s)
+    return dict(losses=losses, launches=launches, step_ms=1e3 * step_s,
+                runtime=issued)
+
+
+def compare_fusion(cfg, device, card, fused: dict) -> None:
+    """Phase 4b: the hooks path at ``HOROVOD_FUSION_THRESHOLD=0`` (one
+    allreduce a tensor) in turns with phase 4's fused run (fused, 0, 0,
+    fused). At world 1 every reduction is the identity, so the losses must
+    equal the fused run's to the last bit, unless a library kernel is
+    nondeterministic (the embedding backward's atomics): then within 1e-5
+    relative."""
+    runs = {"fused": [fused], "threshold 0": []}
+    for label in ("threshold 0", "threshold 0", "fused"):
+        runs[label].append(train(cfg, device, card, "hooks",
+                                 threshold=0 if label != "fused" else None))
+    base = fused["losses"]
+    for label, rs in runs.items():
+        for r in rs:
+            worst = max(abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                            base))
+            log(f"hooks losses, {label} vs phase 4: largest relative "
+                f"difference {worst:.3e} "
+                f"({'bit-equal' if r['losses'] == base else 'not bit-equal'};"
+                f" limit 1e-5)")
+            check(worst <= 1e-5, f"hooks at {label} moved the losses by "
+                                 f"{worst:.3e}")
+    if device.type != "cuda":
+        log("phase 4b rehearsed (no device times)")
+        return
+    for label, rs in runs.items():
+        ms = [r["step_ms"] for r in rs]
+        calls = statistics.median(n for r in rs
+                                  for n in r["runtime"]["allreduce"][1:])
+        log(f"hooks step median at {label}, turns fused, 0, 0, fused: "
+            + " ".join(f"{x:.2f}" for x in ms) + f" ms; {calls:.0f} "
+            f"allreduces a step (median after the first) ({card})")
 
 
 def compare_in_turns(cfg, device, card, runs: dict, turns: int) -> None:
@@ -1547,11 +1666,12 @@ def train_inception(cfg, device, card, profile=False) -> dict:
     n_broadcast = len(model.state_dict())
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
+    losses, times, snaps = [], [], [dict(hrt.COUNTS)]
     steps = cfg["warmup"] + cfg["steps"]
     for i in range(steps):
         t0 = time.perf_counter()
         losses.append(step(x, y).item())  # waits for the step's last kernel
+        snaps.append(dict(hrt.COUNTS))
         if i >= cfg["warmup"]:
             times.append(time.perf_counter() - t0)
     launches = dict(cba.LAUNCHES)
@@ -1569,6 +1689,7 @@ def train_inception(cfg, device, card, profile=False) -> dict:
         f"{cfg['warmup']} warm-up + {cfg['steps']} timed steps")
     log("  losses: " + " ".join(f"{v:.4f}" for v in losses))
     log(f"  kernel launches: {launches}; collectives: {counts}")
+    log_runtime("Inception-V3", runtime_steps(snaps))
     check(all(math.isfinite(v) for v in losses), "Inception: non-finite loss")
     check(losses[-1] < losses[0], f"Inception: loss did not fall: {losses}")
     want = {k: 0 for k in counts}
@@ -1632,11 +1753,12 @@ def train_gpt(cfg, device, card, fused: bool, profile=False) -> dict:
             update()
             return loss.detach()
 
-        losses, times = [], []
+        losses, times, snaps = [], [], [dict(hrt.COUNTS)]
         steps = cfg["warmup"] + cfg["steps"]
         for i in range(steps):
             t0 = time.perf_counter()
             losses.append(step().item())  # waits for the step's last kernel
+            snaps.append(dict(hrt.COUNTS))
             if i >= cfg["warmup"]:
                 times.append(time.perf_counter() - t0)
         launches = dict(fa.LAUNCHES)
@@ -1658,6 +1780,7 @@ def train_gpt(cfg, device, card, fused: bool, profile=False) -> dict:
         f"{cfg['steps']} timed steps")
     log("  losses: " + " ".join(f"{x:.4f}" for x in losses))
     log(f"  kernel launches: {launches}; collectives: {counts}")
+    log_runtime(f"GPT-2, {bwd}", runtime_steps(snaps))
     check(all(math.isfinite(x) for x in losses), f"GPT-2 ({bwd}): non-finite "
                                                  f"loss")
     check(losses[-1] < losses[0], f"GPT-2 ({bwd}): loss did not fall: "
@@ -1831,6 +1954,7 @@ def main() -> int:
     runs = {path: train(cfg, device, card, path, args.profile)
             for path in PATHS}
     compare_losses(runs)
+    compare_fusion(cfg, device, card, runs["hooks"])
     if args.turns > 1:
         compare_in_turns(cfg, device, card, runs, args.turns)
     inception = train_inception(cfg, device, card, args.profile)

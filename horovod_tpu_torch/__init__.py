@@ -6,8 +6,10 @@ per-parameter gradient hooks that start async allreduces, the broadcasts
 for the checkpoint-on-rank-0 convention, reduce-scatter and allgather,
 ZeRO-1 ``sharded_adamw``, and ``flash_attention`` on hand-written Hopper
 kernels (``csrc/``). The replicated fused AdamW is
-``horovod_tpu_torch.ops.fused_adamw.fused_adamw``. Collectives run on
-``torch.distributed``: NCCL between GPUs, gloo on the CPU.
+``horovod_tpu_torch.ops.fused_adamw.fused_adamw``. Every collective goes
+through the enqueue runtime (``runtime/``): named, negotiated across the
+ranks, allreduces fused into one call a bin, on ``torch.distributed``
+(NCCL between GPUs, gloo on the CPU).
 
 Entry points run on the card unless the caller asks for the CPU
 (``hvd.init(device="cpu")``). Nothing here imports JAX or the JAX package.

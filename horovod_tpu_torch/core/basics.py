@@ -12,6 +12,13 @@ CPU. A one-process world still gets a group (over an in-memory
 as the JAX package runs them on a one-device mesh. A larger world meets at
 ``HOROVOD_COORDINATOR_ADDR``: ``host:port`` (TCP) or a ``tcp://`` or
 ``file://`` URL.
+
+``init()`` also creates the enqueue runtime's two groups, in the same order
+on every rank: the control group (gloo, for negotiation) and the data group
+(the collectives: NCCL on the card, gloo on the CPU). Its own groups keep
+the runtime's calls apart from any a user makes on the default group. The
+runtime itself starts at the first enqueue; ``shutdown()`` stops it before
+it destroys the groups.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch.distributed as dist
 
 from horovod_tpu_torch.core import state as state_mod
 from horovod_tpu_torch.exceptions import NotInitializedError
+from horovod_tpu_torch.runtime import types as runtime_types
 from horovod_tpu_torch.utils import env
 from horovod_tpu_torch.utils import logging as log
 
@@ -97,6 +105,9 @@ def init(device: Union[str, torch.device, None] = None) -> None:
         st.cross_rank = env._get_int(env.HOROVOD_CROSS_RANK,
                                      rank // max(local_size, 1))
         st.device, st.owns_group = device, owns_group
+        st.control_group = dist.new_group(backend="gloo")
+        st.data_group = dist.new_group(backend=backend)
+        runtime_types.COUNTS["groups"] += 2
         st.initialized = True
         log.debug("initialized: size=%d rank=%d device=%s", size, rank,
                   device)
@@ -108,8 +119,14 @@ def shutdown() -> None:
     with st.lock:
         if not st.initialized:
             return
-        if st.owns_group and dist.is_initialized():
-            dist.destroy_process_group()
+        if st.runtime is not None:
+            st.runtime.stop()
+        if dist.is_initialized():
+            if st.owns_group:
+                dist.destroy_process_group()
+            else:
+                for group in (st.data_group, st.control_group):
+                    dist.destroy_process_group(group)
     state_mod.reset()
 
 

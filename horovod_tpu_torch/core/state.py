@@ -1,8 +1,9 @@
 """Process-global framework state (port of ``horovod_tpu/core/state.py``).
 
-One singleton holds the topology, the device this process drives and
-whether ``init()`` created the ``torch.distributed`` process group (and so
-must destroy it at ``shutdown()``)."""
+One singleton holds the topology, the device this process drives, whether
+``init()`` created the ``torch.distributed`` process group (and so must
+destroy it at ``shutdown()``), the enqueue runtime's two process groups
+and the runtime itself, started at the first enqueue."""
 
 from __future__ import annotations
 
@@ -27,6 +28,12 @@ class GlobalState:
 
     device: Optional[torch.device] = None
     owns_group: bool = False
+
+    # the runtime's groups (core/basics.init): negotiation on gloo, the
+    # collectives on NCCL (gloo on the CPU); the runtime (runtime/runtime.py)
+    control_group: Any = None
+    data_group: Any = None
+    runtime: Any = None
 
     lock: Any = dataclasses.field(default_factory=threading.RLock)
 

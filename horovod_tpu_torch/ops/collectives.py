@@ -1,23 +1,26 @@
-"""Collective operations on ``torch.distributed`` (port of the subset of
-``horovod_tpu/ops/collectives.py`` that the data-parallel optimizer and
-ZeRO use: allreduce, broadcast, reduce-scatter and the equal-size
-allgather).
+"""Collective operations through the enqueue runtime (port of the part of
+``horovod_tpu/ops/collectives.py`` and ``horovod_tpu/torch/mpi_ops.py``
+that the data-parallel optimizer and ZeRO use: allreduce, broadcast,
+reduce-scatter and the equal-size allgather).
 
-Every rank holds its own tensor, as in the reference Horovod; the
-collectives run on the process group ``init()`` created (NCCL between
-GPUs, gloo on the CPU). ``*_async`` returns a :class:`Handle` whose
-``synchronize`` waits for the collective and applies what follows it
-(averaging, decompression). With NCCL the wait orders the current CUDA
+Every rank holds its own tensor, as in the reference Horovod. Each call
+enqueues a named op into the runtime (``runtime/runtime.py``), which
+negotiates it by ``name`` across the ranks, fuses ready allreduces into
+one collective a bin and runs them on its data group (NCCL between GPUs,
+gloo on the CPU). An unnamed op gets the call-order name
+``"<kind>.noname.<n>"``, so every rank must issue its unnamed ops in the
+same order. ``*_async`` returns a :class:`Handle`; ``synchronize`` waits
+for the runtime to have queued the collective and applies what follows it
+(decompression). On the card the wait orders the caller's current CUDA
 stream after the collective without blocking the host.
 
-``name`` is accepted for the reference's API; the negotiation runtime that
-keys on it (tensor queue, fusion, response cache) is not ported yet, so
-every call issues its own collective. :data:`COUNTS` counts the
-collectives issued, per kind.
+:data:`COUNTS` counts the ops requested, per kind; ``runtime.COUNTS``
+counts what the runtime issued.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -25,6 +28,7 @@ import torch.distributed as dist
 
 from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.core import basics
+from horovod_tpu_torch.runtime import runtime, types
 
 # Reduction ops (reference: horovod_tpu/ops/collectives.py:52-56).
 Average = 0
@@ -33,17 +37,31 @@ Min = 2
 Max = 3
 Product = 4
 
-_TORCH_OPS = {Average: dist.ReduceOp.SUM, Sum: dist.ReduceOp.SUM,
-              Min: dist.ReduceOp.MIN, Max: dist.ReduceOp.MAX,
-              Product: dist.ReduceOp.PRODUCT}
+_REDUCE_OPS = {Average: types.REDUCE_AVERAGE, Sum: types.REDUCE_SUM,
+               Min: types.REDUCE_MIN, Max: types.REDUCE_MAX,
+               Product: types.REDUCE_PRODUCT}
 
-#: collectives issued since the last :func:`reset_counts`, per kind
+#: ops requested since the last :func:`reset_counts`, per kind
 COUNTS = {"allreduce": 0, "broadcast": 0, "reducescatter": 0, "allgather": 0}
+
+# call-order numbers of unnamed ops, per kind (reference: horovod/torch/
+# mpi_ops_v2.cc GetOpName, "allreduce.noname.<handle>")
+_noname = {}
+_noname_lock = threading.Lock()
 
 
 def reset_counts() -> None:
     for kind in COUNTS:
         COUNTS[kind] = 0
+
+
+def _op_name(kind: str, name: Optional[str]) -> str:
+    if name is not None:
+        return name
+    with _noname_lock:
+        n = _noname.get(kind, 0)
+        _noname[kind] = n + 1
+    return f"{kind}.noname.{n}"
 
 
 def _resolve_op(average: Optional[bool], op: Optional[int]) -> int:
@@ -52,62 +70,64 @@ def _resolve_op(average: Optional[bool], op: Optional[int]) -> int:
     if op is None:
         # reference default: average=True (torch/mpi_ops.py allreduce)
         return Average if (average is None or average) else Sum
-    if op not in _TORCH_OPS:
+    if op not in _REDUCE_OPS:
         raise ValueError(f"unknown op {op}")
     return op
 
 
 class Handle:
-    """Future for an async collective (reference: horovod/torch/
-    mpi_ops.py:93-124): the collective's work object plus what turns its
-    buffer into the result."""
+    """Future of an async collective (reference: horovod/torch/
+    mpi_ops.py:93-124): the runtime's handle plus what turns its result
+    into the caller's."""
 
-    __slots__ = ("_work", "_finish")
+    __slots__ = ("_inner", "_finish")
 
-    def __init__(self, work, finish: Callable[[], torch.Tensor]):
-        self._work = work
+    def __init__(self, inner: runtime.RuntimeHandle,
+                 finish: Callable[[torch.Tensor], torch.Tensor]):
+        self._inner = inner
         self._finish = finish
 
     def poll(self) -> bool:
-        return self._work.is_completed()
+        return self._inner.poll()
 
     def wait(self) -> torch.Tensor:
-        self._work.wait()
-        return self._finish()
+        return self._finish(self._inner.wait())
+
+
+def _wire(tensor: torch.Tensor, compression):
+    """The compressed tensor the runtime reduces in place: contiguous, as
+    the fusion buffer packs flat views. (``contiguous()`` releases the
+    interpreter lock even when it has nothing to do: asked first, a
+    gradient hook keeps the lock.)"""
+    wire, ctx = compression.compress(tensor)
+    return (wire if wire.is_contiguous() else wire.contiguous()), ctx
+
+
+def _into(tensor: torch.Tensor, wire: torch.Tensor, ctx, compression):
+    """The tail of an in-place allreduce: the reduced wire, decompressed,
+    lands in ``tensor``."""
+
+    def finish(_):
+        out = compression.decompress(wire, ctx)
+        if out is not tensor:
+            tensor.copy_(out)
+        return tensor
+
+    return finish
 
 
 def allreduce_async_(tensor: torch.Tensor, average: Optional[bool] = None,
                      name: Optional[str] = None, op: Optional[int] = None,
                      compression=Compression.none) -> Handle:
     """Reduce ``tensor`` in place across all ranks; the result lands in
-    ``tensor`` at :func:`synchronize`."""
+    ``tensor`` at :func:`synchronize`. ``name`` is the negotiation key: at
+    most one op of a name may be in flight."""
     red = _resolve_op(average, op)
-    world = basics.size()
-    wire, ctx = compression.compress(tensor)
-    work = dist.all_reduce(wire, op=_TORCH_OPS[red], async_op=True)
+    wire, ctx = _wire(tensor, compression)
+    inner = runtime.get_runtime().enqueue_allreduce(
+        _op_name("allreduce", name), wire, reduce_op=_REDUCE_OPS[red])
     COUNTS["allreduce"] += 1
-
-    def finish():
-        out = _average(compression.decompress(wire, ctx), red, world)
-        if out is not tensor:
-            tensor.copy_(out)
-        return tensor
-
-    return Handle(work, finish)
-
-
-def _average(out: torch.Tensor, red: int, world: int) -> torch.Tensor:
-    """A SUM turned into the Average: ``div_`` by the world for floats (the
-    bits of a mean over the ranks), division rounded toward zero for
-    integers, as the reference divides and casts back
-    (``horovod_tpu/runtime/executor.py:927-949, 1146-1148``,
-    ``horovod_tpu/torch/mpi_ops.py:65-75``): a sum of -5 over 2 ranks
-    averages to -2."""
-    if red != Average:
-        return out
-    if out.is_floating_point():
-        return out.div_(world)
-    return torch.div(out, world, rounding_mode="trunc")
+    return Handle(inner, _into(tensor, wire, ctx, compression))
 
 
 def allreduce_async(tensor, average=None, name=None, op=None,
@@ -133,19 +153,21 @@ def allreduce_(tensor, average=None, name=None, op=None,
 
 def grouped_allreduce(tensors: Sequence[torch.Tensor], average=None,
                       name=None, op=None, compression=Compression.none):
-    """Allreduce a list of tensors as one logical operation: all are in
-    flight before the first is waited on."""
-    handles = [allreduce_async(t, average=average, op=op,
-                               compression=compression) for t in tensors]
+    """Allreduce a list of tensors as one group: one enqueue, so the group
+    negotiates in one cycle and fuses into as few collectives as the
+    fusion threshold allows. The inputs are left unchanged; tensor ``i``
+    is named ``"<name>.<i>"``, or by call order when ``name`` is None."""
+    red = _resolve_op(average, op)
+    tensors = [t.clone() for t in tensors]
+    wires = [_wire(t, compression) for t in tensors]
+    names = [f"{name}.{i}" if name is not None else _op_name("allreduce", None)
+             for i in range(len(tensors))]
+    inner = runtime.get_runtime().enqueue_allreduce_group(
+        names, [w for w, _ in wires], reduce_op=_REDUCE_OPS[red])
+    COUNTS["allreduce"] += len(tensors)
+    handles = [Handle(h, _into(t, w, ctx, compression))
+               for h, t, (w, ctx) in zip(inner, tensors, wires)]
     return [synchronize(h) for h in handles]
-
-
-# torch 2.13 names the one-tensor forms reduce_scatter_single and
-# all_gather_single; older releases have only the *_tensor names
-_reduce_scatter_one = getattr(dist, "reduce_scatter_single", None) \
-    or dist.reduce_scatter_tensor
-_all_gather_one = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
 
 
 def reducescatter_async(tensor: torch.Tensor, op: Optional[int] = None,
@@ -160,11 +182,10 @@ def reducescatter_async(tensor: torch.Tensor, op: Optional[int] = None,
         dim0 = tensor.shape[0] if tensor.ndim else "a scalar"
         raise ValueError(f"reducescatter dim 0 ({dim0}) must divide evenly "
                          f"by size ({world})")
-    inp = tensor.contiguous()
-    out = inp.new_empty((inp.shape[0] // world,) + tuple(inp.shape[1:]))
-    work = _reduce_scatter_one(out, inp, op=_TORCH_OPS[red], async_op=True)
+    inner = runtime.get_runtime().enqueue_reducescatter(
+        _op_name("reducescatter", name), tensor, reduce_op=_REDUCE_OPS[red])
     COUNTS["reducescatter"] += 1
-    return Handle(work, lambda: _average(out, red, world))
+    return Handle(inner, lambda out: out)
 
 
 def reducescatter(tensor, op=None, name=None) -> torch.Tensor:
@@ -175,34 +196,16 @@ def reducescatter(tensor, op=None, name=None) -> torch.Tensor:
 def allgather_async(tensor: torch.Tensor,
                     name: Optional[str] = None) -> Handle:
     """Concatenate every rank's ``tensor`` along dim 0 (reference:
-    horovod_tpu/torch/mpi_ops.py:247-257). The ranks first exchange their
-    dim 0: a ragged dim 0 is not ported yet and raises ValueError on every
-    rank. The collective is issued at every world size."""
+    horovod_tpu/torch/mpi_ops.py:247-257). The ranks' dim 0 meet in the
+    negotiation: a ragged dim 0 is not ported yet and raises ValueError on
+    every rank at :func:`synchronize`. The collective is issued at every
+    world size."""
     if tensor.ndim == 0:
         raise ValueError("allgather needs a tensor with a dim 0")
-    world = basics.size()
-    if world > 1:
-        mine = torch.tensor([tensor.shape[0]], dtype=torch.int64,
-                            device=tensor.device)
-        dims = mine.new_empty(world)
-        _all_gather_one(dims, mine)
-        dims = dims.tolist()
-        if len(set(dims)) > 1:
-            raise ValueError(f"allgather with a ragged dim 0 ({dims}) is "
-                             "not ported yet: every rank must give the "
-                             "same shape")
-    return allgather_equal_async(tensor)
-
-
-def allgather_equal_async(tensor: torch.Tensor) -> Handle:
-    """:func:`allgather_async` for callers that know every rank gives the
-    same shape (ZeRO's equal shards): no dim 0 exchange."""
-    world = basics.size()
-    inp = tensor.contiguous()
-    out = inp.new_empty((world * inp.shape[0],) + tuple(inp.shape[1:]))
-    work = _all_gather_one(out, inp, async_op=True)
+    inner = runtime.get_runtime().enqueue_allgather(
+        _op_name("allgather", name), tensor)
     COUNTS["allgather"] += 1
-    return Handle(work, lambda: out)
+    return Handle(inner, lambda out: out)
 
 
 def allgather(tensor, name=None) -> torch.Tensor:
@@ -216,9 +219,10 @@ def broadcast_async_(tensor: torch.Tensor, root_rank: int,
     world = basics.size()
     if not 0 <= root_rank < world:
         raise ValueError(f"root_rank {root_rank} out of range [0, {world})")
-    work = dist.broadcast(tensor, src=root_rank, async_op=True)
+    inner = runtime.get_runtime().enqueue_broadcast(
+        _op_name("broadcast", name), tensor, root_rank)
     COUNTS["broadcast"] += 1
-    return Handle(work, lambda: tensor)
+    return Handle(inner, lambda _: tensor)
 
 
 def broadcast_async(tensor, root_rank, name=None) -> Handle:
@@ -236,7 +240,10 @@ def broadcast_(tensor, root_rank: int, name: Optional[str] = None):
 
 
 def broadcast_object(obj, root_rank: int = 0):
-    """Broadcast a picklable object from ``root_rank`` (one collective)."""
+    """Broadcast a picklable object from ``root_rank``: one direct call on
+    the default group, which the runtime never uses. (Not on the control
+    group: the runtime's thread issues there, and a call from another
+    thread would meet its cycles in a different order on each rank.)"""
     world = basics.size()
     if not 0 <= root_rank < world:
         raise ValueError(f"root_rank {root_rank} out of range [0, {world})")

@@ -161,14 +161,16 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
 def allreduce_gradients(grads, *, average: bool = True,
                         compression=Compression.none):
     """Allreduce a dict or list of gradient tensors as one group and return
-    the same structure, reduced (port of ``dp.allreduce_gradients``)."""
-    if isinstance(grads, dict):
-        keys = list(grads)
-        out = collectives.grouped_allreduce(
-            [grads[k] for k in keys], average=average, compression=compression)
-        return dict(zip(keys, out))
-    return collectives.grouped_allreduce(list(grads), average=average,
-                                         compression=compression)
+    the same structure, reduced (port of ``dp.allreduce_gradients``). The
+    i-th gradient is named ``"allreduce_gradients.<i>"`` every call, so
+    from the second call on the runtime answers them from its response
+    cache."""
+    keys = list(grads) if isinstance(grads, dict) else None
+    tensors = [grads[k] for k in keys] if keys is not None else list(grads)
+    out = collectives.grouped_allreduce(tensors, average=average,
+                                        name="allreduce_gradients",
+                                        compression=compression)
+    return dict(zip(keys, out)) if keys is not None else out
 
 
 def broadcast_parameters(params, root_rank: int = 0) -> None:

@@ -219,7 +219,7 @@ def sharded_adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
                                            ctx).to(dtype)
             p, _, _, _ = flat_adamw_shard(w, m, v, shard, scalars, eps=eps,
                                           out_dtype=dtype)
-            gathers.append(collectives.allgather_equal_async(p))
+            gathers.append(collectives.allgather_async(p))
         del pending
         out = [params[k] for k in keys]
         for g, handle in zip(spec.groups, gathers):

@@ -1,0 +1,305 @@
+"""Data-plane execution of negotiated (fused) responses (port of
+``horovod_tpu/runtime/executor.py``; reference:
+horovod/common/operations.cc:211-279, ops/collective_operations.cc).
+
+A fused ALLREDUCE response becomes one ``dist.all_reduce`` over a slab of
+the fusion buffer: the bin's tensors are packed with one ``torch.cat``
+into ``slab[:total]``, reduced, and copied back out to each entry's output.
+Unlike the JAX package, the payload is not padded to its bucket: NCCL
+compiles nothing, so pad bytes would only be wire traffic. Broadcast,
+allgather and reduce-scatter run one call an entry, as the reference never
+fuses them. Every collective goes to the runtime's data group, and only
+the runtime's thread issues on it.
+
+On the card everything runs on the runtime's comm stream: it waits for
+each input's producer stream (the caller's current stream at enqueue, as
+it stands at dispatch), packs, issues the collective with itself current
+(ProcessGroupNCCL orders its stream after it), unpacks, and records the
+``done`` event that the caller's stream waits on. The host never blocks
+on the device here.
+
+The data plane is pipelined: ``dispatch`` packs and launches, returning a
+``_PendingOp``; ``_PendingOp.complete`` queues the wait, the average and
+the unpack, then fires the entries' callbacks. The cycle dispatches up to
+``HOROVOD_CYCLE_PIPELINE_DEPTH`` responses before draining the oldest, so
+the pack of bin k+1 is queued before bin k's unpack. A slab's lease goes
+back to the pool when its unpack is queued: every later use of the slab
+is on the same stream, so it is ordered after that unpack.
+
+Not ported yet: the hierarchy, integrity digests, comms accounting and the
+flight recorder (ROADMAP A8, A10, A11).
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+from typing import Callable, List, NamedTuple, Optional
+
+import torch
+import torch.distributed as dist
+
+from horovod_tpu_torch import timeline as timeline_mod
+from horovod_tpu_torch.runtime import types
+from horovod_tpu_torch.runtime.fusion_buffer import FusionBufferManager
+
+_TORCH_OPS = {types.REDUCE_SUM: dist.ReduceOp.SUM,
+              types.REDUCE_AVERAGE: dist.ReduceOp.SUM,
+              types.REDUCE_MIN: dist.ReduceOp.MIN,
+              types.REDUCE_MAX: dist.ReduceOp.MAX,
+              types.REDUCE_PRODUCT: dist.ReduceOp.PRODUCT}
+
+# torch 2.13 names the one-tensor forms reduce_scatter_single and
+# all_gather_single; older releases have only the *_tensor names
+_reduce_scatter_one = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+_all_gather_one = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+
+
+def _average_(out: torch.Tensor, world: int) -> None:
+    """A SUM turned into the Average, in place: ``div_`` by the world for
+    floats (the bits of a mean over the ranks), division rounded toward
+    zero for integers, as the reference divides and casts back
+    (``horovod_tpu/runtime/executor.py:927-949, 1146-1148``,
+    ``horovod_tpu/torch/mpi_ops.py:65-75``): a sum of -5 over 2 ranks
+    averages to -2."""
+    if out.is_floating_point():
+        out.div_(world)
+    else:
+        torch.div(out, world, rounding_mode="trunc", out=out)
+
+
+_done_seq = itertools.count()
+
+
+class Done(NamedTuple):
+    """A bin's result on the card: ``event`` recorded on ``executor``'s
+    comm stream after the unpack, ``seq`` its place in that stream's order.
+    A later event of the same stream covers it: a caller waits on
+    ``executor.latest`` and skips any handle whose ``seq`` its stream has
+    already waited past, so the gradients of a step cost a few stream
+    waits, not one each (``RuntimeHandle.wait``)."""
+
+    seq: int
+    event: torch.cuda.Event
+    executor: "Executor"
+
+
+class _PendingOp:
+    """Completion token of one dispatched response.
+
+    ``finish`` is the tail that ``complete`` runs (the wait, average and
+    unpack), None when dispatch already finished or failed. ``complete``
+    fires every entry's callback once and releases the slab's lease on
+    success and failure alike. Tokens complete in dispatch order."""
+
+    __slots__ = ("executor", "entries", "timeline", "name0", "finish",
+                 "done", "lease")
+
+    def __init__(self, executor: "Executor", entries, timeline):
+        self.executor = executor
+        self.entries = entries
+        self.timeline = timeline
+        self.name0 = entries[0].name if entries else "?"
+        self.finish: Optional[Callable[[], None]] = None
+        self.done = False
+        self.lease = None
+
+    def _close(self) -> None:
+        self.done = True
+        if self.lease is not None:
+            self.executor.fusion_buffers.release(self.lease)
+            self.lease = None
+        if self.timeline is not None:
+            self.timeline.end(self.name0)
+
+    def fail(self, status: types.Status) -> None:
+        """Complete every entry with an error (reference: ErrorOp,
+        collective_operations.cc:202-205). Idempotent."""
+        if self.done:
+            return
+        for e in self.entries:
+            e.complete(status, None)
+        self._close()
+
+    def complete(self) -> None:
+        if self.done:
+            return
+        try:
+            if self.finish is not None:
+                self.finish()
+        except Exception as exc:  # a failure becomes the entries' status
+            self.fail(types.Status.UnknownError(
+                f"{type(exc).__name__}: {exc}"))
+            return
+        ok = types.Status.OK()
+        for e in self.entries:
+            e.complete(ok, e.output)
+        self._close()
+
+
+class Executor:
+    """Runs each response on the data group ``group`` of ``world`` ranks,
+    on the card from the comm stream ``stream``, which the runtime's thread
+    keeps as its current stream."""
+
+    def __init__(self, device: torch.device, group, world: int,
+                 fusion_threshold: int, quantum_bytes: int, depth: int):
+        self.device = device
+        self.group = group
+        self.world = world
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+        self.backend = "NCCL" if device.type == "cuda" else "GLOO"
+        self.fusion_buffers = FusionBufferManager(
+            quantum_bytes, fusion_threshold, depth)
+        self._held: "collections.deque" = collections.deque()
+        self.latest: Optional["Done"] = None
+
+    def _order_after_inputs(self, entries) -> None:
+        """The comm stream waits for each producer stream of the bin: for
+        everything queued on it so far, which includes each input's
+        producer (the hooks record no event of their own, see
+        ``Runtime._entry``)."""
+        if self.stream is None:
+            return
+        producers = {e.ready.cuda_stream: e.ready for e in entries
+                     if e.ready is not None}
+        for producer in producers.values():
+            self.stream.wait_stream(producer)
+
+    def _mark_done(self, entries) -> None:
+        """Record the bin's ``done`` event, numbered in the comm stream's
+        order (see ``Done``). Until the device has passed it, the executor
+        holds the bin's tensors, so the allocator cannot hand their memory
+        to another stream while the comm stream still uses it (one
+        reference a bin in place of ``record_stream`` a tensor)."""
+        if self.stream is None:
+            return
+        event = torch.cuda.Event()
+        event.record(self.stream)
+        self.latest = done = Done(next(_done_seq), event, self)
+        for e in entries:
+            e.done = done
+        self._held.append((event, [(e.tensor, e.output) for e in entries]))
+        while self._held and self._held[0][0].query():
+            self._held.popleft()
+
+    def close(self) -> None:
+        """Wait for the comm stream's work, then drop the held tensors."""
+        if self.stream is not None:
+            self.stream.synchronize()
+        self._held.clear()
+
+    def dispatch(self, response, entries: List[types.TensorTableEntry],
+                 timeline=None) -> _PendingOp:
+        """Launch one (fused) response and return its pending token
+        (reference: PerformOperation, operations.cc:211-279: statuses go
+        through the entries' callbacks, an ERROR response fails them all)."""
+        pend = _PendingOp(self, entries, timeline)
+        try:
+            if timeline is not None:
+                timeline.start(pend.name0, response.response_type)
+            kind = response.response_type
+            if kind == types.ERROR:
+                pend.fail(
+                    types.Status.PreconditionError(response.error_message))
+                return pend
+            if kind == types.ALLGATHER and len(set(response.tensor_sizes)) > 1:
+                pend.fail(types.Status.InvalidArgument(
+                    f"allgather with a ragged dim 0 "
+                    f"({list(response.tensor_sizes)}) is not ported yet: "
+                    "every rank must give the same shape"))
+                return pend
+            self._order_after_inputs(entries)
+            if kind == types.ALLREDUCE:
+                pend.finish = self._dispatch_allreduce(entries, timeline,
+                                                       pend)
+            elif kind in (types.BROADCAST, types.ALLGATHER,
+                          types.REDUCESCATTER):
+                pend.finish = self._dispatch_each(kind, entries, timeline,
+                                                  pend.name0)
+            else:
+                raise ValueError(f"response type {kind} is not ported")
+        except Exception as exc:
+            pend.fail(types.Status.UnknownError(
+                f"{type(exc).__name__}: {exc}"))
+        return pend
+
+    def _dispatch_allreduce(self, entries, timeline, pend):
+        """Pack the bin into a leased slab, one collective over
+        ``slab[:total]``; the returned tail averages and unpacks into each
+        entry's own tensor (never a view of the slab, which the next bin
+        overwrites)."""
+        reduce_op = entries[0].reduce_op
+        name0 = entries[0].name
+        sizes = [e.tensor.numel() for e in entries]
+        total = sum(sizes)
+        if timeline is not None:
+            timeline.activity_start(name0,
+                                    timeline_mod.MEMCPY_IN_FUSION_BUFFER)
+        pend.lease = self.fusion_buffers.acquire(
+            total, entries[0].tensor.dtype, self.device)
+        buf = pend.lease.tensor[:total]
+        # flat views of the (contiguous) inputs: packed from, unpacked into
+        flats = [e.tensor.view(-1) for e in entries]
+        torch.cat(flats, out=buf)
+        if timeline is not None:
+            timeline.activity_end(name0)
+            timeline.activity_start(name0, f"{self.backend}_ALLREDUCE")
+        work = dist.all_reduce(buf, op=_TORCH_OPS[reduce_op],
+                               group=self.group, async_op=True)
+        types.COUNTS["allreduce"] += 1
+
+        def finish():
+            work.wait()
+            if reduce_op == types.REDUCE_AVERAGE:
+                _average_(buf, self.world)
+            if timeline is not None:
+                timeline.activity_end(name0)
+                timeline.activity_start(
+                    name0, timeline_mod.MEMCPY_OUT_FUSION_BUFFER)
+            # one multi-tensor copy for the bin's slices
+            torch._foreach_copy_(flats, buf.split(sizes))
+            for e in entries:
+                e.output = e.tensor
+            if timeline is not None:
+                timeline.activity_end(name0)
+            self._mark_done(entries)
+
+        return finish
+
+    def _dispatch_each(self, kind, entries, timeline, name0):
+        """One collective an entry: broadcast in place, allgather of equal
+        dim 0 and reduce-scatter into the outputs the enqueue allocated."""
+        if timeline is not None:
+            timeline.activity_start(name0, f"{self.backend}_{kind}")
+        works = []
+        for e in entries:
+            x = e.tensor
+            if kind == types.BROADCAST:
+                e.output = x
+                works.append(dist.broadcast(x, src=e.root_rank,
+                                            group=self.group, async_op=True))
+            elif kind == types.ALLGATHER:
+                works.append(_all_gather_one(e.output, x.contiguous(),
+                                             group=self.group, async_op=True))
+            else:
+                works.append(_reduce_scatter_one(
+                    e.output, x.contiguous(), op=_TORCH_OPS[e.reduce_op],
+                    group=self.group, async_op=True))
+            types.COUNTS[kind.lower()] += 1
+
+        def finish():
+            for w in works:
+                w.wait()
+            for e in entries:
+                if e.reduce_op == types.REDUCE_AVERAGE \
+                        and kind == types.REDUCESCATTER:
+                    _average_(e.output, self.world)
+            if timeline is not None:
+                timeline.activity_end(name0)
+            self._mark_done(entries)
+
+        return finish

@@ -1,13 +1,24 @@
-"""The size-bucket policy of flat fused payloads (port of
-``bucket_elems`` in ``horovod_tpu/runtime/fusion_buffer.py:91-105``).
+"""Fusion buffers: the size-bucket policy of flat fused payloads and the
+persistent slabs the executor packs fused allreduces into (port of
+``bucket_elems`` and ``FusionBufferManager`` in
+``horovod_tpu/runtime/fusion_buffer.py:91-105, 143``; reference:
+horovod/common/fusion_buffer_manager.cc).
 
 ZeRO's flat layout pads each per-rank shard to a bucket, so every rank's
-shard has the same length and the pad holds the reduction identity. The
-persistent fusion-buffer pool of the reference waits for the enqueue
-runtime.
+shard has the same length. The executor leases one slab a fused bin: a
+torch tensor on the op's device, sized by the bucket of the larger of the
+bin and the fusion threshold, so bins that regroup from cycle to cycle
+reuse the same slabs.
 """
 
 from __future__ import annotations
+
+import threading
+from typing import Dict, List, Tuple
+
+import torch
+
+from horovod_tpu_torch.runtime import types
 
 
 def bucket_elems(nelems: int, itemsize: int, quantum_bytes: int) -> int:
@@ -22,3 +33,72 @@ def bucket_elems(nelems: int, itemsize: int, quantum_bytes: int) -> int:
     while bucket < nbytes:
         bucket <<= 1
     return -(-bucket // itemsize)  # ceil: quantum need not divide itemsize
+
+
+class BufferLease:
+    """One checked-out slab: ``tensor`` is 1-D with ``capacity`` elements;
+    the bin uses ``tensor[:n]``."""
+
+    __slots__ = ("tensor", "capacity", "_key", "_released")
+
+    def __init__(self, tensor: torch.Tensor, key: tuple):
+        self.tensor = tensor
+        self.capacity = tensor.numel()
+        self._key = key
+        self._released = False
+
+
+class FusionBufferManager:
+    """Reusable slabs keyed by (bucket, dtype, device).
+
+    ``acquire`` hands out a free slab, allocating one only when the key has
+    none free; a key holds at most ``max_per_key`` slabs (the cycle
+    pipeline depth, which bounds the leases out at once). ``release``
+    returns a slab once the work that reads it is ordered before any reuse:
+    on the card, every use of a slab is on the runtime's one comm stream.
+    Slabs are allocated on the thread's current stream, the comm stream on
+    the card.
+    """
+
+    def __init__(self, quantum_bytes: int, floor_bytes: int,
+                 max_per_key: int):
+        self.quantum_bytes = int(quantum_bytes)
+        self.floor_bytes = int(floor_bytes)
+        self.max_per_key = max(1, int(max_per_key))
+        self._lock = threading.Lock()
+        self._free: Dict[Tuple, List[torch.Tensor]] = {}  # guarded-by: _lock
+        self._count: Dict[Tuple, int] = {}  # guarded-by: _lock
+
+    def capacity(self, nelems: int, itemsize: int) -> int:
+        floor = -(-self.floor_bytes // itemsize)
+        return bucket_elems(max(int(nelems), floor), itemsize,
+                            self.quantum_bytes)
+
+    def acquire(self, nelems: int, dtype: torch.dtype,
+                device: torch.device) -> BufferLease:
+        key = (self.capacity(nelems, dtype.itemsize), dtype, device)
+        with self._lock:
+            free = self._free.get(key)
+            if free:
+                return BufferLease(free.pop(), key)
+            if self._count.get(key, 0) >= self.max_per_key:
+                raise RuntimeError(
+                    f"fusion slab {key}: more than {self.max_per_key} leases "
+                    "out at once (the pipeline depth bounds them)")
+            self._count[key] = self._count.get(key, 0) + 1
+        types.COUNTS["slabs"] += 1
+        return BufferLease(torch.empty(key[0], dtype=dtype, device=device),
+                           key)
+
+    def release(self, lease: BufferLease) -> None:
+        """Return a lease's slab. Idempotent: failure paths may release the
+        same lease from more than one unwind."""
+        with self._lock:
+            if lease._released:
+                return
+            lease._released = True
+            self._free.setdefault(lease._key, []).append(lease.tensor)
+
+    def slabs(self) -> int:
+        with self._lock:
+            return sum(self._count.values())

@@ -1,0 +1,109 @@
+"""The controller of a multi-process world: negotiation verbs on a gloo
+process group (the port's counterpart of
+``horovod_tpu/runtime/socket_controller.py``; the reference's own design,
+horovod/common/gloo/gloo_controller.cc).
+
+``init()`` creates the group (``dist.new_group(backend="gloo")``) beside
+the runtime's data group. It is gloo on the card too: the cache
+bitvectors are reduced with bitwise AND and OR, which NCCL does not have,
+and the verbs move small host-side blobs. Only the runtime's cycle thread
+issues collectives on it, so no caller's call interleaves with a cycle's.
+
+Not ported yet: the socket controller's reconnect and generation fencing
+(ROADMAP A10), and the native TCP host ring (``native.py``,
+``cpp/net.cc``): the gloo group is also the CPU data plane.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from horovod_tpu_torch.runtime import message as msg
+from horovod_tpu_torch.runtime.controller import Controller
+from horovod_tpu_torch.runtime.response_cache import CacheCoordinator
+
+_WORD_BITS = 63  # bits per int64 word of the bitvector: every word >= 0
+
+
+def _as_tensor(blob: bytes, length: int) -> torch.Tensor:
+    buf = torch.zeros(length, dtype=torch.uint8)
+    if blob:
+        buf[:len(blob)] = torch.from_numpy(np.frombuffer(blob, np.uint8)
+                                           .copy())
+    return buf
+
+
+class GlooController(Controller):
+    """Rank 0 coordinates; the verbs are collectives on ``group``."""
+
+    def __init__(self, rank: int, world: int, group,
+                 cache_capacity: int = 1024):
+        super().__init__(rank, world, cache_capacity)
+        self.group = group
+        # cache bits stay below the capacity (freed bits are reused first)
+        self._words = max(1, -(-(max(cache_capacity, 0)
+                                 + CacheCoordinator.NUM_STATUS_BITS)
+                               // _WORD_BITS))
+
+    def sync_bitvectors(self, bits: int) -> Tuple[int, int]:
+        if bits >> (_WORD_BITS * self._words):
+            raise ValueError(f"cache bitvector wider than {self._words} "
+                             "words: a cache bit beyond the capacity")
+        mask = (1 << _WORD_BITS) - 1
+        words = [(bits >> (_WORD_BITS * i)) & mask
+                 for i in range(self._words)]
+        anded = torch.tensor(words, dtype=torch.int64)
+        ored = anded.clone()
+        dist.all_reduce(anded, op=dist.ReduceOp.BAND, group=self.group)
+        dist.all_reduce(ored, op=dist.ReduceOp.BOR, group=self.group)
+
+        def join(t):
+            return sum(int(w) << (_WORD_BITS * i)
+                       for i, w in enumerate(t.tolist()))
+
+        return join(anded), join(ored)
+
+    def _gather(self, blob: bytes) -> Optional[List[bytes]]:
+        """Every worker's blob on rank 0 (None elsewhere)."""
+        sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(self.world)]
+        dist.all_gather(sizes, torch.tensor([len(blob)], dtype=torch.int64),
+                        group=self.group)
+        sizes = [int(s) for s in sizes]
+        longest = max(max(sizes), 1)
+        mine = _as_tensor(blob, longest)
+        bufs = ([torch.empty(longest, dtype=torch.uint8)
+                 for _ in range(self.world)] if self.is_coordinator else None)
+        dist.gather(mine, bufs, dst=0, group=self.group)
+        if not self.is_coordinator:
+            return None
+        return [b[:n].numpy().tobytes() for b, n in zip(bufs, sizes)]
+
+    def bcast_blob(self, blob: Optional[bytes]) -> bytes:
+        size = torch.tensor([len(blob) if self.is_coordinator else 0],
+                            dtype=torch.int64)
+        dist.broadcast(size, src=0, group=self.group)
+        n = int(size)
+        if n == 0:
+            return b""
+        buf = (_as_tensor(blob, n) if self.is_coordinator
+               else torch.empty(n, dtype=torch.uint8))
+        dist.broadcast(buf, src=0, group=self.group)
+        return buf.numpy().tobytes()
+
+    def send_ready_tensors(self, requests):
+        blobs = self._gather(msg.pack_request_list(requests))
+        if blobs is None:
+            return None
+        return [msg.unpack_request_list(b) for b in blobs]
+
+    def bcast_responses(self, responses):
+        blob = (msg.pack_response_list(responses) if self.is_coordinator
+                else None)
+        return msg.unpack_response_list(self.bcast_blob(blob))
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.group)

@@ -1,6 +1,7 @@
 """Environment knobs the port reads (port of ``horovod_tpu/utils/env.py``:
-the parsing helpers, the launcher's identity contract, the fusion bucket
-quantum, and the flash attention's ``FLASH_FUSED_BWD`` switch)."""
+the parsing helpers, the launcher's identity contract, the enqueue
+runtime's knobs, the fusion bucket quantum, and the flash attention's
+``FLASH_FUSED_BWD`` switch)."""
 
 from __future__ import annotations
 
@@ -17,6 +18,27 @@ HOROVOD_CROSS_SIZE = "HOROVOD_CROSS_SIZE"
 HOROVOD_COORDINATOR_ADDR = "HOROVOD_COORDINATOR_ADDR"
 HOROVOD_LOG_LEVEL = "HOROVOD_LOG_LEVEL"
 HOROVOD_LOG_HIDE_TIME = "HOROVOD_LOG_HIDE_TIME"
+
+# The enqueue runtime (reference: horovod/common/common.h:61-85,
+# operations.cc:363-454; the JAX package's defaults,
+# horovod_tpu/utils/env.py:15-55, 152-156).
+# Bytes one fused allreduce may carry; 0 gives one collective a tensor.
+HOROVOD_FUSION_THRESHOLD = "HOROVOD_FUSION_THRESHOLD"
+DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
+# Least ms from the start of one cycle to the start of the next.
+HOROVOD_CYCLE_TIME = "HOROVOD_CYCLE_TIME"
+DEFAULT_CYCLE_TIME_MS = 5.0
+# Responses the negotiation cache keeps; 0 turns the cache off.
+HOROVOD_CACHE_CAPACITY = "HOROVOD_CACHE_CAPACITY"
+DEFAULT_CACHE_CAPACITY = 1024
+# Fused responses in flight before the oldest is drained.
+HOROVOD_CYCLE_PIPELINE_DEPTH = "HOROVOD_CYCLE_PIPELINE_DEPTH"
+DEFAULT_CYCLE_PIPELINE_DEPTH = 2
+# Path of the Chrome-trace timeline rank 0 writes; unset: none.
+HOROVOD_TIMELINE = "HOROVOD_TIMELINE"
+HOROVOD_STALL_CHECK_DISABLE = "HOROVOD_STALL_CHECK_DISABLE"
+HOROVOD_STALL_CHECK_TIME_SECONDS = "HOROVOD_STALL_CHECK_TIME_SECONDS"
+DEFAULT_STALL_CHECK_TIME_SECONDS = 60.0
 
 # Size-bucket quantum of flat fused payloads, in bytes (reference:
 # horovod_tpu/utils/env.py:55,156); ZeRO pads each per-rank shard to it.
@@ -36,6 +58,16 @@ def _get_int(name: str, default: int) -> int:
         return default
     try:
         return int(value)
+    except ValueError:
+        return default
+
+
+def _get_float(name: str, default: float) -> float:
+    value = os.environ.get(name)
+    if value is None or value == "":
+        return default
+    try:
+        return float(value)
     except ValueError:
         return default
 

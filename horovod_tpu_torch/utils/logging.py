@@ -55,3 +55,11 @@ def get_logger() -> logging.Logger:
 
 def debug(msg: str, *args) -> None:
     get_logger().debug(msg, *args)
+
+
+def warning(msg: str, *args) -> None:
+    get_logger().warning(msg, *args)
+
+
+def error(msg: str, *args) -> None:
+    get_logger().error(msg, *args)

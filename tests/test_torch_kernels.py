@@ -428,3 +428,67 @@ def test_inception_avg_pool_gradient_matches_cpu_on_card(cuda, layout):
     print(f"torch {torch.__version__}, {layout} gradient: F.avg_pool2d "
           f"backward rel {errs['F.avg_pool2d']:.3e}, port {errs['port']:.3e}")
     assert errs["port"] <= 1e-6
+
+
+@pytest.mark.gpu
+def test_runtime_orders_its_stream_after_the_producer_on_card(cuda):
+    """The enqueue runtime on the card: the comm stream waits for the
+    producer's stream (a chain of matmuls queued just before the enqueue
+    on a side stream), a group fuses into one NCCL call on a leased slab,
+    the caller's stream waits for the result, and a CPU tensor is refused
+    rather than reduced anywhere else."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.runtime import runtime
+
+    hvd.shutdown()
+    hvd.init()
+    try:
+        a = torch.randn(2048, 2048, device=cuda) / 90  # norm about 1
+        side = torch.cuda.Stream()
+        torch.cuda.synchronize()
+        with torch.cuda.stream(side):
+            x = a.clone()
+            for _ in range(50):
+                x = x @ a
+            h = hvd.allreduce_async_(x, op=hvd.Sum, name="ordered")
+            want = x.clone()
+        got = hvd.synchronize(h)
+        torch.cuda.synchronize()
+        assert got is x and torch.equal(x, want)
+
+        runtime.reset_counts()
+        xs = [torch.full((n,), float(n), device=cuda) for n in range(1, 60)]
+        outs = hvd.grouped_allreduce(xs, name="fused")
+        assert all(torch.equal(o, x) for o, x in zip(outs, xs))
+        assert runtime.COUNTS["allreduce"] == 1
+        with pytest.raises(ValueError, match="runtime runs on cuda"):
+            hvd.allreduce(torch.ones(2), name="cpu")
+    finally:
+        hvd.shutdown()
+
+
+@pytest.mark.gpu
+def test_runtime_across_the_cards(cuda, tmp_path):
+    """The runtime across every card of the machine, one rank a card (the
+    gloo control group and an NCCL data group): ``torch_runtime_worker.
+    run_world`` on each, which raises on any disagreement. Needs two cards
+    or more."""
+    import torch_runtime_worker
+
+    size = torch.cuda.device_count()
+    if size < 2:
+        pytest.skip("needs two CUDA devices or more")
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=torch_runtime_worker.run_world,
+                         args=(r, size, str(tmp_path), "cuda"))
+             for r in range(size)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    alive = [p.is_alive() for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert not any(alive) and all(p.exitcode == 0 for p in procs), \
+        [p.exitcode for p in procs]

@@ -61,7 +61,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             " horovod_tpu_torch.models.inception,"
             " horovod_tpu_torch.ops.conv_bn_act, horovod_tpu_torch.training,"
             " horovod_tpu_torch.tools.conv_bn_probe,"
-            " horovod_tpu_torch.utils.device;"
+            " horovod_tpu_torch.utils.device,"
+            " horovod_tpu_torch.runtime.runtime,"
+            " horovod_tpu_torch.runtime.gloo_controller,"
+            " horovod_tpu_torch.stall, horovod_tpu_torch.timeline;"
             " bad = [m for m in sys.modules if m.split('.')[0] in %r];"
             " assert not bad, bad" % (FORBIDDEN,))
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -462,7 +465,12 @@ def test_chip_smoke_cpu_rehearsal_prints_no_result(no_card):
                   "probe functions driven once each",
                   "timing the probe kernels", "slice (GPT-2, dq + dk/dv)",
                   "slice (GPT-2, fused backward B7)",
-                  "GPT-2 losses, fused backward vs dq + dk/dv"):
+                  "GPT-2 losses, fused backward vs dq + dk/dv",
+                  "runtime per step (hooks):",
+                  "slice (hooks, fusion threshold 0:",
+                  "hooks losses, threshold 0 vs phase 4",
+                  "phase 4b rehearsed", "runtime per step (Inception-V3):",
+                  "runtime per step (GPT-2, fused backward B7):"):
         assert phase in out.stdout, phase
     assert "BERT-Large MLM" in out.stdout
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
@@ -566,3 +574,26 @@ def test_fused_wait_probe_patches_the_kernel_the_package_runs(tmp_path):
     for name in ("attention_bwd_sm90.cuh", "flash_attention.cu"):
         assert "g_wait_cycles" not in (kernel_build.CSRC / name).read_text()
     assert set(tool.SHAPES) >= {"a", "b"}
+
+
+def test_runtime_before_after_tool_rehearses_on_the_cpu():
+    """The runtime tool's turn loop and step breakdown on the CPU, one
+    layer deep: this checkout's runtime at its defaults and at threshold 0
+    against the same checkout taken as the other one."""
+    import json
+
+    out = subprocess.run(
+        [sys.executable, "horovod_tpu_torch/tools/runtime_before_after.py",
+         "--cpu", "--other", str(REPO), "--configs", "fused,t0",
+         "--turns", "1", "--steps", "1", "--layers", "1"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert out.returncode == 0, out.stderr[-2000:]
+    rows = [json.loads(line) for line in out.stdout.splitlines()]
+    medians = rows[-1]["medians"]
+    assert set(medians) == {"bert other", "bert fused", "bert t0"}
+    n = medians["bert t0"]["requested_allreduce"]
+    assert medians["bert t0"]["runtime_allreduce"] == n
+    assert 0 < medians["bert fused"]["runtime_allreduce"] <= n
+    for config in medians.values():
+        assert config["step_ms"] > 0

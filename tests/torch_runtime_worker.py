@@ -1,0 +1,171 @@
+"""One rank of the port's 2- and 3-rank gloo worlds for
+tests/test_torch_data_plane.py.
+
+Started through ``torch.multiprocessing`` (spawn). Reads the shared inputs
+from ``inputs.npz``, joins the world through a ``FileStore`` (rank 0 also
+writes ``HOROVOD_TIMELINE``), and writes what it got to ``rank<r>.npz``:
+
+* each of the five reductions over a group of tensors in f32, bf16 and
+  int32 (one grouped enqueue: fused bins), the runtime's allreduce calls
+  for each group; broadcast, allgather and reduce-scatter of each dtype;
+* the same groups again on new runtimes at a 256-byte threshold (several
+  bins a group), at pipeline depths 2 and 1;
+* with ``bert``: 4 steps of a tiny BERT under ``DistributedOptimizer
+  (AdamW)`` on this rank's batch, the parameters after each step and the
+  runtime's counts a step.
+"""
+
+import os
+
+import numpy as np
+import torch
+
+OPS = ("sum", "average", "min", "max", "product")
+DTYPES = ("float32", "bfloat16", "int32")
+N_GROUP = 4
+BERT = dict(vocab_size=64, d_model=64, num_layers=2, num_heads=4, d_ff=128,
+            max_seq=32)
+STEPS = 4
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def _collectives(hvd, inp, rank: int, size: int, out: dict, tag: str) -> None:
+    from horovod_tpu_torch.runtime import runtime
+
+    ops = dict(sum=hvd.Sum, average=hvd.Average, min=hvd.Min, max=hvd.Max,
+               product=hvd.Product)
+    for dt in DTYPES:
+        xs = [torch.from_numpy(inp[f"x{i}_{dt}"][rank]).to(getattr(torch, dt))
+              for i in range(N_GROUP)]
+        for op in OPS:
+            before = runtime.COUNTS["allreduce"]
+            got = hvd.grouped_allreduce(xs, op=ops[op], name=f"{dt}.{op}")
+            out[f"{tag}calls_{dt}_{op}"] = np.asarray(
+                runtime.COUNTS["allreduce"] - before)
+            for i, g in enumerate(got):
+                out[f"{tag}ar_{dt}_{op}_{i}"] = _np(g)
+        out[f"{tag}bcast_{dt}"] = _np(hvd.broadcast(xs[0], root_rank=size - 1,
+                                                    name=f"{dt}.bcast"))
+        out[f"{tag}ag_{dt}"] = _np(hvd.allgather(xs[1], name=f"{dt}.ag"))
+        out[f"{tag}rs_{dt}"] = _np(hvd.reducescatter(xs[2], op=hvd.Sum,
+                                                     name=f"{dt}.rs"))
+
+
+def _bert(hvd, inp, rank: int, out: dict) -> None:
+    from horovod_tpu_torch.models import transformer as ttr
+    from horovod_tpu_torch.runtime import runtime
+
+    model = ttr.BertBase(dtype=torch.float32, device="cpu", **BERT)
+    # rank 1 starts from other weights; the broadcast makes them rank 0's
+    model.load_state_dict({k[2:]: torch.from_numpy(inp[k] + rank)
+                           for k in inp.files if k.startswith("p.")})
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+    toks, pos, lab = (torch.from_numpy(inp[k][rank])
+                      for k in ("tokens", "pos", "labels"))
+    snaps = [dict(runtime.COUNTS)]
+    for step in range(STEPS):
+        opt.zero_grad()
+        loss = ttr.masked_lm_loss_gathered(model(toks, output="hidden"),
+                                           model.token_embed, pos, lab)
+        loss.backward()
+        opt.step()
+        snaps.append(dict(runtime.COUNTS))
+        for k, p in model.named_parameters():
+            out[f"step{step}.{k}"] = p.detach().numpy().copy()
+    for key in ("allreduce", "cache_hits", "slabs", "groups"):
+        out[f"bert_{key}"] = np.asarray([b[key] - a[key] for a, b in
+                                         zip(snaps, snaps[1:])])
+
+
+def run(rank: int, size: int, tmpdir: str, bert: bool) -> None:
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
+                      HOROVOD_COORDINATOR_ADDR=f"file://{tmpdir}/store",
+                      HOROVOD_TIMELINE=os.path.join(tmpdir, "timeline.json"))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core import state
+
+    inp = np.load(os.path.join(tmpdir, "inputs.npz"))
+    hvd.init(device="cpu")
+    try:
+        out = {}
+        _collectives(hvd, inp, rank, size, out, "")
+        # new runtimes on the same groups (each stop goes out as the
+        # shutdown bit, so every rank's loop ends in the same cycle), at a
+        # 256-byte threshold, so a group makes several bins, first at
+        # pipeline depth 2, then 1
+        st = state.global_state()
+        os.environ["HOROVOD_FUSION_THRESHOLD"] = "256"
+        for depth in ("2", "1"):
+            st.runtime.stop()
+            st.runtime = None
+            os.environ["HOROVOD_CYCLE_PIPELINE_DEPTH"] = depth
+            _collectives(hvd, inp, rank, size, out, f"depth{depth}_")
+        del os.environ["HOROVOD_CYCLE_PIPELINE_DEPTH"]
+        del os.environ["HOROVOD_FUSION_THRESHOLD"]
+        st.runtime.stop()
+        st.runtime = None
+        if bert:
+            _bert(hvd, inp, rank, out)
+        np.savez(os.path.join(tmpdir, f"rank{rank}.npz"), **out)
+    finally:
+        hvd.shutdown()
+
+
+def run_world(rank: int, size: int, tmpdir: str, device: str) -> None:
+    """One rank of a world on ``device`` ("cuda": one card a rank, NCCL
+    data group): a grouped allreduce fused into one call, Average, the
+    unfused ops, and 3 ``DistributedOptimizer`` steps of a small MLP on
+    this rank's data; raises on any disagreement."""
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
+                      HOROVOD_LOCAL_RANK=str(rank),
+                      HOROVOD_COORDINATOR_ADDR=f"file://{tmpdir}/store")
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.runtime import runtime
+
+    hvd.init(device=None if device == "cuda" else device)
+    try:
+        dev = hvd.device()
+        total = size * (size + 1) / 2
+        xs = [torch.full((n,), rank + 1.0, device=dev)
+              for n in (3, 1000, 70000)]
+        before = runtime.COUNTS["allreduce"]
+        outs = hvd.grouped_allreduce(xs, op=hvd.Sum, name="world.sum")
+        assert runtime.COUNTS["allreduce"] - before == 1
+        assert all(bool((o == total).all()) for o in outs)
+        avg = hvd.allreduce(torch.full((5,), rank + 1.0, device=dev))
+        assert bool((avg == total / size).all())
+        got = hvd.allgather(torch.full((2, 3), float(rank), device=dev))
+        want = torch.arange(size, device=dev).float().repeat_interleave(2)
+        assert torch.equal(got[:, 0], want)
+        rs = hvd.reducescatter(torch.ones(size * 2, device=dev), op=hvd.Sum)
+        assert torch.equal(rs, torch.full((2,), float(size), device=dev))
+        b = hvd.broadcast(torch.full((4,), float(rank), device=dev),
+                          root_rank=size - 1)
+        assert bool((b == size - 1).all())
+
+        torch.manual_seed(rank)  # other weights on each rank at first
+        model = torch.nn.Sequential(torch.nn.Linear(64, 64),
+                                    torch.nn.ReLU(),
+                                    torch.nn.Linear(64, 8)).to(dev)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1),
+            named_parameters=model.named_parameters())
+        x = torch.randn(16, 64, device=dev)  # this rank's batch
+        for _ in range(3):
+            opt.zero_grad()
+            model(x).square().mean().backward()
+            opt.step()
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in model.parameters()])
+        every = hvd.allgather(flat[None], name="world.params")
+        assert all(torch.equal(every[0], every[r]) for r in range(size))
+    finally:
+        hvd.shutdown()

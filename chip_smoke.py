@@ -91,6 +91,22 @@ Phases (any failure exits non-zero):
    dk/dv). Losses finite and falling in each, the two within 1e-3 relative
    at every step (a step's fall is ~1e-2 of the loss); one allreduce per parameter tensor a step; tokens/s, MFU,
    step ms and peak memory beside the card's name and power limit.
+8. The ResNet-50 slice (``bench.py:85, 258-300``): ``hvd.init()``,
+   ``ResNet50(1000, bf16, seed=0)`` (NHWC, f32 parameters and batch
+   statistics, the space-to-depth stem), ``broadcast_parameters``,
+   ``DistributedOptimizer(SGD(0.01, momentum 0.9))`` through the hooks and
+   the runtime, the bench's images (128 x 224 x 224 x 3) and labels, 2
+   warm-up and 10 timed steps. Losses finite and falling; 161 gradients a
+   step, all from the response cache from the second step, fewer than 161
+   fused calls a step, no slab or group after warm-up; no kernel of the
+   port (the 33 norm + ReLU pairs run plain: faster than B10 in one timing
+   of the step, ``tools/resnet_bn_choice.py``); images/s, MFU at 3 x 8.234
+   GFLOP an image, step ms and peak memory beside the card's name and
+   power limit.
+9. The rest of the collectives at world 1 through the runtime (NCCL on the
+   card): allgather, alltoall, a differentiable allreduce and its
+   backward, an int64 allreduce past 2**40, a sparse allreduce and
+   ``broadcast_object``, each exact.
 
 Between them: 2d. kernel B10 (fused BN + ReLU) bit-equal to its plain
 version at every distinct BN input of Inception-V3 at batch 32 (bf16),
@@ -148,6 +164,7 @@ import torch
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models import inception as inc
 from horovod_tpu_torch.models.inception import InceptionV3
+from horovod_tpu_torch.models.resnet import BatchNormReLU, ResNet50
 from horovod_tpu_torch.models.transformer import (BertLarge, GPT2Small,
                                                   Transformer, causal_lm_loss,
                                                   masked_lm_loss_gathered,
@@ -203,6 +220,9 @@ KERNELS = {  # wrapper count name -> (source, the TPU kernels it replaces)
 # 299 x 299, 1000 classes, SGD(0.01 x size, momentum 0.9), 11.137 GFLOP per
 # image forward, a train step 3x that
 INCEPTION_FLOPS = 3 * 11.137e9
+# ResNet-50 as the bench runs it (bench.py:85, 258-300): 8.234 GFLOP per
+# image forward at 224 x 224, a train step 3x that
+RESNET_FLOPS = 3 * 8.234e9
 # AdamW as the bench runs it (bench.py:473-476, 1398-1408)
 ADAMW = dict(b1=0.9, b2=0.999, learning_rate=1e-4, weight_decay=1e-4)
 EPS = 1e-8
@@ -236,7 +256,8 @@ FULL = dict(
                  "d_masked": (2, 4, 512, 512, 64, True, 64, 200)},
     fused_timed=("a", "b"),
     vprobe_case=vprobe.SHAPES["bert-large"][:4],
-    gpt=dict(vocab_size=50257), gpt_batch=16, gpt_seq=1024)
+    gpt=dict(vocab_size=50257), gpt_batch=16, gpt_seq=1024,
+    resnet=dict(batch=128, size=224, classes=1000, dtype=BF16))
 DRY = dict(
     cases={"a": (1, 2, 64, 64, False, 0, 0), "b": (1, 2, 96, 64, True, 0, 0),
            "d_masked": (1, 2, 64, 64, True, 8, 40),
@@ -254,7 +275,8 @@ DRY = dict(
                  "d_masked": (1, 2, 64, 64, 64, True, 8, 40)},
     fused_timed=("a",), vprobe_case=(1, 2, 96, 64),
     gpt=dict(vocab_size=512, d_model=128, num_layers=2, num_heads=2,
-             d_ff=256, max_seq=64), gpt_batch=2, gpt_seq=64)
+             d_ff=256, max_seq=64), gpt_batch=2, gpt_seq=64,
+    resnet=dict(batch=2, size=32, classes=10, dtype=F32))
 
 
 def check(ok: bool, what: str) -> None:
@@ -1335,7 +1357,8 @@ def tiny_inception_check(cfg, device) -> None:
 
 
 RUNTIME_KEYS = ("allreduce", "reducescatter", "allgather", "broadcast",
-                "responses", "cache_hits", "slabs", "groups", "cycle_ms")
+                "responses", "cache_hits", "slabs", "groups", "busy_cycles",
+                "cycle_ms")
 
 
 def runtime_steps(snaps: list) -> dict:
@@ -1358,20 +1381,24 @@ def log_runtime(label: str, per_step: dict) -> None:
 
 
 def check_hooks_runtime(cfg, per_step: dict, n_tensors: int,
-                        threshold: int, card: bool) -> None:
-    """Phase 4's runtime checks: every step after the first answered
-    every gradient from the response cache, and no fusion slab or process
-    group appeared after the warm-up steps; at threshold 0 one allreduce a
-    tensor every step; fused (the default threshold), on the card, fewer
-    than a quarter of the tensors' allreduces a step after the first (on
-    the CPU rehearsal the host's speed sets how many cycles a backward
-    spans, so there only at most one a tensor)."""
+                        threshold: int, card: bool,
+                        card_limit: float = None) -> None:
+    """The hooks' runtime checks (phases 4 and 8): every step after the
+    first answered every gradient from the response cache, and no fusion
+    slab or process group appeared after the warm-up steps; at threshold 0
+    one allreduce a tensor every step; fused (the default threshold), on
+    the card, fewer allreduces a step after the first than ``card_limit``
+    (a quarter of the tensors by default) (on the CPU rehearsal the host's
+    speed sets how many cycles a backward spans, so there only at most one
+    a tensor)."""
     ar, warm = per_step["allreduce"], cfg["warmup"]
     if threshold == 0:
         check(all(n == n_tensors for n in ar),
               f"threshold 0: {ar} allreduces a step, want {n_tensors}")
     else:
-        limit = n_tensors / 4 if card else n_tensors + 1
+        if card_limit is None:
+            card_limit = n_tensors / 4
+        limit = card_limit if card else n_tensors + 1
         check(all(n < limit for n in ar[1:]),
               f"fused: {ar} allreduces a step, want < {limit}")
     hits = per_step["cache_hits"]
@@ -1823,6 +1850,152 @@ def compare_gpt_runs(two: dict, fused: dict) -> None:
                          f"{worst:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the ResNet-50 slice
+# ---------------------------------------------------------------------------
+
+
+def train_resnet(cfg, device, card, profile=False) -> dict:
+    """The bench's ResNet-50 row (``bench.py:85, 258-300``), eager, one
+    process: ``hvd.init()``, ``ResNet50(1000, bf16, seed=0)`` on
+    ``hvd.device()`` (NHWC images, f32 parameters and statistics),
+    ``broadcast_parameters(state_dict())``, ``DistributedOptimizer(SGD(0.01
+    x size, momentum 0.9))`` through the hooks and the runtime, the bench's
+    images and labels (the same batch every step), 2 warm-up and 10 timed
+    steps. Losses finite and falling; 161 gradients a step, every one from
+    the response cache from the second step, fewer fused calls a step than
+    gradients, no slab or group after warm-up. The 33 norm + ReLU pairs
+    run plain, not on B10 (``tools/resnet_bn_choice.py`` timed both)."""
+    rn = cfg["resnet"]
+    batch, size = rn["batch"], rn["size"]
+    rng = np.random.RandomState(0)  # bench.py:306-312
+    images = rng.uniform(-1, 1, (batch, size, size, 3)).astype(np.float32)
+    labels = rng.randint(0, rn["classes"], (batch,)).astype(np.int32)
+
+    cba.reset_launch_counts()
+    collectives.COUNTS.update(dict.fromkeys(collectives.COUNTS, 0))
+    hvd.init(device=None if device.type == "cuda" else "cpu")
+    dev = hvd.device()
+    model = ResNet50(num_classes=rn["classes"], dtype=rn["dtype"], seed=0)
+    check(next(model.parameters()).device == dev,
+          "ResNet50() without a device must take hvd.device()")
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01 * hvd.size(),
+                        momentum=0.9),
+        named_parameters=model.named_parameters())
+    step = make_train_step(model, opt)
+    x, y = (torch.from_numpy(a).to(dev) for a in (images, labels))
+    n_tensors = len(list(model.parameters()))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_pairs = sum(isinstance(m, BatchNormReLU) for m in model.modules())
+    n_broadcast = len(model.state_dict())
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, times, snaps = [], [], [dict(hrt.COUNTS)]
+    steps = cfg["warmup"] + cfg["steps"]
+    for i in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(x, y).item())  # waits for the step's last kernel
+        snaps.append(dict(hrt.COUNTS))
+        if i >= cfg["warmup"]:
+            times.append(time.perf_counter() - t0)
+    launches = dict(cba.LAUNCHES)
+    counts = dict(collectives.COUNTS)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    step_s = statistics.median(times)
+    if profile:
+        breakdown(lambda: step(x, y), dev, step_s, cfg["profile_steps"])
+    del model, opt, step
+    hvd.shutdown()
+    free_memory(device)
+
+    log(f"slice (ResNet-50): {n_params:,} params in {n_tensors} tensors, "
+        f"{n_pairs} norm + ReLU pairs (plain), batch {batch} x {size}^2 NHWC, "
+        f"{cfg['warmup']} warm-up + {cfg['steps']} timed steps")
+    log("  losses: " + " ".join(f"{v:.4f}" for v in losses))
+    log(f"  kernel launches: {launches}; collectives: {counts}")
+    issued = runtime_steps(snaps)
+    log_runtime("ResNet-50", issued)
+    check(n_tensors == 161 and (n_params == 25_557_032
+                                or rn["classes"] != 1000),
+          f"ResNet-50 has {n_tensors} tensors, {n_params} params")
+    check_hooks_runtime(cfg, issued, n_tensors,
+                        env.DEFAULT_FUSION_THRESHOLD_BYTES,
+                        dev.type == "cuda", card_limit=n_tensors)
+    check(all(math.isfinite(v) for v in losses), "ResNet-50: non-finite loss")
+    check(losses[-1] < losses[0], f"ResNet-50: loss did not fall: {losses}")
+    want = {k: 0 for k in counts}
+    want.update(allreduce=n_tensors * steps, broadcast=n_broadcast)
+    check(counts == want, f"ResNet-50: collectives {counts}, want {want}")
+    check(launches == {"sba": 0}, f"ResNet-50: kernel launches {launches}, "
+                                  f"want none (the pairs run plain)")
+    if dev.type == "cuda":
+        img_s = batch / step_s
+        where = f"({card})"
+        log(f"  step {1e3 * step_s:.2f} ms median (mean "
+            f"{1e3 * statistics.mean(times):.2f} ms) {where}")
+        log(f"  images/s {img_s:.1f} {where}")
+        log(f"  MFU {img_s * RESNET_FLOPS / PEAK_FLOPS:.4f} against 989 "
+            f"TFLOP/s bf16, {RESNET_FLOPS / 1e9:.3f} GFLOP/image {where}")
+        log(f"  max_memory_allocated {peak / 2**30:.2f} GiB {where}")
+    return dict(losses=losses, launches=launches, step_ms=1e3 * step_s)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the rest of the collectives through the runtime
+# ---------------------------------------------------------------------------
+
+
+def check_collectives(device) -> None:
+    """At world 1 (NCCL on the card): an allgather, an alltoall, a
+    differentiable allreduce with its backward, an int64 allreduce past
+    2**40, a sparse allreduce and ``broadcast_object``, each held exactly
+    against the value it must have; every one is issued by the runtime
+    (``runtime.COUNTS``). A ragged allgather needs two ranks: the four-card
+    test ``tests/test_torch_kernels.py::test_runtime_across_the_cards``
+    runs it on NCCL."""
+    hvd.init(device=None if device.type == "cuda" else "cpu")
+    dev = hvd.device()
+    try:
+        before = dict(hrt.COUNTS)
+        x = torch.arange(12, device=dev).reshape(4, 3)
+        check(torch.equal(hvd.allgather(x, name="smoke.ag"), x),
+              "allgather at world 1")
+        check(torch.equal(hvd.alltoall(x.float(), name="smoke.a2a"),
+                          x.float()), "alltoall at world 1")
+        w = torch.full((5,), 2.0, device=dev, requires_grad=True)
+        out = hvd.allreduce(w * 3, op=hvd.Sum, name="smoke.ar")
+        (out * torch.arange(5.0, device=dev)).sum().backward()
+        check(torch.equal(out.detach(), torch.full((5,), 6.0, device=dev))
+              and torch.equal(w.grad, 3 * torch.arange(5.0, device=dev)),
+              "differentiable allreduce at world 1")
+        big = torch.tensor([2 ** 40 + 1, -(2 ** 40) - 3], device=dev)
+        check(torch.equal(hvd.allreduce(big, op=hvd.Sum, name="smoke.big"),
+                          big), f"int64 past 2**40: {big.tolist()}")
+        sp = torch.sparse_coo_tensor(torch.tensor([[0, 2, 2]]),
+                                     torch.tensor([1.0, 2.0, 3.0]), (4,),
+                                     check_invariants=True)
+        got = hvd.sparse_allreduce_async(sp.to(dev), name="smoke.sparse")
+        check(torch.equal(got.wait().to_dense().cpu(),
+                          torch.tensor([1.0, 0.0, 5.0, 0.0])),
+              "sparse allreduce at world 1")
+        check(hvd.broadcast_object({"epoch": 3}) == {"epoch": 3},
+              "broadcast_object")
+        issued = {k: hrt.COUNTS[k] - before[k]
+                  for k in ("allreduce", "allgather", "alltoall")}
+        # the allreduce's backward is one more; the sparse one two gathers
+        check(issued == dict(allreduce=3, allgather=3, alltoall=1),
+              f"collectives issued at world 1: {issued}")
+        log(f"collectives through the runtime at world 1 on {dev} "
+            f"({'NCCL' if dev.type == 'cuda' else 'gloo'}): allgather, "
+            f"alltoall, differentiable allreduce and its backward, int64 "
+            f"past 2**40, sparse allreduce, broadcast_object exact; issued "
+            f"{issued}")
+    finally:
+        hvd.shutdown()
+
+
 GROUPS = (  # kernel-name fragments -> group, first match wins
     ("flash_", "attention kernels (port)"),
     ("sba_kernel", "BN + ReLU kernel B10 (port)"),
@@ -1961,6 +2134,8 @@ def main() -> int:
     gpt = {fused: train_gpt(cfg, device, card, fused, args.profile)
            for fused in (False, True)}
     compare_gpt_runs(gpt[False], gpt[True])
+    train_resnet(cfg, device, card, args.profile)
+    check_collectives(device)
     if dry:
         log("DRY RUN complete: control flow rehearsed; no result line")
         return 0

@@ -1,11 +1,15 @@
 """horovod_tpu_torch — the PyTorch/CUDA port of horovod_tpu.
 
-``import horovod_tpu_torch as hvd`` gives the data-parallel surface of the
-JAX package in PyTorch: ``hvd.init()``, ``hvd.DistributedOptimizer`` with
-per-parameter gradient hooks that start async allreduces, the broadcasts
-for the checkpoint-on-rank-0 convention, reduce-scatter and allgather,
-ZeRO-1 ``sharded_adamw``, and ``flash_attention`` on hand-written Hopper
-kernels (``csrc/``). The replicated fused AdamW is
+``import horovod_tpu_torch as hvd`` gives the surface of the JAX package's
+PyTorch binding (``horovod_tpu.torch``), in its order, but ``mesh``, which
+has no counterpart here: ``hvd.init()`` and the capability probes,
+``hvd.DistributedOptimizer`` with per-parameter gradient hooks that start
+async allreduces (sparse gradients by the sparse allreduce, or densified),
+the broadcasts for the checkpoint-on-rank-0 convention, the collectives
+(allreduce, allgather with a ragged dim 0, broadcast, reduce-scatter,
+alltoall; allreduce, allgather and broadcast differentiable). Beyond it:
+``grouped_allreduce``, ZeRO-1 ``sharded_adamw``, and ``flash_attention``
+on hand-written Hopper kernels (``csrc/``). The replicated fused AdamW is
 ``horovod_tpu_torch.ops.fused_adamw.fused_adamw``. Every collective goes
 through the enqueue runtime (``runtime/``): named, negotiated across the
 ranks, allreduces fused into one call a bin, on ``torch.distributed``
@@ -15,53 +19,65 @@ Entry points run on the card unless the caller asks for the CPU
 (``hvd.init(device="cpu")``). Nothing here imports JAX or the JAX package.
 """
 
-from horovod_tpu_torch.compression import Compression  # noqa: F401
 from horovod_tpu_torch.core.basics import (  # noqa: F401
-    cross_rank,
-    cross_size,
-    device,
-    gloo_built,
     init,
+    shutdown,
     is_initialized,
+    rank,
+    size,
     local_rank,
     local_size,
+    cross_rank,
+    cross_size,
+    is_homogeneous,
+    mpi_built,
+    gloo_built,
     nccl_built,
-    rank,
-    shutdown,
-    size,
+    xla_built,
+    mpi_enabled,
+    mpi_threads_supported,
+    device,
 )
+from horovod_tpu_torch.compression import Compression  # noqa: F401
 from horovod_tpu_torch.ops.collectives import (  # noqa: F401
     Average,
-    Handle,
     Max,
     Min,
     Product,
     Sum,
+    allgather,
+    allgather_async,
     allreduce,
     allreduce_,
     allreduce_async,
     allreduce_async_,
-    allgather,
-    allgather_async,
+    alltoall,
+    alltoall_async,
     broadcast,
     broadcast_,
     broadcast_async,
     broadcast_async_,
-    grouped_allreduce,
     poll,
     reducescatter,
     reducescatter_async,
+    sparse_allreduce_async,
     synchronize,
-)
-from horovod_tpu_torch.ops.flash_attention import (  # noqa: F401
-    flash_attention,
-    flash_attention_partial,
 )
 from horovod_tpu_torch.parallel.dp import (  # noqa: F401
     DistributedOptimizer,
-    allreduce_gradients,
-    broadcast_optimizer_state,
     broadcast_parameters,
+    broadcast_optimizer_state,
+)
+from horovod_tpu_torch.ops.collectives import (  # noqa: F401
+    broadcast_object,
+    Handle,
+    SparseHandle,
+    grouped_allreduce,
+)
+from horovod_tpu_torch.parallel.dp import allreduce_gradients  # noqa: F401
+from horovod_tpu_torch.ops.flash_attention import (  # noqa: F401
+    flash_attention,
+    flash_attention_partial,
 )
 from horovod_tpu_torch.parallel.zero import (  # noqa: F401
     FlatAdamState,

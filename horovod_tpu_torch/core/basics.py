@@ -4,7 +4,8 @@ Port of ``horovod_tpu/core/basics.py`` onto ``torch.distributed``. The
 worker model is the reference Horovod's: one process per device, so
 ``rank``/``size`` are process ranks. Topology comes from the launcher's
 environment contract (``HOROVOD_RANK``/``SIZE``/``LOCAL_*``/``CROSS_*``);
-the JAX package's device mesh (``core/mesh.py``) has no counterpart.
+the JAX package's device mesh (``core/mesh.py``, ``mesh()``) has no
+counterpart: PyTorch has no device mesh of that kind.
 
 ``init()`` brings up a process group: NCCL for a CUDA device, gloo for the
 CPU. A one-process world still gets a group (over an in-memory
@@ -166,9 +167,37 @@ def device() -> torch.device:
     return _ensure_init().device
 
 
-def nccl_built() -> bool:
-    return dist.is_nccl_available()
+def is_homogeneous() -> bool:
+    """True when every process owns the same number of devices
+    (``horovod_tpu/core/basics.py:332``): always, since each process
+    drives one device."""
+    _ensure_init()
+    return True
+
+
+# Capability probes with the JAX package's names and signatures
+# (``horovod_tpu/core/basics.py:341-362``), true of this port: its
+# transports are NCCL (the card) and gloo (the CPU and the control plane),
+# with no MPI and no XLA.
+def mpi_built() -> bool:
+    return False
 
 
 def gloo_built() -> bool:
     return dist.is_gloo_available()
+
+
+def nccl_built() -> bool:
+    return dist.is_nccl_available()
+
+
+def xla_built() -> bool:
+    return False
+
+
+def mpi_enabled() -> bool:
+    return False
+
+
+def mpi_threads_supported() -> bool:
+    return False

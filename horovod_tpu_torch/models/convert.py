@@ -10,11 +10,13 @@ JAX package's single controller, whose arrays are ``(world, shard)``
 stacked, and the port's per-rank shards (:func:`flat_state_from_jax`,
 :func:`flat_state_to_jax`).
 
-Inception-V3's variables go both ways by name (:func:`inception_from_flax`,
-:func:`inception_grads_to_flax`, :func:`batch_stats_to_flax`): the port's
-submodules carry flax's names, so the path of a flax leaf, joined with
-dots, is its state-dict key. A flax ``Conv`` kernel is HWIO where the
-port's is OIHW, and the ``classifier`` kernel ``(in, out)`` where the
+Inception-V3's and ResNet's variables go both ways by name
+(:func:`inception_from_flax` and :func:`resnet_from_flax`,
+:func:`inception_grads_to_flax` and :func:`resnet_grads_to_flax`,
+:func:`batch_stats_to_flax`): the port's submodules carry flax's names, so
+the path of a flax leaf, joined with dots, is its state-dict key. A flax
+``Conv`` kernel is HWIO where the port's is OIHW, and a ``Dense`` kernel
+(Inception's ``classifier``, ResNet's ``Dense_0``) ``(in, out)`` where the
 port's is ``(out, in)``; 1-d leaves (BN scale, bias, mean, var; the
 classifier bias) are the same.
 
@@ -254,6 +256,12 @@ def inception_grads_to_flax(tensors: Dict[str, torch.Tensor], like) -> dict:
             node = node.setdefault(k, {})
         node[path[-1]] = a
     return out
+
+
+# ResNet's tree maps by the same rule (``models/resnet.py`` names its
+# submodules as flax does)
+resnet_from_flax = inception_from_flax
+resnet_grads_to_flax = inception_grads_to_flax
 
 
 def batch_stats_to_flax(model: torch.nn.Module) -> dict:

@@ -58,6 +58,14 @@ def _weight(w: torch.Tensor, dtype) -> torch.Tensor:
     return w.to(dtype, memory_format=torch.channels_last)
 
 
+def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
+    """XLA's ``"SAME"`` padding of one spatial dim: ``ceil(size / s)``
+    outputs, the total padding split with the odd element at the end (a
+    3x3 stride-2 conv over an even size pads only after)."""
+    total = max((-(-size // s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
 class Conv(nn.Module):
     """flax ``nn.Conv(use_bias=False)``: ``kernel`` is float32 in PyTorch's
     (out, in, kh, kw) layout (flax's is (kh, kw, in, out))."""
@@ -66,23 +74,24 @@ class Conv(nn.Module):
                  kernel: Sequence[int], strides: Sequence[int] = (1, 1),
                  padding: str = "SAME", dtype=torch.bfloat16, device=None):
         super().__init__()
-        kernel, strides = tuple(kernel), tuple(strides)
-        if padding == "SAME":
-            if strides != (1, 1) or not all(k % 2 for k in kernel):
-                raise ValueError("SAME padding is ported for stride 1 and "
-                                 "odd kernels only")
-            self.padding = tuple(k // 2 for k in kernel)
-        elif padding == "VALID":
-            self.padding = (0, 0)
-        else:
+        if padding not in ("SAME", "VALID"):
             raise ValueError(f"padding must be SAME or VALID, got {padding}")
-        self.stride, self.dtype = strides, dtype
-        self.kernel = nn.Parameter(torch.empty(features, in_features, *kernel,
-                                               device=device))
+        self.ksize, self.stride = tuple(kernel), tuple(strides)
+        self.same, self.dtype = padding == "SAME", dtype
+        self.kernel = nn.Parameter(torch.empty(features, in_features,
+                                               *self.ksize, device=device))
 
     def forward(self, x):
-        return F.conv2d(x.to(self.dtype), _weight(self.kernel, self.dtype),
-                        stride=self.stride, padding=self.padding)
+        x, padding = x.to(self.dtype), (0, 0)
+        if self.same:
+            (t, b), (l, r) = (_same_pads(n, k, s) for n, k, s in zip(
+                x.shape[2:], self.ksize, self.stride))
+            if (t, l) == (b, r):
+                padding = (t, l)
+            else:  # the conv pads symmetrically: the rest goes first
+                x = F.pad(x, (l, r, t, b))
+        return F.conv2d(x, _weight(self.kernel, self.dtype),
+                        stride=self.stride, padding=padding)
 
 
 class ConvBN(nn.Module):

@@ -13,7 +13,8 @@ Port of ``horovod_tpu/ops/pallas/conv_bn_act.py``:
   JAX package's ``_sba_bwd`` in PyTorch (the TPU has no backward kernel);
 * :class:`FusedBatchNormAct` — flax ``nn.BatchNorm(momentum=0.9,
   epsilon=1e-3)`` + ReLU with the same variables (``scale``, ``bias``
-  parameters, ``mean``, ``var`` running statistics) and update rule.
+  parameters, ``mean``, ``var`` running statistics) and update rule;
+  :class:`BatchNorm`, the same norm alone in plain PyTorch.
 
 Layout: the port keeps activations as NCHW tensors in channels-last memory
 (``x.permute(0, 3, 1, 2)`` of an NHWC tensor), so the channel axis is dim 1
@@ -153,9 +154,10 @@ def scale_bias_act(x: torch.Tensor, s: torch.Tensor,
     return _ScaleBiasAct.apply(x, s, b)
 
 
-class FusedBatchNormAct(nn.Module):
-    """flax ``nn.BatchNorm(momentum, epsilon)`` + ReLU as one fused
-    epilogue: the JAX ``FusedBatchNormAct`` (``conv_bn_act.py:169-198``).
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum, epsilon)``'s variables and update rule,
+    with no activation: ``x * s + b`` in float32 per channel (dim 1), the
+    result in x's dtype, in plain PyTorch.
 
     Parameters ``scale`` (ones) and ``bias`` (zeros) and buffers ``mean``
     (zeros) and ``var`` (ones), all float32 of shape (C,). In training mode
@@ -188,7 +190,23 @@ class FusedBatchNormAct(nn.Module):
             self.var.copy_(m * self.var + (1.0 - m) * var)
         return mean, var
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def scale_and_bias(self, x: torch.Tensor):
+        """The per-channel float32 ``(s, b)`` of ``x * s + b``."""
         mean, var = self.statistics(x)
         s = self.scale * torch.rsqrt(var + self.epsilon)
-        return scale_bias_act(x, s, self.bias - mean * s)
+        return s, self.bias - mean * s
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s, b = self.scale_and_bias(x)
+        y = x.float() * per_channel(s, x) + per_channel(b, x)
+        return y.to(x.dtype)
+
+
+class FusedBatchNormAct(BatchNorm):
+    """flax ``nn.BatchNorm(momentum, epsilon)`` + ReLU as one fused
+    epilogue: the JAX ``FusedBatchNormAct`` (``conv_bn_act.py:169-198``),
+    :class:`BatchNorm`'s variables and statistics with the apply and the
+    ReLU in kernel B10 (:func:`scale_bias_act`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return scale_bias_act(x, *self.scale_and_bias(x))

@@ -8,7 +8,11 @@ have accumulated into its gradient, the hook starts an async in-place
 allreduce of that gradient, so communication overlaps the rest of the
 backward pass. ``step()`` waits for every outstanding allreduce, then runs
 the wrapped optimizer. The hooks are registered at every world size, so a
-one-process world issues the same collectives.
+one-process world issues the same collectives. A sparse gradient
+(``nn.Embedding(sparse=True)``) goes out by the sparse allreduce (a
+gather of every rank's indices and values) unless ``sparse_as_dense``
+densifies it first (``horovod_tpu/torch/__init__.py:79-82, 141-147,
+192-193``).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.core import basics
 from horovod_tpu_torch.ops import collectives
-from horovod_tpu_torch.ops.collectives import Average
+from horovod_tpu_torch.ops.collectives import Average, Sum
 
 
 class _DistributedOptimizer(torch.optim.Optimizer):
@@ -32,9 +36,10 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     (reference: horovod/torch/__init__.py:47-203)."""
 
     def __init__(self, params, named_parameters, compression,
-                 backward_passes_per_step, op):
+                 backward_passes_per_step, sparse_as_dense, op):
         super(self.__class__, self).__init__(params)
         self._compression = compression
+        self._sparse_as_dense = sparse_as_dense
         self._op = op
         if named_parameters is not None:
             named_parameters = list(named_parameters)
@@ -71,9 +76,18 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                     p.register_post_accumulate_grad_hook(self._make_hook())
 
     def _allreduce_grad_async(self, p):
+        name = self._parameter_names[p]
+        if p.grad.is_sparse:
+            if self._sparse_as_dense:
+                p.grad = p.grad.to_dense()
+            elif self._op in (Average, Sum):
+                return collectives.sparse_allreduce_async(
+                    p.grad, average=self._op == Average, name=name)
+            else:
+                raise ValueError("a sparse gradient is reduced by Average "
+                                 "or Sum only; pass sparse_as_dense=True")
         return collectives.allreduce_async_(
-            p.grad, op=self._op, name=self._parameter_names[p],
-            compression=self._compression)
+            p.grad, op=self._op, name=name, compression=self._compression)
 
     def _make_hook(self):
         # The parameter keeps its hooks in C++, out of the garbage
@@ -107,7 +121,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             if p not in self._handles and p.grad is not None:
                 self._handles[p] = self._allreduce_grad_async(p)
         for p, handle in self._handles.items():
-            collectives.synchronize(handle)
+            out = collectives.synchronize(handle)
+            if out.is_sparse:  # a new tensor, not the gradient in place
+                p.grad = out.to(p.grad.dtype)
             self._delay[p] = self.backward_passes_per_step
         self._handles.clear()
         self._synchronized = True
@@ -148,14 +164,17 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          named_parameters=None,
                          compression=Compression.none,
                          backward_passes_per_step: int = 1,
+                         sparse_as_dense: bool = False,
                          op: int = Average) -> torch.optim.Optimizer:
     """Wrap a torch optimizer so gradients are averaged (``op``) across all
     ranks before each update (reference: horovod/torch/__init__.py:205-253).
-    The result is an instance of the wrapped optimizer's class."""
+    Sparse gradients go out by :func:`~horovod_tpu_torch.ops.collectives.
+    sparse_allreduce_async` unless ``sparse_as_dense`` densifies them. The
+    result is an instance of the wrapped optimizer's class."""
     cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
                dict(_DistributedOptimizer.__dict__))
     return cls(optimizer.param_groups, named_parameters, compression,
-               backward_passes_per_step, op)
+               backward_passes_per_step, sparse_as_dense, op)
 
 
 def allreduce_gradients(grads, *, average: bool = True,

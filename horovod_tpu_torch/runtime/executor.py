@@ -11,6 +11,14 @@ allgather and reduce-scatter run one call an entry, as the reference never
 fuses them. Every collective goes to the runtime's data group, and only
 the runtime's thread issues on it.
 
+An allgather whose ranks' dim 0 differ (the negotiated response's
+``tensor_sizes``, one a rank) runs as an equal one padded to the largest
+part: ``all_gather`` needs equal parts on NCCL and gloo, so each rank
+copies its part into a zeroed buffer of the largest size, gathers those,
+and the parts are copied out of the result, in rank order, into the
+output. The padding is wire traffic only; the result is exact. Alltoall
+is one ``all_to_all_single`` of equal chunks an entry.
+
 On the card everything runs on the runtime's comm stream: it waits for
 each input's producer stream (the caller's current stream at enqueue, as
 it stands at dispatch), packs, issues the collective with itself current
@@ -33,6 +41,7 @@ flight recorder (ROADMAP A8, A10, A11).
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 from typing import Callable, List, NamedTuple, Optional
 
@@ -206,20 +215,15 @@ class Executor:
                 pend.fail(
                     types.Status.PreconditionError(response.error_message))
                 return pend
-            if kind == types.ALLGATHER and len(set(response.tensor_sizes)) > 1:
-                pend.fail(types.Status.InvalidArgument(
-                    f"allgather with a ragged dim 0 "
-                    f"({list(response.tensor_sizes)}) is not ported yet: "
-                    "every rank must give the same shape"))
-                return pend
             self._order_after_inputs(entries)
             if kind == types.ALLREDUCE:
                 pend.finish = self._dispatch_allreduce(entries, timeline,
                                                        pend)
             elif kind in (types.BROADCAST, types.ALLGATHER,
-                          types.REDUCESCATTER):
-                pend.finish = self._dispatch_each(kind, entries, timeline,
-                                                  pend.name0)
+                          types.REDUCESCATTER, types.ALLTOALL):
+                pend.finish = self._dispatch_each(
+                    kind, entries, timeline, pend.name0,
+                    response.tensor_sizes)
             else:
                 raise ValueError(f"response type {kind} is not ported")
         except Exception as exc:
@@ -270,21 +274,28 @@ class Executor:
 
         return finish
 
-    def _dispatch_each(self, kind, entries, timeline, name0):
-        """One collective an entry: broadcast in place, allgather of equal
-        dim 0 and reduce-scatter into the outputs the enqueue allocated."""
+    def _dispatch_each(self, kind, entries, timeline, name0, sizes=()):
+        """One collective an entry: broadcast in place; allgather (ragged
+        by the negotiated ``sizes``), alltoall and reduce-scatter into the
+        outputs the enqueue allocated."""
         if timeline is not None:
             timeline.activity_start(name0, f"{self.backend}_{kind}")
-        works = []
+        works, tails = [], []
         for e in entries:
             x = e.tensor
             if kind == types.BROADCAST:
                 e.output = x
                 works.append(dist.broadcast(x, src=e.root_rank,
                                             group=self.group, async_op=True))
+            elif kind == types.ALLGATHER and len(set(sizes)) > 1:
+                works.append(self._ragged_allgather(e, sizes, tails))
             elif kind == types.ALLGATHER:
                 works.append(_all_gather_one(e.output, x.contiguous(),
                                              group=self.group, async_op=True))
+            elif kind == types.ALLTOALL:
+                works.append(dist.all_to_all_single(
+                    e.output, x.contiguous(), group=self.group,
+                    async_op=True))
             else:
                 works.append(_reduce_scatter_one(
                     e.output, x.contiguous(), op=_TORCH_OPS[e.reduce_op],
@@ -294,6 +305,8 @@ class Executor:
         def finish():
             for w in works:
                 w.wait()
+            for tail in tails:
+                tail()
             for e in entries:
                 if e.reduce_op == types.REDUCE_AVERAGE \
                         and kind == types.REDUCESCATTER:
@@ -303,3 +316,31 @@ class Executor:
             self._mark_done(entries)
 
         return finish
+
+    def _ragged_allgather(self, e, sizes, tails):
+        """Gather parts of ``sizes`` rows (rank order) as equal parts of the
+        largest: this rank's part goes into a zeroed buffer of that size,
+        the gather fills ``world`` such parts, and the tail appended to
+        ``tails`` copies the real rows out into a new output of
+        ``sum(sizes)`` rows, allocated on the caller's stream as the
+        enqueue allocates an output."""
+        x, rest, top = e.tensor, tuple(e.tensor.shape[1:]), max(sizes)
+        part = x.new_zeros((top,) + rest)
+        part[:x.shape[0]] = x
+        parts = x.new_empty((self.world * top,) + rest)
+        with _on(e.ready):
+            e.output = x.new_empty((sum(sizes),) + rest)
+
+        def tail():
+            rows = [parts[r * top:r * top + n] for r, n in enumerate(sizes)]
+            torch.cat(rows, out=e.output)
+
+        tails.append(tail)
+        return _all_gather_one(parts, part, group=self.group, async_op=True)
+
+
+def _on(stream):
+    """The caller's stream as current (allocations land in its pool), or
+    nothing on the CPU."""
+    return (torch.cuda.stream(stream) if stream is not None
+            else contextlib.nullcontext())

@@ -51,9 +51,14 @@ class BufferLease:
 class FusionBufferManager:
     """Reusable slabs keyed by (bucket, dtype, device).
 
-    ``acquire`` hands out a free slab, allocating one only when the key has
-    none free; a key holds at most ``max_per_key`` slabs (the cycle
-    pipeline depth, which bounds the leases out at once). ``release``
+    ``acquire`` hands out a free slab of the key. A key's first acquire
+    allocates all of its ``max_per_key`` slabs (the cycle pipeline depth,
+    which bounds the leases out at once), so a run allocates slabs only for
+    keys it has not seen: a model's bins take their keys in the first step
+    (the threshold's bucket, or a tensor's own at threshold 0), and no
+    later cycle allocates, however its bins come to be in flight together.
+    Lazily, one slab a lease, a key's second slab waited for the first step
+    in which two of its bins were in flight at once. ``release``
     returns a slab once the work that reads it is ordered before any reuse:
     on the card, every use of a slab is on the runtime's one comm stream.
     Slabs are allocated on the thread's current stream, the comm stream on
@@ -78,17 +83,18 @@ class FusionBufferManager:
                 device: torch.device) -> BufferLease:
         key = (self.capacity(nelems, dtype.itemsize), dtype, device)
         with self._lock:
-            free = self._free.get(key)
-            if free:
-                return BufferLease(free.pop(), key)
-            if self._count.get(key, 0) >= self.max_per_key:
+            if key not in self._count:
+                self._count[key] = self.max_per_key
+                self._free[key] = [
+                    torch.empty(key[0], dtype=dtype, device=device)
+                    for _ in range(self.max_per_key)]
+                types.COUNTS["slabs"] += self.max_per_key
+            free = self._free[key]
+            if not free:
                 raise RuntimeError(
                     f"fusion slab {key}: more than {self.max_per_key} leases "
                     "out at once (the pipeline depth bounds them)")
-            self._count[key] = self._count.get(key, 0) + 1
-        types.COUNTS["slabs"] += 1
-        return BufferLease(torch.empty(key[0], dtype=dtype, device=device),
-                           key)
+            return BufferLease(free.pop(), key)
 
     def release(self, lease: BufferLease) -> None:
         """Return a lease's slab. Idempotent: failure paths may release the

@@ -193,9 +193,13 @@ class Runtime:
         if tensor.is_cuda:
             entry.ready = torch.cuda.current_stream(tensor.device)
         if request_type == types.ALLGATHER:
+            # the equal-split guess; a ragged gather's output is made when
+            # the negotiated sizes are known (Executor._dispatch_each)
             entry.output = tensor.new_empty(
                 (self.controller.world * tensor.shape[0],)
                 + tuple(tensor.shape[1:]))
+        elif request_type == types.ALLTOALL:
+            entry.output = tensor.new_empty(tensor.shape)
         elif request_type == types.REDUCESCATTER:
             entry.output = tensor.new_empty(
                 (tensor.shape[0] // self.controller.world,)
@@ -253,6 +257,12 @@ class Runtime:
         return self._enqueue(types.ALLGATHER, name, tensor,
                              priority=priority)
 
+    def enqueue_alltoall(self, name: str, tensor,
+                         priority: int = 0) -> RuntimeHandle:
+        """Exchange equal chunks of dim 0 with every rank (reference:
+        ``horovod_tpu/runtime/runtime.py:545``)."""
+        return self._enqueue(types.ALLTOALL, name, tensor, priority=priority)
+
     def enqueue_reducescatter(self, name: str, tensor,
                               reduce_op: str = types.REDUCE_SUM,
                               priority: int = 0) -> RuntimeHandle:
@@ -261,6 +271,10 @@ class Runtime:
 
     # -- cycle loop (reference: RunLoopOnce, operations.cc:500-550) --------
     def _run_loop(self) -> None:
+        # the data plane records no autograd (grad mode is per thread): the
+        # entries may be tensors that require grad, as a differentiable
+        # collective's input does
+        torch.set_grad_enabled(False)
         if self.device.type == "cuda":
             # the comm stream is this thread's current stream for good:
             # slabs are allocated on it, collectives ordered after it
@@ -328,6 +342,8 @@ class Runtime:
                 entries = self.queue.get_entries(response.tensor_names)
                 if not entries:
                     continue
+                if not cycle_entries:
+                    COUNTS["busy_cycles"] += 1
                 cycle_entries.append(entries)
                 COUNTS["responses"] += 1
                 pending.append(self.executor.dispatch(

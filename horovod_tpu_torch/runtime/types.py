@@ -96,10 +96,13 @@ REDUCE_OPS = (REDUCE_SUM, REDUCE_AVERAGE, REDUCE_MIN, REDUCE_MAX,
 #: what the runtime did since the last :func:`reset_counts`: collectives
 #: issued on its data group per kind, responses executed (a fused bin is
 #: one), requests answered from the response cache, fusion slabs
-#: allocated, process groups created, cycles run and their host ms
+#: allocated, process groups created, cycles run, those that executed a
+#: response (counted before any of their handles completes), and the
+#: cycles' host ms
 COUNTS = {"allreduce": 0, "broadcast": 0, "allgather": 0,
-          "reducescatter": 0, "responses": 0, "cache_hits": 0, "slabs": 0,
-          "groups": 0, "cycles": 0, "cycle_ms": 0.0}
+          "reducescatter": 0, "alltoall": 0, "responses": 0,
+          "cache_hits": 0, "slabs": 0, "groups": 0, "cycles": 0,
+          "busy_cycles": 0, "cycle_ms": 0.0}
 
 
 def reset_counts() -> None:

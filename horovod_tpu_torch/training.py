@@ -1,7 +1,7 @@
 """The eager training step of the data-parallel examples and benchmarks.
 
-Port of the part of ``horovod_tpu/training.py`` that the Inception-V3 path
-runs: the default loss and a train step. The JAX package jits one step
+Port of the part of ``horovod_tpu/training.py`` that the conv models'
+paths (Inception-V3, ResNet) run: the default loss and a train step. The JAX package jits one step
 (or a ``lax.scan`` round of steps) over the global batch; here a step is
 eager PyTorch, one process per GPU, and the gradient allreduce is the
 hooks' of :func:`horovod_tpu_torch.DistributedOptimizer`.

@@ -81,7 +81,8 @@ def test_world1_issues_collectives(world1):
         opt.zero_grad()
     opt.step()
     assert collectives.COUNTS == {"allreduce": 2, "broadcast": 0,
-                                  "reducescatter": 0, "allgather": 0}
+                                  "reducescatter": 0, "allgather": 0,
+                                  "alltoall": 0}
 
 
 def test_dropped_optimizer_frees_its_model(world1):

@@ -3,7 +3,8 @@ flash attention and its fused backward (csrc/flash_attention.cu) and the
 attention probes (csrc/attention_probe.cu) within stated tolerances, the
 AdamW kernels (csrc/adamw.cu) and the fused BN + ReLU (csrc/conv_bn_act.cu)
 bit for bit, and the conv + BN-statistics probe (csrc/conv_bn_stats.cu)
-within the JAX tool's limits.
+within the JAX tool's limits; a small ResNet and the enqueue runtime on the
+card (the runtime across every card of the machine).
 
 Every test here is marked ``gpu`` and skips on a machine without a CUDA
 device. This file imports neither JAX nor the JAX package, so it runs on a
@@ -14,6 +15,7 @@ machine that has only PyTorch and the CUDA toolkit:
 (``--noconftest`` skips ``tests/conftest.py``, which sets up JAX.)
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -492,3 +494,65 @@ def test_runtime_across_the_cards(cuda, tmp_path):
             p.kill()
     assert not any(alive) and all(p.exitcode == 0 for p in procs), \
         [p.exitcode for p in procs]
+
+
+@pytest.mark.gpu
+def test_small_resnet_on_card_matches_cpu(cuda):
+    """A small bottleneck ResNet (stage sizes (1, 1, 1, 1), 8 filters, 4 x
+    64 x 64, float32, no TF32) on the card against the same weights on the
+    CPU: eval-mode logits and loss within 1e-4 and every gradient within
+    1e-3 of its norm (cuDNN and oneDNN sum their products in other
+    orders); a train-mode step's logits within 1e-3 and running statistics
+    within 1e-4; no kernel of the port ran (its norm + ReLU pairs are
+    plain)."""
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.training import default_loss_fn
+
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(
+        rng.uniform(-1, 1, (4, 64, 64, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, 10, (4,)))
+    models = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in (torch.device("cpu"), cuda):
+            m = resnet.ResNet(stage_sizes=(1, 1, 1, 1),
+                              block_cls=resnet.BottleneckBlock,
+                              num_filters=8, num_classes=10,
+                              dtype=torch.float32, device=dev, seed=3)
+            with torch.no_grad():  # scales off zero, so every path counts
+                for k, p in m.named_parameters():
+                    if k.endswith("scale"):
+                        p.uniform_(0.5, 1.5)
+            models[dev.type] = m
+        models["cuda"].load_state_dict(models["cpu"].state_dict())
+        out = {}
+        for dev, m in models.items():
+            x, y = images.to(m.Dense_0.kernel.device), labels.to(
+                m.Dense_0.kernel.device)
+            tcba.reset_launch_counts()
+            logits = m.eval()(x)
+            loss = default_loss_fn(logits, y)
+            loss.backward()
+            train_logits = m.train()(x)
+            out[dev] = dict(
+                logits=logits.detach().cpu(), loss=loss.item(),
+                grads={k: p.grad.cpu() for k, p in m.named_parameters()},
+                train=train_logits.detach().cpu(),
+                stats={k: b.cpu() for k, b in m.named_buffers()},
+                sba=tcba.LAUNCHES["sba"])
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    card, cpu = out["cuda"], out["cpu"]
+    assert _rel(card["logits"], cpu["logits"]) <= 1e-4
+    assert abs(card["loss"] - cpu["loss"]) <= 1e-4 * abs(cpu["loss"])
+    worst = max((_rel(card["grads"][k], g), k) for k, g in cpu["grads"].items())
+    assert worst[0] <= 1e-3, worst
+    assert _rel(card["train"], cpu["train"]) <= 1e-3
+    worst = max((_rel(card["stats"][k], s), k) for k, s in cpu["stats"].items())
+    assert worst[0] <= 1e-4, worst
+    assert card["sba"] == 0 and cpu["sba"] == 0

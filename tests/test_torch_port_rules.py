@@ -15,6 +15,7 @@ import numpy as np
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models.inception import InceptionV3
+from horovod_tpu_torch.models.resnet import ResNet50
 from horovod_tpu_torch.models.transformer import BertLarge, GPT2Small
 from horovod_tpu_torch.ops import conv_bn_act as tcba
 from horovod_tpu_torch.ops import flash_attention as tfa
@@ -55,10 +56,38 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert not bad, bad
 
 
+def _public_names(path: Path) -> list:
+    """The names a package's ``__init__`` makes public, in its order: what
+    it imports from modules, and its own public functions and classes."""
+    names = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom):
+            names += [a.asname or a.name for a in node.names]
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.append(node.name)
+    return [n for n in dict.fromkeys(names) if not n.startswith("_")]
+
+
+def test_public_surface_is_the_jax_bindings_but_mesh():
+    """Every public name of ``horovod_tpu.torch`` (read from its source,
+    not imported: the port never imports the JAX package) exists in the
+    port, and the port's ``__init__`` names them in the same order.
+    ``mesh`` has no counterpart: PyTorch has no device mesh of that kind."""
+    theirs = _public_names(REPO / "horovod_tpu" / "torch" / "__init__.py")
+    assert "mesh" in theirs and "DistributedOptimizer" in theirs
+    theirs.remove("mesh")
+    missing = [n for n in theirs if not hasattr(hvd, n)]
+    assert not missing, missing
+    ours = _public_names(REPO / "horovod_tpu_torch" / "__init__.py")
+    assert [n for n in ours if n in theirs] == theirs
+    assert not hasattr(hvd, "mesh")
+
+
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, horovod_tpu_torch, horovod_tpu_torch.models.convert,"
             " horovod_tpu_torch.models.transformer,"
             " horovod_tpu_torch.models.inception,"
+            " horovod_tpu_torch.models.resnet,"
             " horovod_tpu_torch.ops.conv_bn_act, horovod_tpu_torch.training,"
             " horovod_tpu_torch.tools.conv_bn_probe,"
             " horovod_tpu_torch.utils.device,"
@@ -89,7 +118,8 @@ def test_init_without_device_raises_without_a_card(no_card):
     lambda: InceptionV3(),
     lambda: BertLarge(vocab_size=64, max_seq=16),
     lambda: GPT2Small(vocab_size=64, max_seq=16, num_layers=1),
-], ids=["inception", "bert-large", "gpt2-small"])
+    lambda: ResNet50(),
+], ids=["inception", "bert-large", "gpt2-small", "resnet50"])
 def test_models_without_device_raise_without_a_card(no_card, build):
     """A model built with no device takes the card, as ``hvd.init()`` does,
     and raises without one, naming ``device='cpu'``."""
@@ -470,7 +500,9 @@ def test_chip_smoke_cpu_rehearsal_prints_no_result(no_card):
                   "slice (hooks, fusion threshold 0:",
                   "hooks losses, threshold 0 vs phase 4",
                   "phase 4b rehearsed", "runtime per step (Inception-V3):",
-                  "runtime per step (GPT-2, fused backward B7):"):
+                  "runtime per step (GPT-2, fused backward B7):",
+                  "slice (ResNet-50)", "runtime per step (ResNet-50):",
+                  "collectives through the runtime at world 1"):
         assert phase in out.stdout, phase
     assert "BERT-Large MLM" in out.stdout
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
@@ -597,3 +629,22 @@ def test_runtime_before_after_tool_rehearses_on_the_cpu():
     assert 0 < medians["bert fused"]["runtime_allreduce"] <= n
     for config in medians.values():
         assert config["step_ms"] > 0
+
+
+def test_resnet_bn_choice_tool_rehearses_on_the_cpu():
+    """The B10-or-plain tool's turn on the CPU, a small ResNet-50 step:
+    both variants train to the same losses (the same function)."""
+    import json
+
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.tools.resnet_bn_choice",
+         "--cpu", "--turns", "1", "--steps", "1"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert out.returncode == 0, out.stderr[-2000:]
+    rows = [json.loads(line) for line in out.stdout.splitlines()]
+    assert [r["variant"] for r in rows[:2]] == ["b10", "plain"]
+    np.testing.assert_allclose(rows[0]["losses"], rows[1]["losses"],
+                               rtol=1e-5)
+    assert set(rows[-1]["step_ms_median"]) == {"b10", "plain"}
+    assert rows[-1]["where"] == "cpu rehearsal"

@@ -257,7 +257,7 @@ def test_bucket_policy_matches_jax(args):
 def test_fusion_slabs_are_leased_reused_and_bounded():
     """A slab is sized by the bucket of the larger of the bin and the
     threshold, reused by any bin of its key once released, and a key holds
-    at most the pipeline depth's slabs."""
+    the pipeline depth's slabs, all made at its first lease."""
     ttypes.reset_counts()
     mgr = tfb.FusionBufferManager(quantum_bytes=256, floor_bytes=1024,
                                   max_per_key=2)
@@ -275,7 +275,7 @@ def test_fusion_slabs_are_leased_reused_and_bounded():
     big = mgr.acquire(300, torch.float32, cpu)  # 1200 B -> 2 KiB bucket
     assert big.capacity == 512
     assert mgr.acquire(10, torch.bfloat16, cpu).capacity == 512
-    assert ttypes.COUNTS["slabs"] == mgr.slabs() == 4
+    assert ttypes.COUNTS["slabs"] == mgr.slabs() == 6  # 3 keys x 2
 
 
 @pytest.fixture

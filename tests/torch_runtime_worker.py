@@ -12,7 +12,8 @@ writes ``HOROVOD_TIMELINE``), and writes what it got to ``rank<r>.npz``:
   bins a group), at pipeline depths 2 and 1;
 * with ``bert``: 4 steps of a tiny BERT under ``DistributedOptimizer
   (AdamW)`` on this rank's batch, the parameters after each step and the
-  runtime's counts a step.
+  runtime's counts a step (allreduce calls, cycles that executed a
+  response, cache hits, slabs, groups).
 """
 
 import os
@@ -79,7 +80,7 @@ def _bert(hvd, inp, rank: int, out: dict) -> None:
         snaps.append(dict(runtime.COUNTS))
         for k, p in model.named_parameters():
             out[f"step{step}.{k}"] = p.detach().numpy().copy()
-    for key in ("allreduce", "cache_hits", "slabs", "groups"):
+    for key in ("allreduce", "busy_cycles", "cache_hits", "slabs", "groups"):
         out[f"bert_{key}"] = np.asarray([b[key] - a[key] for a, b in
                                          zip(snaps, snaps[1:])])
 
@@ -91,6 +92,9 @@ def run(rank: int, size: int, tmpdir: str, bert: bool) -> None:
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.core import state
 
+    # tiny shapes: more threads only contend with a loaded host's other
+    # processes
+    torch.set_num_threads(1)
     inp = np.load(os.path.join(tmpdir, "inputs.npz"))
     hvd.init(device="cpu")
     try:
@@ -121,8 +125,9 @@ def run(rank: int, size: int, tmpdir: str, bert: bool) -> None:
 def run_world(rank: int, size: int, tmpdir: str, device: str) -> None:
     """One rank of a world on ``device`` ("cuda": one card a rank, NCCL
     data group): a grouped allreduce fused into one call, Average, the
-    unfused ops, and 3 ``DistributedOptimizer`` steps of a small MLP on
-    this rank's data; raises on any disagreement."""
+    unfused ops (a ragged allgather and an alltoall among them), and 3
+    ``DistributedOptimizer`` steps of a small MLP on this rank's data;
+    raises on any disagreement."""
     os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
                       HOROVOD_LOCAL_RANK=str(rank),
                       HOROVOD_COORDINATOR_ADDR=f"file://{tmpdir}/store")
@@ -149,6 +154,18 @@ def run_world(rank: int, size: int, tmpdir: str, device: str) -> None:
         b = hvd.broadcast(torch.full((4,), float(rank), device=dev),
                           root_rank=size - 1)
         assert bool((b == size - 1).all())
+        # a ragged allgather (rank r gives r + 1 rows; int64 past 2**40)
+        # and an alltoall
+        rows = torch.full((rank + 1, 2), 2 ** 40 + rank, device=dev)
+        got = hvd.allgather(rows, name="world.ragged")
+        want = torch.cat([torch.full((r + 1, 2), 2 ** 40 + r, device=dev)
+                          for r in range(size)])
+        assert torch.equal(got, want), got
+        x = torch.arange(size * 2, device=dev).float()
+        got = hvd.alltoall(x + 100 * rank, name="world.a2a")
+        want = torch.cat([x[2 * rank:2 * rank + 2] + 100 * r
+                          for r in range(size)])
+        assert torch.equal(got, want), got
 
         torch.manual_seed(rank)  # other weights on each rank at first
         model = torch.nn.Sequential(torch.nn.Linear(64, 64),

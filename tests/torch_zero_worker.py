@@ -6,8 +6,8 @@ scenario in one world (to keep the test's time down) and writes what it
 got to ``rank<r>.npz``:
 
 * reduce-scatter then allgather against allreduce, sum and average, f32
-  and i32, synchronous and async, and the errors for a dim 0 that does not
-  divide by the world and for a ragged allgather;
+  and i32, synchronous and async, the error for a dim 0 that does not
+  divide by the world, and a ragged allgather (2 and 3 rows);
 * an integer Average of odd sums of both signs, by allreduce and by
   reducescatter;
 * 4 steps of ``sharded_adamw`` on uneven leaves in two dtype groups, with
@@ -46,12 +46,12 @@ def run(rank: int, size: int, tmpdir: str) -> None:
         odd = torch.from_numpy(inp["odd_int32"][rank])
         out["ar_odd_avg"] = hvd.allreduce(odd, op=hvd.Average).numpy()
         out["rs_odd_avg"] = hvd.reducescatter(odd, op=hvd.Average).numpy()
-        for fn, arg in ((hvd.reducescatter, torch.zeros(3, 2)),
-                        (hvd.allgather, torch.zeros(2 + rank, 2))):
-            try:
-                fn(arg)
-            except ValueError as exc:
-                out[f"err_{fn.__name__}"] = np.asarray(str(exc))
+        try:
+            hvd.reducescatter(torch.zeros(3, 2))
+        except ValueError as exc:
+            out["err_reducescatter"] = np.asarray(str(exc))
+        out["ag_ragged"] = hvd.allgather(
+            torch.full((2 + rank, 2), float(rank))).numpy()
 
         params = {k: torch.from_numpy(inp[f"p_{k}"]) for k in LEAVES}
         params["h"] = params["h"].to(torch.bfloat16)

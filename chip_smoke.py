@@ -38,7 +38,8 @@ Phases (any failure exits non-zero):
    mixed set (a bf16 parameter with f32 moments, 7 elements, 131 x 128);
    the flat ZeRO kernel over BERT-Large's world-1 shard (536,870,912
    elements, the bucket pad included) and over ragged lengths (1, 127,
-   16,385) with f32 and bf16 gradients and outputs. Limit: bit-equal (both
+   16,385) with f32 and bf16 gradients and outputs, and over each group
+   shard length of P4's and P5's bucket layout. Limit: bit-equal (both
    round after every float32 operation; adamw.cu is built with
    -fmad=false). Then each is timed at BERT-Large's shapes beside its bound,
    its plain version, ``torch.optim.AdamW(fused=True)`` (a yardstick the
@@ -70,8 +71,23 @@ Phases (any failure exits non-zero):
    (P1) ``allreduce_gradients`` then ``fused_adamw(1e-4).apply`` (the
    multi-tensor kernel once a step, 388 allreduces a step); (P2) ZeRO-1
    ``sharded_adamw(1e-4).apply`` (one reduce-scatter, one flat-kernel launch
-   and one allgather per dtype group a step, no allreduce). Losses finite
-   and falling, and within 1e-2 relative of phase 4's at every step.
+   and one allgather per dtype group a step, no allreduce); (P3)
+   ``DistributedOptimizer(AdamW, shard_optimizer_states=True)``, torch's
+   AdamW over the flat shard (no kernel of the port); (P4) ZeRO-2: a
+   ``GradReleasePlan(reduce_scatter=True)`` of 4 MiB buckets releasing
+   during the backward and ``sharded_adamw(1e-4, partition=
+   plan.zero_partition(params))`` through ``make_train_step`` (one
+   reduce-scatter, one flat-kernel launch and one allgather a bucket
+   group a step); (P5) ZeRO-3: the same plan and layout, the parameters
+   sharded at rest (``shard_params``) and copied into the model group by
+   group from ``iter_param_buckets`` before each forward, ``apply``
+   returning ``ShardedParams``. Losses finite and falling, and within 1e-2
+   relative of phase 4's at every step; P4's and P5's within 1e-5 of
+   P2's. On the ZeRO paths (P2-P5) every collective after the first step
+   comes from the response cache, and no slab or group appears after
+   warm-up. Each prints B8's launches a step, the bytes held for
+   optimizer state and gradient and parameter shards, peak memory, and
+   P5 the stage-3 gather's hidden share.
 6. The Inception-V3 slice (``bench.py --model inception``, eager, one
    process): ``hvd.init()``, ``InceptionV3(1000, bf16, seed=0)`` on the card,
    ``broadcast_parameters``, ``DistributedOptimizer(SGD(0.01, momentum
@@ -137,7 +153,7 @@ bound and SDPA's forward.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (each kernel's
 launches counted on the path that runs it: the flash kernels on phase 4,
-the multi-tensor AdamW on P1, the flat AdamW on P2, B10 on phase 6, B11 on
+the multi-tensor AdamW on P1, the flat AdamW on P2, P4 and P5, B10 on phase 6, B11 on
 the probe's phase 2e, B7 on phase 7's fused run, B12-B14 on the probe's
 phase 2g), the card's name and power limit, and ``{"ok": true,
 "device": {...}}``. ``--cpu-dry`` runs the
@@ -174,6 +190,7 @@ from horovod_tpu_torch.ops import conv_bn_act as cba
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import fused_adamw as fadam
 from horovod_tpu_torch.ops import fused_optimizer as fopt
+from horovod_tpu_torch.parallel import zero as zero_mod
 from horovod_tpu_torch.parallel.zero import LeafMeta, build_spec, dtype_name
 from horovod_tpu_torch.runtime import runtime as hrt
 from horovod_tpu_torch.tools import conv_bn_probe as probe
@@ -712,7 +729,23 @@ def check_optimizer_kernels(cfg, device) -> dict:
         for gd, od in ((F32, F32), (BF16, BF16)):
             errs["flat_adamw"] = max(errs["flat_adamw"], check_flat_adamw(
                 "ragged", n, n, gd, od, device))
+    # the group shards P4 and P5 give it: one a distinct length of the
+    # reduce-scatter plan's bucket layout at world 1
+    sizes = {g.shard_elems: g.n for g in bucket_spec(shapes).groups}
+    for n, real in sorted(sizes.items()):
+        errs["flat_adamw"] = max(errs["flat_adamw"], check_flat_adamw(
+            "bucket group", n, real, F32, F32, device))
+        free_memory(device)
     return errs
+
+
+def bucket_spec(shapes):
+    """The world-1 layout of P4 and P5: one f32 group a bucket of the
+    reduce-scatter plan (4 MiB buckets)."""
+    metas = [LeafMeta(s, F32) for s in shapes]
+    plan = hvd.GradReleasePlan(reduce_scatter=True)
+    return build_spec(metas, 1, 0, 64 * 1024,
+                      partition=plan.zero_partition(metas))
 
 
 def adamw_bound(n_elems: int, nbytes: int) -> dict:
@@ -766,6 +799,8 @@ def time_optimizers(cfg, device, iters) -> dict:
         elems=n, tensors=1, **adamw_bound(n, 32 * n))
     del master, mu, nu, grad, fused
     free_memory(device)
+    rows["flat_adamw_bucket"], groups_ms = time_bucket_adamw(
+        shapes, hyper, sc, device, iters)
     log(f"timing the AdamW kernels at BERT-Large's shapes ({iters} calls "
         f"each):")
     for kname, r in rows.items():
@@ -777,7 +812,60 @@ def time_optimizers(cfg, device, iters) -> dict:
             f"{r['bound_ms'] / r['ms']:.3f}")
     log(f"  context: the phase-4 path's foreach AdamW step over the same "
         f"388 tensors {rows['adamw_multi']['foreach_ms']:.4f} ms")
+    log(f"  flat_adamw over all {groups_ms['groups']} bucket groups of a "
+        f"P4/P5 step ({groups_ms['elems']:,} elements): "
+        f"{groups_ms['graph_ms']:.4f} ms as one CUDA graph, "
+        f"{groups_ms['eager_ms']:.4f} ms launched eagerly (host clock, "
+        f"synchronized), bound {groups_ms['bound_ms']:.4f} ms")
     return rows
+
+
+def time_bucket_adamw(shapes, hyper, sc, device, iters) -> tuple:
+    """B8 as P4 and P5 run it at world 1: one launch a group of the
+    reduce-scatter plan's 4 MiB buckets. Times one launch at the most
+    common group shard beside its bound, plain version and torch's fused
+    AdamW, then one step's launches over every group: replayed as a CUDA
+    graph, and eagerly with their host cost."""
+    spec = bucket_spec(shapes)
+    sizes = [g.shard_elems for g in spec.groups]
+    n = statistics.mode(sizes)
+    real = next(g.n for g in spec.groups if g.shard_elems == n)
+    master, mu, nu, grad = flat_inputs(n, real, F32, device, seed=10)
+    master.grad = grad
+    fused = torch.optim.AdamW([master], fused=True, **hyper)
+    row = dict(
+        ms=time_ms(lambda: fopt.flat_adamw_shard(master, mu, nu, grad, sc,
+                                                 eps=EPS, out_dtype=F32),
+                   iters, device),
+        plain_ms=time_ms(lambda: fopt.flat_adamw_reference(
+            master, mu, nu, grad, sc, EPS, F32), iters, device),
+        library_ms=time_ms(fused.step, iters, device),
+        elems=n, tensors=1, **adamw_bound(n, 32 * n))
+    del master, mu, nu, grad, fused
+    bufs = [flat_inputs(g.shard_elems, g.n, F32, device, seed=gi)
+            for gi, g in enumerate(spec.groups)]
+
+    def every_group():
+        for b in bufs:
+            fopt.flat_adamw_shard(*b, sc, eps=EPS, out_dtype=F32)
+
+    total = sum(sizes)
+    groups_ms = dict(groups=len(sizes), elems=total,
+                     graph_ms=time_ms(every_group, max(1, iters // 4),
+                                      device),
+                     **adamw_bound(total, 32 * total))
+    every_group()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        every_group()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    groups_ms["eager_ms"] = 1e3 * (time.perf_counter() - t0) / 3
+    del bufs
+    free_memory(device)
+    return row, groups_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1414,7 +1502,18 @@ PATHS = {  # phase 4 and the optimizer paths of phase 5
     "fused": "P1: allreduce_gradients + fused_adamw (multi-tensor kernel)",
     "zero": "P2: ZeRO-1 sharded_adamw (reduce-scatter, flat kernel, "
             "allgather)",
+    "sharded": "P3: DistributedOptimizer(AdamW, shard_optimizer_states=True)"
+               " (sharded_update: torch AdamW over the flat shard)",
+    "zero2": "P4: ZeRO-2 GradReleasePlan(reduce_scatter=True) + "
+             "sharded_adamw(partition=plan.zero_partition) through "
+             "make_train_step (flat kernel a bucket group)",
+    "zero3": "P5: ZeRO-3 shard_params, iter_param_buckets refill before the "
+             "forward, the reduce-scatter plan, apply returning "
+             "ShardedParams",
 }
+# the ZeRO paths whose every collective is named: from the second step the
+# runtime answers all of them from its response cache
+ZERO_PATHS = ("zero", "sharded", "zero2", "zero3")
 
 
 def mlm_data(cfg):
@@ -1431,44 +1530,133 @@ def mlm_data(cfg):
     return tokens, positions, labels, n_pred
 
 
-def make_step(path, model, params, dev):
-    """The training step of one path and what it keeps as optimizer state
-    (a callable giving the state's bytes on the card)."""
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class _Hidden(torch.nn.Module):
+    """BERT's trunk as ``make_train_step`` calls a model, ``model(tokens)``:
+    the hidden states the bench's gathered MLM head reads."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, tokens):
+        return self.model(tokens, output="hidden")
+
+
+def adamw_optimizer(model, sharded: bool = False):
+    """``DistributedOptimizer(AdamW)`` as the bench builds it
+    (bench.py:473-476): the hooks, or ``shard_optimizer_states``."""
+    return hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4),
+        named_parameters=model.named_parameters(),
+        shard_optimizer_states=sharded)
+
+
+def make_step(path, model, params, dev, batch):
+    """One path's training step (``step() -> loss``) and what it holds (a
+    callable giving bytes of optimizer state, gradient shards and
+    parameter shards on the card, and for P5 the stage-3 gather's hidden
+    share)."""
+    toks, pos, lab = batch
     names = list(params)
-    if path == "hooks":
-        opt = hvd.DistributedOptimizer(
-            torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
-                              eps=1e-8, weight_decay=1e-4),
-            named_parameters=model.named_parameters())
+
+    def loss_of(hidden):
+        return masked_lm_loss_gathered(hidden, model.token_embed, pos, lab)
+
+    def plain_step(zero_grad, update):
+        def step():
+            zero_grad()
+            loss = loss_of(model(toks, output="hidden"))
+            loss.backward()
+            update()
+            return loss.detach()
+        return step
+
+    if path in ("hooks", "sharded"):
+        opt = adamw_optimizer(model, path == "sharded")
+
+        def held():
+            if path == "hooks":
+                return dict(state=nbytes(
+                    t for st in opt.state.values() for t in st.values()
+                    if isinstance(t, torch.Tensor) and t.device == dev))
+            inner = opt.state.inner
+            shards = inner.param_groups[0]["params"]
+            return dict(state=nbytes(t for st in inner.state.values()
+                                     for t in st.values()
+                                     if isinstance(t, torch.Tensor)
+                                     and t.ndim),
+                        grad_shards=nbytes(shards), param_shards=nbytes(shards))
+
+        return plain_step(opt.zero_grad, opt.step), held
+    if path in ("fused", "zero"):
+        tx = fadam.fused_adamw(1e-4) if path == "fused" \
+            else hvd.sharded_adamw(1e-4)
+        box = [tx.init(params)]
 
         def update():
-            opt.step()
+            grads = {k: params[k].grad for k in names}
+            if path == "fused":  # as bench.py:543-546 does it
+                grads = hvd.allreduce_gradients(grads, average=True)
+            _, box[0] = tx.apply(params, box[0], grads)
 
-        def state_bytes():
-            return sum(t.numel() * t.element_size()
-                       for st in opt.state.values() for t in st.values()
-                       if isinstance(t, torch.Tensor) and t.device == dev)
+        def held():
+            st = box[0]
+            if path == "fused":
+                return dict(state=nbytes(list(st.mu.values())
+                                         + list(st.nu.values())))
+            return dict(state=nbytes([*st.master, *st.mu, *st.nu]),
+                        grad_shards=nbytes(st.master))
 
-        return opt.zero_grad, update, state_bytes
-    if path == "fused":
-        tx = fadam.fused_adamw(1e-4)
-    else:
-        tx = hvd.sharded_adamw(1e-4)
-    box = [tx.init(params)]
+        return plain_step(lambda: model.zero_grad(set_to_none=True),
+                          update), held
+    plan = hvd.GradReleasePlan(reduce_scatter=True)
+    part = plan.zero_partition(params)
+    tx = hvd.sharded_adamw(1e-4, partition=part)
+    if path == "zero2":
+        train_step = make_train_step(_Hidden(model), tx,
+                                     loss_fn=lambda hidden, _: loss_of(hidden),
+                                     grad_release=plan)
 
-    def update():
-        grads = {k: params[k].grad for k in names}
-        if path == "fused":  # as bench.py:543-546 does it
-            grads = hvd.allreduce_gradients(grads, average=True)
-        _, box[0] = tx.apply(params, box[0], grads)
+        def held():  # f32 groups: master, mu and nu as long as a shard
+            groups = plan._ensure_zspec().groups
+            g_bytes = sum(g.shard_elems * 4 for g in groups)
+            return dict(state=3 * g_bytes, grad_shards=g_bytes,
+                        groups=len(groups))
 
-    def state_bytes():
-        st = box[0]
-        moments = (list(st.mu.values()) + list(st.nu.values())
-                   if path == "fused" else [*st.master, *st.mu, *st.nu])
-        return sum(t.numel() * t.element_size() for t in moments)
+        return (lambda: train_step(toks, None)), held
+    # zero3: the parameters at rest are the shards; the model's tensors are
+    # refilled group by group before each forward
+    box = {"sp": hvd.shard_params(params, partition=part)}
+    box["state"] = tx.init(box["sp"])
+    leaves = list(params.values())
 
-    return (lambda: model.zero_grad(set_to_none=True)), update, state_bytes
+    def step():
+        model.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            for _, bucket in hvd.iter_param_buckets(box["sp"]):
+                for i, t in bucket.items():
+                    leaves[i].copy_(t)
+        plan.tag(params)
+        loss = loss_of(model(toks, output="hidden"))
+        loss.backward()
+        sg = plan.gather()
+        box["sp"], box["state"] = tx.apply(box["sp"], box["state"], sg)
+        return loss.detach()
+
+    def held():
+        st = box["state"]
+        return dict(state=nbytes([*st.master, *st.mu, *st.nu]),
+                    grad_shards=nbytes(st.master),
+                    param_shards=nbytes(box["sp"].shards),
+                    groups=len(st.spec.groups),
+                    hidden=zero_mod.gather_hidden_fraction())
+
+    return step, held
 
 
 def train(cfg, device, card, path="hooks", profile=False,
@@ -1500,42 +1688,38 @@ def _train(cfg, device, card, path, profile, threshold=None) -> dict:
     model = BertLarge(**cfg["model"], device=dev, seed=0)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     params = dict(model.named_parameters())
-    zero_grad, update, state_bytes = make_step(path, model, params, dev)
     toks, pos, lab = (torch.from_numpy(a).to(dev)
                       for a in (tokens, positions, labels))
+    n_broadcast = len(model.state_dict())
+    step, held = make_step(path, model, params, dev, (toks, pos, lab))
     n_tensors = len(params)
     n_params = sum(p.numel() for p in params.values())
     n_layers = len(model.layers)
     n_groups = len({p.dtype for p in params.values()})
-    n_broadcast = len(model.state_dict())
     d_model = model.token_embed.shape[1]
+    zero_mod.GATHER_SECONDS.update(stall=0.0, hidden=0.0)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
 
-    def step():
-        zero_grad()
-        hidden = model(toks, output="hidden")
-        loss = masked_lm_loss_gathered(hidden, model.token_embed, pos, lab)
-        loss.backward()
-        update()
-        return loss.detach()
-
     losses, times, snaps = [], [], [dict(hrt.COUNTS)]
+    b8 = []
     steps = cfg["warmup"] + cfg["steps"]
     for i in range(steps):
         t0 = time.perf_counter()
+        before = fopt.LAUNCHES["flat_adamw"]
         loss = step()
         losses.append(loss.item())  # waits for the step's last kernel
         snaps.append(dict(hrt.COUNTS))
+        b8.append(fopt.LAUNCHES["flat_adamw"] - before)
         if i >= cfg["warmup"]:
             times.append(time.perf_counter() - t0)
     launches = {**fa.LAUNCHES, **fadam.LAUNCHES, **fopt.LAUNCHES}
     counts = dict(collectives.COUNTS)
-    opt_bytes = state_bytes()
+    kept = held()
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
     if profile:
         breakdown(step, dev, statistics.median(times), cfg["profile_steps"])
-    del model, params, update, state_bytes, zero_grad, step
+    del model, params, held, step
     hvd.shutdown()
     free_memory(device)
 
@@ -1546,6 +1730,7 @@ def _train(cfg, device, card, path, profile, threshold=None) -> dict:
         f"x seq {seq}, {cfg['warmup']} warm-up + {cfg['steps']} timed steps")
     log("  losses: " + " ".join(f"{x:.4f}" for x in losses))
     log(f"  kernel launches: {launches}; collectives: {counts}")
+    log(f"  flat AdamW (B8) launches a step: {' '.join(map(str, b8))}")
     issued = runtime_steps(snaps)
     log_runtime(label, issued)
     if path == "hooks":
@@ -1553,13 +1738,19 @@ def _train(cfg, device, card, path, profile, threshold=None) -> dict:
                             env.DEFAULT_FUSION_THRESHOLD_BYTES
                             if threshold is None else threshold,
                             dev.type == "cuda")
+    if path in ZERO_PATHS:
+        check_zero_runtime(cfg, path, issued)
     check(all(math.isfinite(x) for x in losses), f"{path}: non-finite loss")
     check(losses[-1] < losses[0], f"{path}: loss did not fall: {losses}")
+    g = kept.get("groups", n_groups)  # P4, P5: one group a bucket
     per_step = {  # collectives and optimizer launches each path must issue
         "hooks": (dict(allreduce=n_tensors), {}),
         "fused": (dict(allreduce=n_tensors), {"adamw_multi": 1}),
         "zero": (dict(reducescatter=n_groups, allgather=n_groups),
                  {"flat_adamw": n_groups}),
+        "sharded": (dict(reducescatter=n_groups, allgather=n_groups), {}),
+        "zero2": (dict(reducescatter=g, allgather=g), {"flat_adamw": g}),
+        "zero3": (dict(reducescatter=g, allgather=g), {"flat_adamw": g}),
     }[path]
     want = {k: steps * per_step[0].get(k, 0) for k in counts}
     want["broadcast"] = n_broadcast
@@ -1577,6 +1768,14 @@ def _train(cfg, device, card, path, profile, threshold=None) -> dict:
     flops_per_token = 6 * n_eff + 12 * n_layers * seq * d_model
     tok_s = batch * seq / step_s
     where = f"({card})"
+    shard_text = ", ".join(f"{k.replace('_', ' ')} {kept[k] / 2**30:.3f} GiB"
+                           for k in ("state", "grad_shards", "param_shards")
+                           if k in kept)
+    if "hidden" in kept:
+        log(f"  stage-3 gather: hidden share {kept['hidden']:.3f} "
+            f"(host seconds: stall {zero_mod.GATHER_SECONDS['stall']:.4f}, "
+            f"hidden {zero_mod.GATHER_SECONDS['hidden']:.4f}); "
+            f"{g} groups")
     if dev.type == "cuda":
         log(f"  step {1e3 * step_s:.2f} ms median (mean "
             f"{1e3 * statistics.mean(times):.2f} ms) {where}")
@@ -1584,10 +1783,26 @@ def _train(cfg, device, card, path, profile, threshold=None) -> dict:
         log(f"  MFU {tok_s * flops_per_token / PEAK_FLOPS:.4f} against "
             f"989 TFLOP/s bf16, {flops_per_token / 1e9:.3f} GFLOP/token "
             f"{where}")
-        log(f"  max_memory_allocated {peak / 2**30:.2f} GiB, optimizer "
-            f"state on the card {opt_bytes / 2**30:.2f} GiB {where}")
+        log(f"  max_memory_allocated {peak / 2**30:.2f} GiB; held on the "
+            f"card: {shard_text} {where}")
+    else:
+        log(f"  held: {shard_text}")
     return dict(losses=losses, launches=launches, step_ms=1e3 * step_s,
                 runtime=issued)
+
+
+def check_zero_runtime(cfg, path: str, per_step: dict) -> None:
+    """The ZeRO paths' runtime checks: every collective after the first
+    step came from the response cache (the names are the same every step),
+    and no fusion slab or process group appeared after the warm-up."""
+    issued = [a + b for a, b in zip(per_step["reducescatter"],
+                                    per_step["allgather"])]
+    hits = per_step["cache_hits"]
+    check(all(h == n for h, n in zip(hits[1:], issued[1:])),
+          f"{path}: cache hits a step {hits}, want {issued} after the first")
+    for k in ("slabs", "groups"):
+        check(not any(per_step[k][cfg["warmup"]:]),
+              f"{path}: new {k} after warm-up: {per_step[k]}")
 
 
 def compare_fusion(cfg, device, card, fused: dict) -> None:
@@ -1642,17 +1857,31 @@ def compare_in_turns(cfg, device, card, runs: dict, turns: int) -> None:
             + f" ms; median {statistics.median(ms):.2f} ms ({card})")
 
 
+def _worst(a: list, b: list) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
 def compare_losses(runs: dict) -> None:
     """Every path's loss within 1e-2 relative of the phase-4 path's at
     every step: same weights, data and AdamW; bf16 compute and the
-    embedding backward's atomics separate them."""
+    embedding backward's atomics separate them. P4's and P5's within 1e-5
+    of P2's: the same flat AdamW on the same elements (a bucket-aligned
+    layout, sharded at rest in P5), so only the atomics remain."""
     base = runs["hooks"]["losses"]
     for path, run in runs.items():
-        worst = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], base))
+        worst = _worst(run["losses"], base)
         log(f"losses of {path} vs hooks: largest relative difference "
             f"{worst:.3e} (limit 1e-2)")
         check(worst <= 1e-2, f"{path} losses differ from the hooks path's "
                              f"by {worst:.3e}")
+    for path in ("zero2", "zero3"):
+        worst = _worst(runs[path]["losses"], runs["zero"]["losses"])
+        same = runs[path]["losses"] == runs["zero"]["losses"]
+        log(f"losses of {path} vs zero (P2): largest relative difference "
+            f"{worst:.3e} ({'bit-equal' if same else 'not bit-equal'}; "
+            f"limit 1e-5)")
+        check(worst <= 1e-5, f"{path} losses differ from P2's by "
+                             f"{worst:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -1765,7 +1994,8 @@ def train_gpt(cfg, device, card, fused: bool, profile=False) -> dict:
         model = GPT2Small(**cfg["gpt"], device=dev, seed=0)
         hvd.broadcast_parameters(model.state_dict(), root_rank=0)
         params = dict(model.named_parameters())
-        zero_grad, update, _ = make_step("hooks", model, params, dev)
+        opt = adamw_optimizer(model)
+        zero_grad, update = opt.zero_grad, opt.step
         toks = torch.from_numpy(tokens).to(dev)
         n_tensors, n_broadcast = len(params), len(model.state_dict())
         n_params = sum(p.numel() for p in params.values())
@@ -1794,7 +2024,7 @@ def train_gpt(cfg, device, card, fused: bool, profile=False) -> dict:
         step_s = statistics.median(times)
         if profile:
             breakdown(step, dev, step_s, cfg["profile_steps"])
-        del model, params, update, zero_grad, step
+        del model, params, opt, update, zero_grad, step
         hvd.shutdown()
         free_memory(device)
     finally:
@@ -2143,7 +2373,8 @@ def main() -> int:
     # each kernel's launches are counted on the path that runs it
     launches = {**runs["hooks"]["launches"],
                 "adamw_multi": runs["fused"]["launches"]["adamw_multi"],
-                "flat_adamw": runs["zero"]["launches"]["flat_adamw"],
+                "flat_adamw": sum(runs[p]["launches"]["flat_adamw"]
+                                  for p in ("zero", "zero2", "zero3")),
                 "sba": inception["launches"]["sba"],
                 "conv_bn_stats": probe_launches,
                 "flash_bwd_fused": gpt[True]["launches"]["flash_bwd_fused"],

@@ -8,8 +8,11 @@ async allreduces (sparse gradients by the sparse allreduce, or densified),
 the broadcasts for the checkpoint-on-rank-0 convention, the collectives
 (allreduce, allgather with a ragged dim 0, broadcast, reduce-scatter,
 alltoall; allreduce, allgather and broadcast differentiable). Beyond it:
-``grouped_allreduce``, ZeRO-1 ``sharded_adamw``, and ``flash_attention``
-on hand-written Hopper kernels (``csrc/``). The replicated fused AdamW is
+``grouped_allreduce``, the bucket-wise gradient release
+(``GradReleasePlan``), ZeRO stages 1-3 (``sharded_adamw``,
+``sharded_update``, ``scatter_gradients``, ``shard_params``,
+``gather_params``, ``iter_param_buckets``), and ``flash_attention`` on
+hand-written Hopper kernels (``csrc/``). The replicated fused AdamW is
 ``horovod_tpu_torch.ops.fused_adamw.fused_adamw``. Every collective goes
 through the enqueue runtime (``runtime/``): named, negotiated across the
 ranks, allreduces fused into one call a bin, on ``torch.distributed``
@@ -79,9 +82,18 @@ from horovod_tpu_torch.ops.flash_attention import (  # noqa: F401
     flash_attention,
     flash_attention_partial,
 )
+from horovod_tpu_torch.parallel.buckets import GradReleasePlan  # noqa: F401
 from horovod_tpu_torch.parallel.zero import (  # noqa: F401
-    FlatAdamState,
-    ShardedAdamW,
+    sharded_update,
     sharded_adamw,
+    ShardedOptState,
+    FlatAdamState,
+    ShardedGrads,
+    ShardedParams,
+    scatter_gradients,
+    shard_params,
+    gather_params,
+    iter_param_buckets,
+    ShardedAdamW,
 )
 from horovod_tpu_torch.version import __version__  # noqa: F401

@@ -193,36 +193,70 @@ def allreduce_(tensor, average=None, name=None, op=None,
                                         op=op, compression=compression))
 
 
+def grouped_allreduce_async_(tensors: Sequence[torch.Tensor], names,
+                             average=None, op=None, priority: int = 0,
+                             group_callback=None,
+                             compression=Compression.none) -> list:
+    """Reduce a group of tensors in place with one enqueue
+    (``Runtime.enqueue_allreduce_group``): the group negotiates in one
+    cycle and fuses into as few collectives as the fusion threshold
+    allows. ``names`` pairs up with ``tensors``; ``priority`` puts the
+    group ahead of lower ones in negotiation; ``group_callback(ok)`` fires
+    on the runtime's thread once a tensor as it completes. One
+    :class:`Handle` a tensor, in order (reference:
+    ``horovod_tpu/ops/collectives.py:1000-1030``)."""
+    red = _resolve_op(average, op)
+    tensors, names = list(tensors), list(names)
+    if len(tensors) != len(names):
+        raise ValueError("tensors and names must pair up")
+    if not tensors:
+        return []
+    wires = [_wire(t, compression) for t in tensors]
+    inner = runtime.get_runtime().enqueue_allreduce_group(
+        names, [w for w, _ in wires], reduce_op=_REDUCE_OPS[red],
+        priority=priority, group_callback=group_callback)
+    COUNTS["allreduce"] += len(tensors)
+    return [Handle(h, _into(t, w, ctx, compression))
+            for h, t, (w, ctx) in zip(inner, tensors, wires)]
+
+
+def grouped_allreduce_async(tensors, names, average=None, op=None,
+                            priority: int = 0, group_callback=None,
+                            compression=Compression.none) -> list:
+    """Out-of-place :func:`grouped_allreduce_async_`: the inputs are left
+    unchanged."""
+    return grouped_allreduce_async_(
+        [t.clone() for t in tensors], names, average=average, op=op,
+        priority=priority, group_callback=group_callback,
+        compression=compression)
+
+
 def grouped_allreduce(tensors: Sequence[torch.Tensor], average=None,
                       name=None, op=None, compression=Compression.none):
-    """Allreduce a list of tensors as one group: one enqueue, so the group
-    negotiates in one cycle and fuses into as few collectives as the
-    fusion threshold allows. The inputs are left unchanged; tensor ``i``
-    is named ``"<name>.<i>"``, or by call order when ``name`` is None."""
-    red = _resolve_op(average, op)
-    tensors = [t.clone() for t in tensors]
-    wires = [_wire(t, compression) for t in tensors]
+    """Allreduce a list of tensors as one group (see
+    :func:`grouped_allreduce_async_`). The inputs are left unchanged;
+    tensor ``i`` is named ``"<name>.<i>"``, or by call order when ``name``
+    is None."""
     names = [f"{name}.{i}" if name is not None else _op_name("allreduce", None)
              for i in range(len(tensors))]
-    inner = runtime.get_runtime().enqueue_allreduce_group(
-        names, [w for w, _ in wires], reduce_op=_REDUCE_OPS[red])
-    COUNTS["allreduce"] += len(tensors)
-    handles = [Handle(h, _into(t, w, ctx, compression))
-               for h, t, (w, ctx) in zip(inner, tensors, wires)]
-    return [synchronize(h) for h in handles]
+    return [synchronize(h) for h in grouped_allreduce_async(
+        tensors, names, average=average, op=op, compression=compression)]
 
 
 def reducescatter_async(tensor: torch.Tensor, op: Optional[int] = None,
-                        name: Optional[str] = None) -> Handle:
+                        name: Optional[str] = None,
+                        priority: int = 0) -> Handle:
     """Reduce ``tensor`` across the ranks; rank i keeps shard i of dim 0
     (reference: horovod_tpu/torch/mpi_ops.py:287-317). ``op`` omitted
     means Average. Dim 0 must divide evenly by the world size. The
-    collective is issued at every world size, one rank included."""
+    collective is issued at every world size, one rank included; a higher
+    ``priority`` enters negotiation first."""
     red = _resolve_op(None, op)
     _divisible("reducescatter", tensor)
     wire = _plane(tensor)
     inner = runtime.get_runtime().enqueue_reducescatter(
-        _op_name("reducescatter", name), wire, reduce_op=_REDUCE_OPS[red])
+        _op_name("reducescatter", name), wire, reduce_op=_REDUCE_OPS[red],
+        priority=priority)
     COUNTS["reducescatter"] += 1
     return Handle(inner, _narrow(tensor))
 

@@ -12,7 +12,11 @@ one-process world issues the same collectives. A sparse gradient
 (``nn.Embedding(sparse=True)``) goes out by the sparse allreduce (a
 gather of every rank's indices and values) unless ``sparse_as_dense``
 densifies it first (``horovod_tpu/torch/__init__.py:79-82, 141-147,
-192-193``).
+192-193``). A parameter that a gradient release plan has tagged
+(``parallel/buckets.py``) is the plan's: its hook and ``synchronize``
+leave it alone, so no gradient goes out twice.
+``shard_optimizer_states=True`` returns the ZeRO wrapper
+(``parallel/zero.py`` ``sharded_update``) in place of the hooks.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.core import basics
 from horovod_tpu_torch.ops import collectives
 from horovod_tpu_torch.ops.collectives import Average, Sum
+from horovod_tpu_torch.parallel import buckets, zero
 
 
 class _DistributedOptimizer(torch.optim.Optimizer):
@@ -105,6 +110,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     def _mark_ready(self, p):
         """reference: horovod/torch/__init__.py:127-143."""
+        if buckets.held_by_plan(p):
+            return  # a release plan sends this gradient
         if self._handles.get(p) is not None and self._delay[p] <= 0:
             raise AssertionError(
                 "Gradients were computed more than backward_passes_per_step "
@@ -118,7 +125,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         """Wait for every outstanding allreduce; parameters whose hook did
         not fire this step (no gradient path) are reduced here."""
         for p in self._requires_update:
-            if p not in self._handles and p.grad is not None:
+            if p not in self._handles and p.grad is not None \
+                    and not buckets.held_by_plan(p):
                 self._handles[p] = self._allreduce_grad_async(p)
         for p, handle in self._handles.items():
             out = collectives.synchronize(handle)
@@ -165,12 +173,33 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          compression=Compression.none,
                          backward_passes_per_step: int = 1,
                          sparse_as_dense: bool = False,
-                         op: int = Average) -> torch.optim.Optimizer:
+                         op: int = Average,
+                         shard_optimizer_states: bool = False):
     """Wrap a torch optimizer so gradients are averaged (``op``) across all
     ranks before each update (reference: horovod/torch/__init__.py:205-253).
     Sparse gradients go out by :func:`~horovod_tpu_torch.ops.collectives.
     sparse_allreduce_async` unless ``sparse_as_dense`` densifies them. The
-    result is an instance of the wrapped optimizer's class."""
+    result is an instance of the wrapped optimizer's class.
+
+    ``shard_optimizer_states=True`` returns the ZeRO wrapper
+    (``zero.sharded_update``, reference: ``horovod_tpu/parallel/
+    dp.py:164-210``): each ``step()`` reduce-scatters the gradients, steps
+    an optimizer of the same class over this rank's flat shards and
+    allgathers them into the parameters; the optimizer state lives 1/N a
+    rank. It needs ``backward_passes_per_step == 1`` and ``op`` Average or
+    Sum."""
+    if shard_optimizer_states:
+        if backward_passes_per_step != 1:
+            raise ValueError(
+                "shard_optimizer_states does not compose with "
+                "backward_passes_per_step > 1: accumulate in the training "
+                "loop instead")
+        if op not in (Average, Sum):
+            raise ValueError("shard_optimizer_states reduces by Average or "
+                             "Sum only")
+        return zero.sharded_update(
+            optimizer, named_parameters, average=op == Average,
+            compression=compression, sparse_as_dense=sparse_as_dense)
     cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
                dict(_DistributedOptimizer.__dict__))
     return cls(optimizer.param_groups, named_parameters, compression,
@@ -183,7 +212,16 @@ def allreduce_gradients(grads, *, average: bool = True,
     the same structure, reduced (port of ``dp.allreduce_gradients``). The
     i-th gradient is named ``"allreduce_gradients.<i>"`` every call, so
     from the second call on the runtime answers them from its response
-    cache."""
+    cache. Inside ``buckets.prereduced()`` the gradients are returned as
+    they are; stage-2 ``ShardedGrads`` are refused."""
+    if isinstance(grads, zero.ShardedGrads):
+        raise TypeError(
+            "allreduce_gradients got a zero.ShardedGrads: stage-2 gradients "
+            "are already the reduced local shard — feed them straight to a "
+            "partition-aligned zero.sharded_adamw / zero.sharded_update "
+            "instead of re-reducing them")
+    if buckets.is_prereduced():
+        return grads
     keys = list(grads) if isinstance(grads, dict) else None
     tensors = [grads[k] for k in keys] if keys is not None else list(grads)
     out = collectives.grouped_allreduce(tensors, average=average,

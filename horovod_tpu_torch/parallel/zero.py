@@ -1,36 +1,67 @@
-"""ZeRO-1: AdamW with its fp32 master weights and moments sharded 1/N.
+"""ZeRO stages 1, 2 and 3 over the port's collectives.
 
-Port of the stage-1 subset of ``horovod_tpu/parallel/zero.py``. The
-gradient allreduce is decomposed as
+Port of the one-process-a-rank ("local") lane of
+``horovod_tpu/parallel/zero.py``. The gradient allreduce is decomposed as
 
     reduce-scatter  ->  update on the local shard  ->  allgather
 
 so each rank holds and updates only 1/N of the optimizer state, with the
-same bytes on the wire as an allreduce. The parameters are flattened into
-one flat buffer per dtype group, laid out exactly as the JAX package lays
-it out (:func:`build_spec`): each per-rank shard is padded to a size bucket
-of ``HOROVOD_FUSION_BUCKET_QUANTUM`` (``runtime/fusion_buffer.py``), and the
+same bytes on the wire as an allreduce (stage 1). Stages 2 and 3 drop the
+"same bytes":
+
+* **Stage 2**: gradients live only as the local 1/N shard
+  (:class:`ShardedGrads`), made by :func:`scatter_gradients` or released
+  bucket by bucket during the backward by
+  ``GradReleasePlan(reduce_scatter=True)`` (``parallel/buckets.py``). The
+  updates consume them and skip their own reduce-scatter.
+* **Stage 3**: parameters are sharded at rest (:class:`ShardedParams`,
+  from :func:`shard_params`) and gathered group by group on demand
+  (:func:`iter_param_buckets`, :func:`gather_params`), with up to
+  ``HOROVOD_ZERO_PREFETCH_BUCKETS`` group allgathers in flight ahead of
+  the consumer. An update given ``ShardedParams`` returns them updated
+  with no trailing allgather.
+
+The parameters are flattened into one flat buffer per dtype group, laid
+out exactly as the JAX package lays it out (:func:`build_spec`; a
+``partition``, such as a release plan's buckets, gives one group per cell
+and dtype): each per-rank shard is padded to a size bucket of
+``HOROVOD_FUSION_BUCKET_QUANTUM`` (``runtime/fusion_buffer.py``), and the
 pad holds zeros, the identity of sum and average, so the padded result
-bit-matches the unpadded one. The update is one launch of the flat AdamW
-kernel per group (:mod:`horovod_tpu_torch.ops.fused_optimizer`).
+bit-matches the unpadded one.
 
-One process per rank, as the reference Horovod runs (the JAX package's
-"local" mode, ``zero.py:1491-1559``): the collectives are those of
-:mod:`horovod_tpu_torch.ops.collectives` on ``torch.distributed``, issued
-at every world size. ``apply`` takes and returns dicts keyed like
-``named_parameters()`` and writes the gathered values into the given
-parameter tensors in place: the port's departure from the JAX package's
-pure function, which saves a copy of the model.
+Two entry points:
 
-Not ported yet (ROADMAP A6): stages 2 and 3 (``ShardedGrads``,
-``ShardedParams``, the prefetching gathers), ``sharded_update``,
-``resync`` / ``from_full_buffers``, a ``partition`` of the layout, and the
-metrics and flight-recorder hooks.
+* :func:`sharded_adamw`: step-level AdamW with flat float32 master
+  weights and moments in the local shard, one launch of the flat AdamW
+  kernel a group (:mod:`horovod_tpu_torch.ops.fused_optimizer`).
+* :func:`sharded_update`: any elementwise ``torch.optim`` optimizer (SGD,
+  Adam, AdamW, ...) run over the flat shards. Where the JAX package keeps
+  optax's delta contract, the port keeps PyTorch's: an optimizer of the
+  user's class and hyperparameters steps the shard tensors, whose ``.grad``
+  is the reduced gradient shard. What ``DistributedOptimizer(...,
+  shard_optimizer_states=True)`` returns.
+
+The collectives are those of :mod:`horovod_tpu_torch.ops.collectives`,
+issued at every world size under names that are the same every step
+(``sharded.adamw.grads.g<i>``, ``zero2.grads.g<i>``,
+``zero3.params.g<i>``, ...), so the runtime's response cache answers them
+from the second step on. Updates take and return dicts keyed like
+``named_parameters()`` and write gathered values into the given tensors
+in place: the port's departure from the JAX package's pure functions,
+which saves a copy of the model.
+
+Not ported: the traced (``shard_map``) and single-controller stacked
+lanes, which a one-process-a-GPU world has no counterpart of;
+``resync``, ``from_full_buffers``, ``export_shard_arrays``, ``layout_of``
+(ROADMAP A10); the metrics, memory-ledger, comms and flight-recorder
+hooks (A11). The stage-3 gather's stall and hidden seconds are plain
+counters here (:data:`GATHER_SECONDS`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+import time
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -44,6 +75,31 @@ from horovod_tpu_torch.utils import env
 
 _INT32_MAX = 2**31 - 1
 
+#: stage-3 gather seconds on the host: ``stall``, the consumer blocked on a
+#: group's allgather; ``hidden``, the rest of each gather's time from
+#: dispatch to use, spent under the consumer's work (on the card the wait
+#: ends when the runtime has queued the collective: the device's own wait
+#: is a stream dependency the host does not see)
+GATHER_SECONDS = {"stall": 0.0, "hidden": 0.0}
+
+
+def stage_from_env() -> int:
+    """``HOROVOD_ZERO_STAGE`` for the stock step wiring: 1 (optimizer state
+    sharded, the default), 2 (+ gradient shards by reduce-scatter release),
+    3 (+ parameters sharded at rest). Clamped to [1, 3]."""
+    return max(1, min(3, env._get_int(env.HOROVOD_ZERO_STAGE, 1)))
+
+
+def prefetch_buckets_from_env() -> int:
+    """``HOROVOD_ZERO_PREFETCH_BUCKETS``: how many group allgathers a
+    stage-3 gather keeps in flight ahead of its consumer (at least 1)."""
+    return max(1, env._get_int(env.HOROVOD_ZERO_PREFETCH_BUCKETS,
+                               env.DEFAULT_ZERO_PREFETCH_BUCKETS))
+
+
+# ---------------------------------------------------------------------------
+# Flat layout
+# ---------------------------------------------------------------------------
 
 class LeafMeta(NamedTuple):
     """Shape/dtype stand-in for a leaf: enough for :func:`build_spec`."""
@@ -88,18 +144,27 @@ def _quantum_bytes() -> int:
                         env.DEFAULT_FUSION_BUCKET_QUANTUM_BYTES)
 
 
-def build_spec(leaves, world: int, rank: int, quantum_bytes: int) -> ZeroSpec:
+def build_spec(leaves, world: int, rank: int, quantum_bytes: int, *,
+               partition=None) -> ZeroSpec:
     """Group ``leaves`` (tensors or :class:`LeafMeta`) by dtype, sorted by
     dtype name, and lay each group out as one flat buffer whose per-rank
     shard is a size bucket (identity at or under ``quantum_bytes``, next
     power-of-two multiple above), so the padded total splits evenly into
-    ``world`` shards (reference: zero.py:237-276)."""
-    by_dtype: Dict[str, list] = {}
-    for i, leaf in enumerate(leaves):
-        by_dtype.setdefault(dtype_name(leaf.dtype), []).append(i)
+    ``world`` shards (reference: zero.py:237-276).
+
+    ``partition``: an ordered list of cells of leaf positions (a release
+    plan's buckets). Each cell becomes its own groups, one a dtype, in
+    cell order; leaves that no cell names form no group."""
+    if partition is None:
+        partition = [range(len(leaves))]
+    cells = []
+    for cell in partition:
+        by_dtype: Dict[str, list] = {}
+        for i in cell:
+            by_dtype.setdefault(dtype_name(leaves[i].dtype), []).append(i)
+        cells.extend((dts, by_dtype[dts]) for dts in sorted(by_dtype))
     groups = []
-    for dts in sorted(by_dtype):
-        idxs = by_dtype[dts]
+    for dts, idxs in cells:
         shapes = tuple(tuple(int(d) for d in leaves[i].shape) for i in idxs)
         sizes = tuple(int(torch.Size(s).numel()) for s in shapes)
         n = int(sum(sizes))
@@ -112,9 +177,23 @@ def build_spec(leaves, world: int, rank: int, quantum_bytes: int) -> ZeroSpec:
                     num_leaves=len(leaves))
 
 
+def _local_spec(leaves, partition=None) -> ZeroSpec:
+    return build_spec(leaves, basics.size(), basics.rank(), _quantum_bytes(),
+                      partition=partition)
+
+
+def _leaves_of(tree):
+    """``(keys, leaves)`` of a dict (keys in its order) or of a sequence
+    (keys None)."""
+    if isinstance(tree, dict):
+        return tuple(tree), list(tree.values())
+    return None, list(tree)
+
+
 def _pack_group(leaves, g: GroupSpec) -> torch.Tensor:
-    """Flatten the group's leaves into one (padded,) vector; the pad holds
-    zeros, the sum/average reduction identity."""
+    """Flatten the group's leaves (``leaves[i]`` for each of its indices)
+    into one (padded,) vector; the pad holds zeros, the sum/average
+    reduction identity."""
     parts = [leaves[i].reshape(-1) for i in g.indices]
     pad = g.padded - g.n
     if pad:
@@ -122,12 +201,24 @@ def _pack_group(leaves, g: GroupSpec) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def _shard_of(flat: torch.Tensor, g: GroupSpec, rank: int) -> torch.Tensor:
+    """This rank's slice of a packed group, in its own storage."""
+    return flat[rank * g.shard_elems:(rank + 1) * g.shard_elems].clone()
+
+
+def _views(flat: torch.Tensor, g: GroupSpec) -> Dict[int, torch.Tensor]:
+    """``{leaf position: view of flat}`` for the group's leaves."""
+    out, off = {}, 0
+    for i, shape, size in zip(g.indices, g.shapes, g.sizes):
+        out[i] = flat[off:off + size].view(shape)
+        off += size
+    return out
+
+
 def _unpack_group(flat: torch.Tensor, g: GroupSpec, out: list) -> None:
     """Write the group's slices of ``flat`` into the tensors ``out[i]``."""
-    off = 0
-    for i, shape, size in zip(g.indices, g.shapes, g.sizes):
-        out[i].copy_(flat[off:off + size].view(shape))
-        off += size
+    for i, view in _views(flat, g).items():
+        out[i].copy_(view)
 
 
 def _check_dense(leaves) -> None:
@@ -138,6 +229,369 @@ def _check_dense(leaves) -> None:
                 "leaves; densify them before the flat pack or keep the "
                 "replicated path for sparse models")
 
+
+def _check_world(spec: ZeroSpec, what: str) -> None:
+    if spec.world != basics.size():
+        raise ValueError(
+            f"{what} was built for world {spec.world} but the current "
+            f"world is {basics.size()}")
+
+
+def _check_count(leaves, spec: ZeroSpec, what: str = "gradient") -> None:
+    if len(leaves) != spec.num_leaves:
+        raise ValueError(
+            f"{what} tree has {len(leaves)} leaves but the sharded state "
+            f"was built for {spec.num_leaves}")
+
+
+def _scatter(leaves, spec: ZeroSpec, average: bool, compression,
+             prefix: str) -> list:
+    """Reduce-scatter each group's packed flat gradient (every group in
+    flight before the first wait) under the names ``<prefix>.g<i>``; the
+    local shards, decompressed, in each group's dtype."""
+    op = collectives.Average if average else collectives.Sum
+    pending = []
+    for gi, g in enumerate(spec.groups):
+        wire, ctx = compression.compress(_pack_group(leaves, g))
+        pending.append((ctx, collectives.reducescatter_async(
+            wire, op=op, name=f"{prefix}.g{gi}")))
+    return [compression.decompress(collectives.synchronize(h), ctx)
+            .to(group_dtype(g))
+            for g, (ctx, h) in zip(spec.groups, pending)]
+
+
+def _gather_into(shards, spec: ZeroSpec, out: list, prefix: str) -> None:
+    """Allgather every group's shard (all in flight before the first wait)
+    under ``<prefix>.g<i>`` and write the gathered leaves into ``out``."""
+    handles = [collectives.allgather_async(s, name=f"{prefix}.g{gi}")
+               for gi, s in enumerate(shards)]
+    for g, h in zip(spec.groups, handles):
+        _unpack_group(collectives.synchronize(h), g, out)
+
+
+# ---------------------------------------------------------------------------
+# Stage 2: gradients as shards
+# ---------------------------------------------------------------------------
+
+class ShardedGrads(NamedTuple):
+    """Gradients living only as the local 1/N shard (ZeRO-2): one flat
+    ``(shard_elems,)`` tensor a group. Made by :func:`scatter_gradients`
+    or a reduce-scatter ``GradReleasePlan``; consumed by
+    ``sharded_adamw``'s ``apply`` and ``sharded_update``, which then skip
+    their own reduce-scatter."""
+
+    spec: ZeroSpec
+    shards: tuple
+
+
+def _check_shard_spec(got: ZeroSpec, want: ZeroSpec, what: str) -> None:
+    if got.groups == want.groups and got.world == want.world:
+        return
+    raise ValueError(
+        f"{what} layout does not match the sharded optimizer state — "
+        "build both from the same partition (e.g. sharded_adamw(..., "
+        "partition=plan.zero_partition(params)) next to a "
+        "reduce-scatter GradReleasePlan), and re-init after the world "
+        "changes")
+
+
+@torch.no_grad()
+def scatter_gradients(grads, *, spec: Optional[ZeroSpec] = None,
+                      average: bool = True, compression=Compression.none,
+                      partition=None) -> ShardedGrads:
+    """Reduce-scatter whole gradients (a dict keyed like the params, or a
+    list) into :class:`ShardedGrads`: stage 2 when the gradients arrive
+    whole (``GradReleasePlan(reduce_scatter=True)`` releases them bucket
+    by bucket during the backward instead).
+
+    ``spec`` aligns the layout with an optimizer state (pass
+    ``state.spec``); otherwise one is built, from ``partition`` if given.
+    ``compression`` rides the wire as in stage 1."""
+    _, leaves = _leaves_of(grads)
+    _check_dense(leaves)
+    if spec is None:
+        spec = _local_spec(leaves, partition)
+    _check_world(spec, "scatter_gradients spec")
+    if len(leaves) != spec.num_leaves:
+        raise ValueError(
+            f"gradient tree has {len(leaves)} leaves but the spec was "
+            f"built for {spec.num_leaves}")
+    return ShardedGrads(spec, tuple(_scatter(leaves, spec, average,
+                                             compression, "zero2.grads")))
+
+
+# ---------------------------------------------------------------------------
+# Stage 3: parameters sharded at rest, gathered on demand
+# ---------------------------------------------------------------------------
+
+class ShardedParams:
+    """Parameters sharded at rest (ZeRO-3): one flat ``(shard_elems,)``
+    tensor a group, plus the keys of the dict they came from (None for a
+    list), which stand in for the JAX package's tree structure."""
+
+    __slots__ = ("spec", "names", "shards")
+
+    def __init__(self, spec: ZeroSpec, names, shards):
+        self.spec = spec
+        self.names = names
+        self.shards = tuple(shards)
+
+    def __repr__(self):
+        return (f"ShardedParams(world={self.spec.world}, "
+                f"rank={self.spec.rank}, groups={len(self.spec.groups)})")
+
+
+@torch.no_grad()
+def shard_params(params, *, partition=None) -> ShardedParams:
+    """Keep only this rank's 1/N flat slice of each (padded) group of
+    ``params`` (a dict keyed like ``named_parameters()``, or a list): the
+    stage-3 entry. The caller drops the full tensors it no longer needs."""
+    names, leaves = _leaves_of(params)
+    _check_dense(leaves)
+    spec = _local_spec(leaves, partition)
+    return ShardedParams(spec, names, (
+        _shard_of(_pack_group(leaves, g), g, spec.rank)
+        for g in spec.groups))
+
+
+def gather_hidden_fraction() -> float:
+    """Share of the stage-3 gathers' time hidden under the consumer's
+    work, over every gather so far: hidden / (hidden + stall); 0.0 before
+    any gather."""
+    total = GATHER_SECONDS["stall"] + GATHER_SECONDS["hidden"]
+    return GATHER_SECONDS["hidden"] / total if total else 0.0
+
+
+def _iter_group_gathers(sp: ShardedParams, prefetch=None):
+    """Yield ``(group_index, full_flat_buffer)`` in group order, with up to
+    ``prefetch`` group allgathers in flight ahead of the consumer: group
+    k + window is dispatched when group k has been waited for. The names
+    (``zero3.params.g<i>``) are the same every step. A consumer that stops
+    early still has every dispatched gather waited for."""
+    spec = sp.spec
+    _check_world(spec, "ShardedParams")
+    window = max(1, int(prefetch if prefetch is not None
+                        else prefetch_buckets_from_env()))
+    n = len(spec.groups)
+    pending: dict = {}
+
+    def dispatch(gi):
+        pending[gi] = (collectives.allgather_async(
+            sp.shards[gi], name=f"zero3.params.g{gi}"), time.monotonic())
+
+    nxt = 0
+    stall = hidden = 0.0
+    try:
+        while nxt < min(window, n):
+            dispatch(nxt)
+            nxt += 1
+        for gi in range(n):
+            h, t_disp = pending.pop(gi)
+            t_wait = time.monotonic()
+            full = collectives.synchronize(h)
+            t_done = time.monotonic()
+            if nxt < n:
+                dispatch(nxt)
+                nxt += 1
+            stall += t_done - t_wait
+            hidden += max(0.0, t_wait - t_disp)
+            yield gi, full
+    finally:
+        for h, _ in pending.values():
+            collectives.synchronize(h)
+        GATHER_SECONDS["stall"] += stall
+        GATHER_SECONDS["hidden"] += hidden
+
+
+def gather_params(sp: ShardedParams, *, prefetch=None):
+    """The full parameters from :class:`ShardedParams` (a dict keyed as
+    they were, or a list), every group gathered under the prefetch
+    window. For a bounded footprint consume :func:`iter_param_buckets`
+    and drop each bucket after use."""
+    out = [None] * sp.spec.num_leaves
+    for gi, full in _iter_group_gathers(sp, prefetch):
+        for i, view in _views(full, sp.spec.groups[gi]).items():
+            out[i] = view
+    return dict(zip(sp.names, out)) if sp.names is not None else out
+
+
+def iter_param_buckets(sp: ShardedParams, *, prefetch=None):
+    """Yield ``(group_index, {leaf_position: tensor})`` group by group in
+    layout order, the next groups' allgathers already in flight
+    (``prefetch``, default ``HOROVOD_ZERO_PREFETCH_BUCKETS``). The tensors
+    are views of the group's gathered buffer: dropping the dict frees
+    it."""
+    for gi, full in _iter_group_gathers(sp, prefetch):
+        yield gi, _views(full, sp.spec.groups[gi])
+
+
+# ---------------------------------------------------------------------------
+# Generic elementwise wrapper
+# ---------------------------------------------------------------------------
+
+class ShardedOptState(NamedTuple):
+    """State of :func:`sharded_update`: the layout and the inner
+    ``torch.optim`` optimizer over the flat shard tensors (one a group),
+    whose state is 1/N of the replicated optimizer's."""
+
+    spec: ZeroSpec
+    inner: torch.optim.Optimizer
+
+
+class ShardedOptimizer:
+    """What :func:`sharded_update` returns.
+
+    Functional, as the JAX package's transformation: ``init(params) ->
+    ShardedOptState`` and ``update(grads, state, params) -> (params,
+    state)``. As a ``torch.optim`` optimizer over the wrapped one's
+    parameters: ``zero_grad()`` and ``step()``, which read each
+    parameter's ``.grad`` (or take ``grads=``, a :class:`ShardedGrads`),
+    with the state made at the first step (:attr:`state`)."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, named_parameters,
+                 average: bool, compression, sparse_as_dense: bool,
+                 partition):
+        hyper = [{k: v for k, v in g.items() if k != "params"}
+                 for g in optimizer.param_groups]
+        if any(h != hyper[0] for h in hyper[1:]):
+            raise ValueError(
+                "sharded_update lays every parameter into flat per-dtype "
+                "shards, so they must share one set of hyperparameters; "
+                "got param groups that differ")
+        self._cls, self._hyper = type(optimizer), hyper[0]
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        if named_parameters is None:
+            named_parameters = [(f"sharded.noname.{i}", p)
+                                for i, p in enumerate(params)]
+        named_parameters = list(named_parameters)
+        named = {id(p) for _, p in named_parameters}
+        if any(id(p) not in named for p in params):
+            raise ValueError("named_parameters was specified but one or more "
+                             "optimizer parameters were not named")
+        wanted = {id(p) for p in params}
+        self._params = {n: p for n, p in named_parameters if id(p) in wanted}
+        self._average = average
+        self._compression = compression
+        self._sparse_as_dense = sparse_as_dense
+        self._partition = partition
+        self.state: Optional[ShardedOptState] = None
+
+    def _inner(self, shards) -> torch.optim.Optimizer:
+        return self._cls([{"params": list(shards), **self._hyper}])
+
+    @torch.no_grad()
+    def init(self, params) -> ShardedOptState:
+        """The state over ``params``: a dict keyed like
+        ``named_parameters()`` or a list (the inner optimizer steps copies
+        of this rank's shards), or :class:`ShardedParams` (it steps their
+        shard tensors themselves)."""
+        if isinstance(params, ShardedParams):
+            return ShardedOptState(params.spec, self._inner(params.shards))
+        _, leaves = _leaves_of(params)
+        _check_dense(leaves)
+        spec = _local_spec(leaves, self._partition)
+        return ShardedOptState(spec, self._inner(
+            _shard_of(_pack_group(leaves, g), g, spec.rank)
+            for g in spec.groups))
+
+    @torch.no_grad()
+    def update(self, grads, state: ShardedOptState, params):
+        """One step: each shard's ``.grad`` is its reduced gradient shard
+        (from the reduce-scatter of ``grads``, or ``grads`` itself when it
+        is :class:`ShardedGrads`), then the inner ``step()``; then the
+        updated shards are allgathered into ``params`` in place, or, when
+        ``params`` is the :class:`ShardedParams` the state was made over,
+        they stay sharded. Returns ``(params, state)``."""
+        if not isinstance(state, ShardedOptState):
+            raise TypeError(
+                "sharded_update state must be ShardedOptState (was this "
+                "optimizer initialized with shard_optimizer_states?)")
+        spec = state.spec
+        _check_world(spec, "sharded state")
+        if isinstance(grads, ShardedGrads):
+            _check_shard_spec(grads.spec, spec,
+                              "pre-scattered gradient (ShardedGrads)")
+            gshards = list(grads.shards)
+        else:
+            _, gleaves = _leaves_of(grads)
+            if self._sparse_as_dense:
+                gleaves = [g.to_dense() if g.is_sparse else g
+                           for g in gleaves]
+            _check_dense(gleaves)
+            _check_count(gleaves, spec)
+            gshards = _scatter(gleaves, spec, self._average,
+                               self._compression, "sharded.grads")
+        shards = state.inner.param_groups[0]["params"]
+        for s, g in zip(shards, gshards):
+            s.grad = g
+        state.inner.step()
+        for s in shards:
+            s.grad = None
+        if isinstance(params, ShardedParams):
+            _check_shard_spec(params.spec, spec,
+                              "ShardedParams (stage-3 params)")
+            if any(a is not b for a, b in zip(params.shards, shards)):
+                raise ValueError("the sharded state steps other shard "
+                                 "tensors: init it over these ShardedParams")
+            return params, state
+        _, leaves = _leaves_of(params)
+        _check_count(leaves, spec, "parameter")
+        _gather_into(shards, spec, leaves, "sharded.params")
+        return params, state
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self._params.values():
+            if set_to_none:
+                p.grad = None
+            elif p.grad is not None:
+                p.grad.zero_()
+
+    def step(self, closure=None, grads=None):
+        """Update the wrapped optimizer's parameters from their ``.grad``
+        (a parameter without one counts as a zero gradient, as the JAX
+        package's gradients of unused leaves are), or from ``grads``."""
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        if self.state is None:
+            self.state = self.init(self._params)
+        if grads is None:
+            grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for k, p in self._params.items()}
+        self.update(grads, self.state, self._params)
+        return loss
+
+
+def sharded_update(optimizer: torch.optim.Optimizer, named_parameters=None,
+                   *, average: bool = True, compression=Compression.none,
+                   sparse_as_dense: bool = False,
+                   partition=None) -> ShardedOptimizer:
+    """Wrap an elementwise ``torch.optim`` optimizer with ZeRO sharding
+    (reference: zero.py:830-1214): an optimizer of its class and
+    hyperparameters steps this rank's flat shard of each dtype group, so
+    its state is 1/N of the replicated one's. Each step reduce-scatters
+    the packed gradients (``average`` divides by the world;
+    ``compression`` on the wire), sets the shards' ``.grad``, steps, and
+    allgathers the updated shards into the parameters: for an elementwise
+    optimizer the same bits as the replicated ``DistributedOptimizer``.
+
+    Stage 2: a :class:`ShardedGrads` (``step(grads=...)`` or ``update``)
+    skips the reduce-scatter; ``partition`` lines the layout up with a
+    release plan's buckets (``plan.zero_partition(params)``). Stage 3:
+    ``init`` over :class:`ShardedParams` steps their shards in place and
+    gathers nothing.
+
+    Non-elementwise optimizers (a global-norm clip inside, LAMB's trust
+    ratio) would see 1/N of the elements: clip before the wrapper. Wrap
+    an optimizer before its first step: its state is not carried over."""
+    return ShardedOptimizer(optimizer, named_parameters, average,
+                            compression, sparse_as_dense, partition)
+
+
+# ---------------------------------------------------------------------------
+# Flat AdamW on the kernel
+# ---------------------------------------------------------------------------
 
 class FlatAdamState(NamedTuple):
     """State of :func:`sharded_adamw`: per dtype group, the local shard of
@@ -161,28 +615,37 @@ class ShardedAdamW(NamedTuple):
 
 def sharded_adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
                   eps: float = 1e-8, weight_decay: float = 1e-4, *,
-                  average: bool = True,
-                  compression=Compression.none) -> ShardedAdamW:
-    """ZeRO-1 fused AdamW: reduce-scatter the packed flat gradient of each
-    dtype group (``average`` divides the sum by the world), one flat AdamW
+                  average: bool = True, compression=Compression.none,
+                  partition=None) -> ShardedAdamW:
+    """ZeRO-1/2/3 fused AdamW: reduce-scatter the packed flat gradient of
+    each group (``average`` divides the sum by the world), one flat AdamW
     kernel over the local fp32 master/moment shard, allgather the updated
     shards in the parameter dtype and write them into the params.
 
     ``params`` and ``grads`` are dicts of tensors keyed alike
     (``dict(model.named_parameters())``); the layout follows the params'
-    order. ``compression`` applies to the gradient on the wire."""
+    order (and ``partition``, a release plan's buckets, if given).
+    ``compression`` applies to the gradient on the wire.
+
+    Stage 2: ``apply`` takes :class:`ShardedGrads` in place of ``grads``
+    and skips its reduce-scatter. Stage 3: ``init`` and ``apply`` over
+    :class:`ShardedParams`; ``apply`` returns new ``ShardedParams`` made
+    of the kernel's parameter-dtype output shards and gathers nothing."""
 
     @torch.no_grad()
-    def init(params: Dict[str, torch.Tensor]) -> FlatAdamState:
-        leaves = list(params.values())
-        _check_dense(leaves)
-        world, rank = basics.size(), basics.rank()
-        spec = build_spec(leaves, world, rank, _quantum_bytes())
-        master = tuple(
-            _pack_group(leaves, g)[rank * g.shard_elems:
-                                   (rank + 1) * g.shard_elems]
-            .to(torch.float32, copy=True)
-            for g in spec.groups)
+    def init(params) -> FlatAdamState:
+        if isinstance(params, ShardedParams):
+            spec = params.spec
+            master = tuple(s.to(torch.float32, copy=True)
+                           for s in params.shards)
+        else:
+            leaves = list(params.values())
+            _check_dense(leaves)
+            spec = _local_spec(leaves, partition)
+            master = tuple(
+                _shard_of(_pack_group(leaves, g), g, spec.rank)
+                .to(torch.float32)
+                for g in spec.groups)
         return FlatAdamState(
             spec=spec, count=0, master=master,
             mu=tuple(torch.zeros_like(w) for w in master),
@@ -191,40 +654,43 @@ def sharded_adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     @torch.no_grad()
     def apply(params, state: FlatAdamState, grads):
         spec = state.spec
-        if len(grads) != spec.num_leaves:
-            raise ValueError(
-                f"gradient tree has {len(grads)} leaves but the sharded "
-                f"state was built for {spec.num_leaves}")
-        check_keys(params, grads)
-        keys = list(params)
-        gleaves = [grads[k] for k in keys]
-        _check_dense(gleaves)
-        if spec.world != basics.size():
-            raise ValueError(
-                f"sharded state was built for world {spec.world} but the "
-                f"current world is {basics.size()}")
+        sharded_out = isinstance(params, ShardedParams)
+        if sharded_out:
+            _check_shard_spec(params.spec, spec,
+                              "ShardedParams (stage-3 params)")
+        if isinstance(grads, ShardedGrads):
+            _check_shard_spec(grads.spec, spec,
+                              "pre-scattered gradient (ShardedGrads)")
+            gshards = list(grads.shards)
+        else:
+            if sharded_out:
+                raise TypeError("stage-3 params take ShardedGrads "
+                                "(scatter_gradients or a reduce-scatter "
+                                "release plan)")
+            _check_count(grads, spec)
+            check_keys(params, grads)
+            gleaves = [grads[k] for k in params]
+            _check_dense(gleaves)
+        _check_world(spec, "sharded state")
         count = min(state.count + 1, _INT32_MAX)
         scalars = adamw_scalars(count, b1, b2, learning_rate, weight_decay)
-        op = collectives.Average if average else collectives.Sum
-        # every group's reduce-scatter in flight before the first update
-        pending = []
-        for g in spec.groups:
-            wire, ctx = compression.compress(_pack_group(gleaves, g))
-            pending.append((ctx, collectives.reducescatter_async(wire, op=op)))
-        gathers = []
-        for g, w, m, v, (ctx, handle) in zip(spec.groups, state.master,
-                                             state.mu, state.nu, pending):
-            dtype = group_dtype(g)
-            shard = compression.decompress(collectives.synchronize(handle),
-                                           ctx).to(dtype)
+        if not isinstance(grads, ShardedGrads):
+            # every group's reduce-scatter in flight before the first update
+            gshards = _scatter(gleaves, spec, average, compression,
+                               "sharded.adamw.grads")
+        ps = []
+        for g, w, m, v, shard in zip(spec.groups, state.master, state.mu,
+                                     state.nu, gshards):
             p, _, _, _ = flat_adamw_shard(w, m, v, shard, scalars, eps=eps,
-                                          out_dtype=dtype)
-            gathers.append(collectives.allgather_async(p))
-        del pending
-        out = [params[k] for k in keys]
-        for g, handle in zip(spec.groups, gathers):
-            _unpack_group(collectives.synchronize(handle), g, out)
-        return params, FlatAdamState(spec, count, state.master, state.mu,
-                                     state.nu)
+                                          out_dtype=group_dtype(g))
+            ps.append(p)
+        del gshards
+        new_state = FlatAdamState(spec, count, state.master, state.mu,
+                                  state.nu)
+        if sharded_out:
+            return ShardedParams(spec, params.names, ps), new_state
+        _gather_into(ps, spec, list(params.values()),
+                     "sharded.adamw.params")
+        return params, new_state
 
     return ShardedAdamW(init=init, apply=apply)

@@ -115,6 +115,20 @@ class RuntimeHandle:
 _waited: dict = {}
 
 
+def _with_callback(group_callback, complete):
+    """An entry's completion that first tells ``group_callback`` whether
+    it succeeded: accounting never keeps a handle from completing."""
+
+    def callback(status, output, done=None):
+        try:
+            group_callback(status.ok())
+        except Exception:
+            log.get_logger().exception("group callback failed")
+        complete(status, output, done)
+
+    return callback
+
+
 def _fail_incomplete_entries(entries) -> None:
     status = types.Status.Aborted("background cycle failed; see runtime log")
     for e in entries:
@@ -229,11 +243,15 @@ class Runtime:
 
     def enqueue_allreduce_group(self, names, tensors,
                                 reduce_op: str = types.REDUCE_AVERAGE,
-                                priority: int = 0) -> List[RuntimeHandle]:
+                                priority: int = 0,
+                                group_callback=None) -> List[RuntimeHandle]:
         """Enqueue a group of allreduces at once: one lock scope in the
         queue (``TensorQueue.add_group``), and a cycle starts at once, so
         the whole group negotiates in one cycle and fuses into as few
-        calls as the threshold allows. One handle a tensor, in order."""
+        calls as the threshold allows. ``group_callback(ok)``, if given,
+        fires on the cycle thread once an entry as it completes or fails
+        (a release plan's wire accounting; its exceptions are dropped).
+        One handle a tensor, in order."""
         self._check_running()
         names, tensors = list(names), list(tensors)
         if len(names) != len(tensors):
@@ -241,6 +259,10 @@ class Runtime:
         made = [self._entry(types.ALLREDUCE, n, t, reduce_op=reduce_op,
                             priority=priority)
                 for n, t in zip(names, tensors)]
+        if group_callback is not None:
+            for entry, _, handle in made:
+                entry.callback = _with_callback(group_callback,
+                                                handle._complete)
         self.queue.add_group([m[0] for m in made], [m[1] for m in made])
         self._urgent.set()
         self._woken.set()

@@ -1,10 +1,11 @@
 """The eager training step of the data-parallel examples and benchmarks.
 
-Port of the part of ``horovod_tpu/training.py`` that the conv models'
-paths (Inception-V3, ResNet) run: the default loss and a train step. The JAX package jits one step
-(or a ``lax.scan`` round of steps) over the global batch; here a step is
-eager PyTorch, one process per GPU, and the gradient allreduce is the
-hooks' of :func:`horovod_tpu_torch.DistributedOptimizer`.
+Port of the part of ``horovod_tpu/training.py`` that the port's paths
+run: the default loss and a train step, with the bucket-wise gradient
+release (``parallel/buckets.py``). The JAX package jits one step (or a
+``lax.scan`` round of steps) over the global batch; here a step is eager
+PyTorch, one process per GPU, and the gradient exchange is the hooks' of
+:func:`horovod_tpu_torch.DistributedOptimizer` or a release plan's.
 ``create_train_state``'s broadcast of ``params`` and ``batch_stats`` from
 rank 0 is ``hvd.broadcast_parameters(model.state_dict(), root_rank=0)``:
 the state dict holds both.
@@ -17,6 +18,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from horovod_tpu_torch.parallel import buckets, zero
+
 
 def default_loss_fn(logits: torch.Tensor,
                     labels: torch.Tensor) -> torch.Tensor:
@@ -25,20 +28,83 @@ def default_loss_fn(logits: torch.Tensor,
     return F.cross_entropy(logits.float(), labels.long())
 
 
-def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                    loss_fn: Optional[Callable] = None) -> Callable:
-    """An eager ``step(images, labels) -> loss``: zero the gradients, the
+def _resolve_grad_release(grad_release):
+    """``None``: a plan when ``HOROVOD_GRAD_BUCKET_RELEASE`` is on, which
+    reduce-scatters when ``HOROVOD_ZERO_STAGE >= 2``; ``False``: none; a
+    plan: that plan (reference: horovod_tpu/training.py:162-181)."""
+    if grad_release is None:
+        if buckets.release_enabled():
+            return buckets.GradReleasePlan(
+                reduce_scatter=zero.stage_from_env() >= 2)
+        return None
+    if grad_release is False:
+        return None
+    return grad_release
+
+
+def make_train_step(model: torch.nn.Module, optimizer,
+                    loss_fn: Optional[Callable] = None,
+                    grad_release=None) -> Callable:
+    """An eager ``step(inputs, labels) -> loss``: zero the gradients, the
     forward in train mode (which updates the running statistics), the
-    backward, ``optimizer.step()``. The loss is returned detached, not
-    read, so the step does not wait for the device."""
+    backward, the optimizer's step. The loss is returned detached, not
+    read, so the step does not wait for the device.
+
+    ``optimizer`` is a ``torch.optim`` optimizer (a
+    ``DistributedOptimizer``, ``sharded_update``'s) or a step-level one
+    with ``init``/``apply`` (``sharded_adamw``, ``fused_adamw``), whose
+    state the step keeps.
+
+    ``grad_release`` (``None`` follows ``HOROVOD_GRAD_BUCKET_RELEASE``, a
+    :class:`~horovod_tpu_torch.parallel.buckets.GradReleasePlan`, or
+    ``False``): the plan tags the parameters before the forward, releases
+    each bucket during the backward and is gathered after it; the
+    optimizer then steps inside ``prereduced()`` on the reduced gradients
+    or, from a reduce-scatter plan, on the ``ShardedGrads``. With
+    ``every_k > 1`` a call is one backward pass, and only every k-th
+    steps."""
     loss_fn = loss_fn or default_loss_fn
+    plan = _resolve_grad_release(grad_release)
+    params = dict(model.named_parameters())
+    step_level = hasattr(optimizer, "apply")
+    box = [optimizer.init(params)] if step_level else None
+
+    def zero_grad():
+        if step_level:
+            model.zero_grad(set_to_none=True)
+        else:
+            optimizer.zero_grad(set_to_none=True)
+
+    def update(grads):
+        if step_level:
+            if grads is None:
+                grads = {k: p.grad for k, p in params.items()}
+            _, box[0] = optimizer.apply(params, box[0], grads)
+        elif isinstance(grads, zero.ShardedGrads):
+            if not isinstance(optimizer, zero.ShardedOptimizer):
+                raise TypeError(
+                    "a reduce-scatter release plan's ShardedGrads go to "
+                    "sharded_adamw or sharded_update, built with "
+                    "partition=plan.zero_partition(params)")
+            optimizer.step(grads=grads)
+        else:
+            optimizer.step()
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
+        if plan is None or plan._pass_idx == 0:
+            zero_grad()
         model.train()
+        if plan is not None:
+            plan.tag(params)
         loss = loss_fn(model(images), labels)
         loss.backward()
-        optimizer.step()
+        if plan is None:
+            update(None)
+            return loss.detach()
+        grads = plan.gather()
+        if grads is not None:
+            with buckets.prereduced():
+                update(grads)
         return loss.detach()
 
     return step

@@ -1,7 +1,7 @@
 """Environment knobs the port reads (port of ``horovod_tpu/utils/env.py``:
 the parsing helpers, the launcher's identity contract, the enqueue
-runtime's knobs, the fusion bucket quantum, and the flash attention's
-``FLASH_FUSED_BWD`` switch)."""
+runtime's knobs, the fusion bucket quantum, the ZeRO stage and gradient
+release knobs, and the flash attention's ``FLASH_FUSED_BWD`` switch)."""
 
 from __future__ import annotations
 
@@ -44,6 +44,21 @@ DEFAULT_STALL_CHECK_TIME_SECONDS = 60.0
 # horovod_tpu/utils/env.py:55,156); ZeRO pads each per-rank shard to it.
 HOROVOD_FUSION_BUCKET_QUANTUM = "HOROVOD_FUSION_BUCKET_QUANTUM"
 DEFAULT_FUSION_BUCKET_QUANTUM_BYTES = 64 * 1024
+
+# ZeRO stage of the stock training-step wiring (1-3, clamped) and the
+# stage-3 prefetch window, in group allgathers in flight (reference:
+# horovod_tpu/utils/env.py:149, horovod_tpu/parallel/zero.py:157-190).
+HOROVOD_ZERO_STAGE = "HOROVOD_ZERO_STAGE"
+HOROVOD_ZERO_PREFETCH_BUCKETS = "HOROVOD_ZERO_PREFETCH_BUCKETS"
+DEFAULT_ZERO_PREFETCH_BUCKETS = 2
+
+# Bucket-wise gradient release (reference: horovod_tpu/utils/env.py:132-133,
+# horovod_tpu/parallel/buckets.py:93-146): the target payload of one
+# release bucket (rounded up to the fusion quantum), and the switch that
+# makes ``training.make_train_step`` build a release plan of its own.
+HOROVOD_GRAD_BUCKET_BYTES = "HOROVOD_GRAD_BUCKET_BYTES"
+DEFAULT_GRAD_BUCKET_BYTES = 4 * 1024 * 1024
+HOROVOD_GRAD_BUCKET_RELEASE = "HOROVOD_GRAD_BUCKET_RELEASE"
 
 # Fused attention backward (reference: horovod_tpu/ops/pallas/
 # flash_attention.py:741-742): "1" sends a backward whose query and key

@@ -473,8 +473,9 @@ def test_runtime_orders_its_stream_after_the_producer_on_card(cuda):
 def test_runtime_across_the_cards(cuda, tmp_path):
     """The runtime across every card of the machine, one rank a card (the
     gloo control group and an NCCL data group): ``torch_runtime_worker.
-    run_world`` on each, which raises on any disagreement. Needs two cards
-    or more."""
+    run_world`` on each, which raises on any disagreement (ZeRO stages 2
+    and 3 among its scenarios: each rank holds 1/N of every padded group,
+    and both end bit-equal to stage 1). Needs two cards or more."""
     import torch_runtime_worker
 
     size = torch.cuda.device_count()

@@ -125,9 +125,9 @@ def run(rank: int, size: int, tmpdir: str, bert: bool) -> None:
 def run_world(rank: int, size: int, tmpdir: str, device: str) -> None:
     """One rank of a world on ``device`` ("cuda": one card a rank, NCCL
     data group): a grouped allreduce fused into one call, Average, the
-    unfused ops (a ragged allgather and an alltoall among them), and 3
-    ``DistributedOptimizer`` steps of a small MLP on this rank's data;
-    raises on any disagreement."""
+    unfused ops (a ragged allgather and an alltoall among them), 3
+    ``DistributedOptimizer`` steps of a small MLP on this rank's data, and
+    ZeRO stages 1-3 (``_zero_stages``); raises on any disagreement."""
     os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
                       HOROVOD_LOCAL_RANK=str(rank),
                       HOROVOD_COORDINATOR_ADDR=f"file://{tmpdir}/store")
@@ -184,5 +184,64 @@ def run_world(rank: int, size: int, tmpdir: str, device: str) -> None:
                           for p in model.parameters()])
         every = hvd.allgather(flat[None], name="world.params")
         assert all(torch.equal(every[0], every[r]) for r in range(size))
+        _zero_stages(hvd, dev, x, size)
     finally:
         hvd.shutdown()
+
+
+def _zero_stages(hvd, dev, x, size: int) -> None:
+    """ZeRO stages 1, 2 and 3 on one layout (a reduce-scatter plan's
+    buckets), 3 steps of ``sharded_adamw`` each from the same weights on
+    this rank's data: each rank holds exactly 1/size of every padded group
+    (gradient and parameter shards), and stages 2 and 3 end bit-equal to
+    stage 1."""
+
+    def mlp():
+        torch.manual_seed(0)
+        return torch.nn.Sequential(torch.nn.Linear(64, 64), torch.nn.ReLU(),
+                                   torch.nn.Linear(64, 8)).to(dev)
+
+    models = [mlp() for _ in range(3)]
+    params = [dict(m.named_parameters()) for m in models]
+    plans = [hvd.GradReleasePlan(reduce_scatter=True, bucket_bytes=256,
+                                 name=f"world.zero{stage}")
+             for stage in (2, 3)]
+    part = plans[0].zero_partition(params[1])
+    assert plans[1].zero_partition(params[2]) == part and len(part) >= 3
+    opt = hvd.sharded_adamw(1e-2, partition=part)
+    s1, s2 = opt.init(params[0]), opt.init(params[1])
+    sp = hvd.shard_params(params[2], partition=part)
+    s3 = opt.init(sp)
+
+    def one_1_over_size(spec, shards):
+        assert len(shards) == len(spec.groups) == len(part)
+        for g, s in zip(spec.groups, shards):
+            assert g.padded == size * g.shard_elems
+            assert s.numel() == g.shard_elems and s.device == dev
+
+    one_1_over_size(sp.spec, sp.shards)
+    leaves = list(params[2].values())
+    for _ in range(3):
+        models[0].zero_grad(set_to_none=True)
+        models[0](x).square().mean().backward()
+        _, s1 = opt.apply(params[0], s1,
+                          {k: p.grad for k, p in params[0].items()})
+        models[1].zero_grad(set_to_none=True)
+        plans[0].tag(params[1])
+        models[1](x).square().mean().backward()
+        sg = plans[0].gather()
+        one_1_over_size(sg.spec, sg.shards)
+        _, s2 = opt.apply(params[1], s2, sg)
+        with torch.no_grad():
+            for _, bucket in hvd.iter_param_buckets(sp):
+                for i, t in bucket.items():
+                    leaves[i].copy_(t)
+        models[2].zero_grad(set_to_none=True)
+        plans[1].tag(params[2])
+        models[2](x).square().mean().backward()
+        sp, s3 = opt.apply(sp, s3, plans[1].gather())
+        one_1_over_size(sp.spec, sp.shards)
+    full = hvd.gather_params(sp)
+    for k, p in params[0].items():
+        assert torch.equal(params[1][k], p), f"stage 2 {k}"
+        assert torch.equal(full[k], p), f"stage 3 {k}"

@@ -16,7 +16,9 @@ Phases (any failure exits non-zero):
    and SYNCS (mbarriers) instructions in every instance, D64 and D128, of
    flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel,
    flash_bwd_fused_kernel and probe_fwd_kernel, and in both N-tile
-   instances (64, 128) of conv3x3_stats_kernel, and ptxas must report no
+   instances (64, 128) of conv3x3_stats_kernel; that of the adamw library
+   UBLKCP (1-D bulk copies) and SYNCS in every instance of
+   flat_adamw_kernel (f32 and bf16 gradients); and ptxas must report no
    wgmma serialised.
 2. Flash-attention kernels against their plain PyTorch versions, in bf16 on
    the card, with the plain version run on float32 copies of the same bf16
@@ -37,11 +39,17 @@ Phases (any failure exits non-zero):
    multi-tensor kernel over BERT-Large's 388 parameter shapes and over a
    mixed set (a bf16 parameter with f32 moments, 7 elements, 131 x 128);
    the flat ZeRO kernel over BERT-Large's world-1 shard (536,870,912
-   elements, the bucket pad included) and over ragged lengths (1, 127,
-   16,385) with f32 and bf16 gradients and outputs, and over each group
-   shard length of P4's and P5's bucket layout. Limit: bit-equal (both
-   round after every float32 operation; adamw.cu is built with
-   -fmad=false). Then each is timed at BERT-Large's shapes beside its bound,
+   elements, the bucket pad included), over ragged lengths (1, 3, 127,
+   16,385), the edges of its ring's tiles (a tile minus 4, a tile, a tile
+   plus 4, five tiles plus 3) and a shard 16 bytes off a tile's boundary,
+   each with every pair of f32 and bf16 gradient and output, and over each
+   group shard length of P4's and P5's bucket layout (the most common in
+   every pair). Limit: bit-equal
+   (both round after every float32 operation; adamw.cu is built with
+   -fmad=false); for f32 output the parameters returned must be master's
+   storage, for bf16 a tensor of their own. Then each is timed at
+   BERT-Large's shapes beside its bound (the flat kernel's at 28 bytes an
+   element: its f32 parameters are its master),
    its plain version, ``torch.optim.AdamW(fused=True)`` (a yardstick the
    port never calls) and the foreach AdamW of the phase-4 path.
 2c. At world 1, ``fused_adamw`` and ``sharded_adamw`` on the same
@@ -341,19 +349,24 @@ def kernel_name(line: str) -> str:
 
 
 HEAD_DIMS = ("64", "128")
-#: the kernels built on wgmma, TMA and mbarriers, by library, each with the
-#: first template arguments its instances must cover: a D64 and a D128
-#: instance of every attention kernel; the conv kernel has no head dim, and
-#: its instances are its N tiles of 64 and 128 output channels
-WGMMA_KERNELS = {"flash_attention": dict.fromkeys(
-                     ["flash_fwd_kernel", "flash_bwd_dq_kernel",
-                      "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel"],
-                     HEAD_DIMS),
-                 "attention_probe": {"probe_fwd_kernel": HEAD_DIMS},
-                 "conv_bn_stats": {"conv3x3_stats_kernel": ("64", "128")}}
-#: the SASS instructions that show it: HGMMA (wgmma), UTMALDG (TMA loads;
-#: the conv kernel's are its weights'), SYNCS (mbarriers)
-SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
+#: the SASS instructions that show a wgmma kernel: HGMMA (wgmma), UTMALDG
+#: (TMA loads; the conv kernel's are its weights'), SYNCS (mbarriers)
+WGMMA_OPS = ("HGMMA", "UTMALDG", "SYNCS")
+#: the kernels built on Hopper's asynchronous copies, by library: each with
+#: the first template arguments its instances must cover and the SASS
+#: instructions every instance must hold. A D64 and a D128 instance of
+#: every attention kernel; the conv kernel's instances are its N tiles of
+#: 64 and 128 output channels; the flat AdamW kernel's its gradient dtypes,
+#: whose ring of 1-D bulk copies (cp.async.bulk, UBLKCP) completes on
+#: mbarriers (SYNCS)
+HOPPER_KERNELS = {
+    "flash_attention": dict.fromkeys(
+        ["flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+         "flash_bwd_fused_kernel"], (HEAD_DIMS, WGMMA_OPS)),
+    "attention_probe": {"probe_fwd_kernel": (HEAD_DIMS, WGMMA_OPS)},
+    "conv_bn_stats": {"conv3x3_stats_kernel": (("64", "128"), WGMMA_OPS)},
+    "adamw": {"flat_adamw_kernel": (("f32", "bf16"), ("UBLKCP", "SYNCS"))}}
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "SYNCS")
 
 
 def sass_counts(name: str) -> dict:
@@ -374,12 +387,12 @@ def sass_counts(name: str) -> dict:
     return counts
 
 
-def wgmma_witness() -> None:
+def hopper_witness() -> None:
     """The Hopper kernels reached the card as designed: every instance of
-    each kernel of :data:`WGMMA_KERNELS`, the instances it names at least,
-    has HGMMA, UTMALDG and SYNCS instructions, and ptxas serialised no
+    each kernel of :data:`HOPPER_KERNELS`, the instances it names at
+    least, holds the SASS instructions it names, and ptxas serialised no
     wgmma (its ``Potential Performance Loss`` warning)."""
-    for lib, kernels in WGMMA_KERNELS.items():
+    for lib, kernels in HOPPER_KERNELS.items():
         serial = [line.strip() for line in
                   kernel_build.build_log(lib).splitlines()
                   if "wgmma" in line and "serialized" in line]
@@ -387,7 +400,7 @@ def wgmma_witness() -> None:
             log(f"  ptxas {lib}: {line}")
         check(not serial, f"ptxas serialised wgmma in {lib}")
         counts = sass_counts(lib)
-        for kernel, wanted in kernels.items():
+        for kernel, (wanted, ops) in kernels.items():
             found = {fn: c for fn, c in counts.items()
                      if fn.startswith(kernel + "<")}
             firsts = {fn[len(kernel) + 1:].split(",")[0].rstrip(">")
@@ -396,9 +409,10 @@ def wgmma_witness() -> None:
                   f"{kernel} in the SASS of {lib} lacks an instance of "
                   f"{wanted}: {sorted(found)}")
             for fn, c in sorted(found.items()):
-                log(f"  SASS {fn}: " + ", ".join(f"{n} {op}"
-                                                 for op, n in c.items()))
-                check(all(c.values()), f"{fn} lacks one of {SASS_OPS}: {c}")
+                log(f"  SASS {fn}: " + ", ".join(f"{c[op]} {op}"
+                                                 for op in ops))
+                check(all(c[op] for op in ops), f"{fn} lacks one of {ops}: "
+                                                f"{c}")
 
 
 def environment(dry: bool) -> str:
@@ -424,7 +438,7 @@ def environment(dry: bool) -> str:
             elif fn and ("registers" in line or "spill" in line
                          or "smem" in line):
                 log(f"  ptxas {fn}: {line.split(':', 1)[-1].strip()}")
-    wgmma_witness()
+    hopper_witness()
     return card
 
 
@@ -667,38 +681,49 @@ def check_adamw_multi(name, shapes, dtypes, device, steps=3) -> float:
     return worst
 
 
-def flat_inputs(n, n_real, grad_dtype, device, seed) -> list:
+def flat_inputs(n, n_real, grad_dtype, device, seed, offset=0) -> list:
     """master, mu, nu (f32) and grad: random over the first ``n_real``
-    elements, zeros over the bucket pad, as ZeRO lays a shard out."""
-    out = [torch.zeros(n, device=device) for _ in range(4)]
-    master, mu, nu, grad = out
+    elements, zeros over the bucket pad, as ZeRO lays a shard out. With
+    ``offset``, each is a view ``offset`` * 16 bytes into a larger buffer
+    (a shard that starts off any tile's boundary)."""
+    out = []
+    for dt in (F32, F32, F32, grad_dtype):
+        skip = offset * 16 // torch.tensor([], dtype=dt).element_size()
+        out.append(torch.zeros(skip + n, dtype=dt, device=device)[skip:])
     leaf = adam_leaves([(n_real,)], [(F32, F32, F32, F32)], device, seed)[0]
-    for dst, src in zip((master, mu, nu, grad), leaf):
+    for dst, src in zip(out, leaf):
         dst[:n_real] = src
-    return [master, mu, nu, grad.to(grad_dtype)]
+    return out
 
 
 def check_flat_adamw(name, n, n_real, grad_dtype, out_dtype, device,
-                     steps=3) -> float:
+                     steps=3, offset=0) -> float:
     """The flat kernel over one shard against the plain version on copies,
-    ``steps`` steps; bit-equal."""
+    ``steps`` steps; bit-equal. For float32 out the parameters it returns
+    are master's storage; for bfloat16 a tensor of their own."""
     master, mu, nu, grad = flat_inputs(n, n_real, grad_dtype, device,
-                                       seed=len(name) + n % 97)
+                                       seed=len(name) + n % 97,
+                                       offset=offset)
     ref = [t.clone() for t in (master, mu, nu)]
     worst, differ = 0.0, 0
     for t in range(1, steps + 1):
         sc = fadam.adamw_scalars(t, **ADAMW)
         p, *_ = fopt.flat_adamw_shard(master, mu, nu, grad, sc, eps=EPS,
                                       out_dtype=out_dtype)
+        check((p.data_ptr() == master.data_ptr()) == (out_dtype == F32),
+              f"flat_adamw {name}: p {'is not' if out_dtype == F32 else 'is'}"
+              f" master's storage (out {dtype_name(out_dtype)})")
         want = fopt.flat_adamw_reference(*ref, grad, sc, EPS, out_dtype)
         ref = list(want[1:])
         for a, b in zip((p, master, mu, nu), want):
             err, n_diff = mismatch(a, b)
             worst, differ = max(worst, err), differ + n_diff
         del want
-    log(f"flat_adamw {name}: {n:,} elements ({n_real:,} real), grad "
+    where = f", {offset * 16} bytes into its buffer" if offset else ""
+    log(f"flat_adamw {name}: {n:,} elements ({n_real:,} real{where}), grad "
         f"{dtype_name(grad_dtype)}, out {dtype_name(out_dtype)}, {steps} "
-        f"steps: max|kernel-plain| {worst:.3e}, {differ} elements differ")
+        f"steps: max|kernel-plain| {worst:.3e}, {differ} elements differ; "
+        f"p {'is' if out_dtype == F32 else 'is not'} master's storage")
     check(differ == 0, f"flat_adamw {name}: not bit-equal to the plain "
                        f"version ({differ} elements differ)")
     return worst
@@ -722,19 +747,34 @@ def check_optimizer_kernels(cfg, device) -> dict:
                           [(BF16, F32, F32, F32), (F32,) * 4, (F32,) * 4,
                            (BF16, BF16, BF16, BF16)], device))}
     free_memory(device)
-    errs["flat_adamw"] = check_flat_adamw("world-1 shard", n_shard, n_real,
-                                          F32, F32, device)
-    free_memory(device)
-    for n in (1, 127, 16385):
-        for gd, od in ((F32, F32), (BF16, BF16)):
-            errs["flat_adamw"] = max(errs["flat_adamw"], check_flat_adamw(
-                "ragged", n, n, gd, od, device))
-    # the group shards P4 and P5 give it: one a distinct length of the
-    # reduce-scatter plan's bucket layout at world 1
-    sizes = {g.shard_elems: g.n for g in bucket_spec(shapes).groups}
-    for n, real in sorted(sizes.items()):
+    pairs = ((F32, F32), (BF16, BF16), (F32, BF16), (BF16, F32))
+    errs["flat_adamw"] = 0.0
+    for gd, od in pairs:  # every (grad, out) dtype pair at full size
         errs["flat_adamw"] = max(errs["flat_adamw"], check_flat_adamw(
-            "bucket group", n, real, F32, F32, device))
+            "world-1 shard", n_shard, n_real, gd, od, device))
+        free_memory(device)
+    # the ring's edges: whole tiles through the ring, the rest by plain
+    # loads; a shard under one tile, under 4 elements, and off a tile's
+    # boundary by 16 bytes
+    tile = fopt.tile_elems() if device.type == "cuda" else 64
+    edges = [("ragged", n, 0) for n in (1, 3, 127, 16385)]
+    edges += [("tile edge", n, 0) for n in (tile - 4, tile, tile + 4,
+                                             5 * tile + 3)]
+    edges += [("offset", 3 * tile + 8, 1)]
+    for what, n, offset in edges:
+        for gd, od in pairs:
+            errs["flat_adamw"] = max(errs["flat_adamw"], check_flat_adamw(
+                what, n, n, gd, od, device, offset=offset))
+    # the group shards P4 and P5 give it: one a distinct length of the
+    # reduce-scatter plan's bucket layout at world 1, the most common one
+    # in every dtype pair
+    groups = bucket_spec(shapes).groups
+    sizes = {g.shard_elems: g.n for g in groups}
+    common = statistics.mode(g.shard_elems for g in groups)
+    for n, real in sorted(sizes.items()):
+        for gd, od in (pairs if n == common else pairs[:1]):
+            errs["flat_adamw"] = max(errs["flat_adamw"], check_flat_adamw(
+                "bucket group", n, real, gd, od, device))
         free_memory(device)
     return errs
 
@@ -746,6 +786,11 @@ def bucket_spec(shapes):
     plan = hvd.GradReleasePlan(reduce_scatter=True)
     return build_spec(metas, 1, 0, 64 * 1024,
                       partition=plan.zero_partition(metas))
+
+
+#: bytes a float32 group's element moves through B8: master, mu, nu and
+#: grad read, master, mu and nu written (its parameters are its master)
+FLAT_F32_BYTES = 28
 
 
 def adamw_bound(n_elems: int, nbytes: int) -> dict:
@@ -796,7 +841,7 @@ def time_optimizers(cfg, device, iters) -> dict:
         plain_ms=time_ms(lambda: fopt.flat_adamw_reference(
             master, mu, nu, grad, sc, EPS, F32), iters, device),
         library_ms=time_ms(fused.step, iters, device),
-        elems=n, tensors=1, **adamw_bound(n, 32 * n))
+        elems=n, tensors=1, **adamw_bound(n, FLAT_F32_BYTES * n))
     del master, mu, nu, grad, fused
     free_memory(device)
     rows["flat_adamw_bucket"], groups_ms = time_bucket_adamw(
@@ -840,7 +885,7 @@ def time_bucket_adamw(shapes, hyper, sc, device, iters) -> tuple:
         plain_ms=time_ms(lambda: fopt.flat_adamw_reference(
             master, mu, nu, grad, sc, EPS, F32), iters, device),
         library_ms=time_ms(fused.step, iters, device),
-        elems=n, tensors=1, **adamw_bound(n, 32 * n))
+        elems=n, tensors=1, **adamw_bound(n, FLAT_F32_BYTES * n))
     del master, mu, nu, grad, fused
     bufs = [flat_inputs(g.shard_elems, g.n, F32, device, seed=gi)
             for gi, g in enumerate(spec.groups)]
@@ -853,7 +898,7 @@ def time_bucket_adamw(shapes, hyper, sc, device, iters) -> tuple:
     groups_ms = dict(groups=len(sizes), elems=total,
                      graph_ms=time_ms(every_group, max(1, iters // 4),
                                       device),
-                     **adamw_bound(total, 32 * total))
+                     **adamw_bound(total, FLAT_F32_BYTES * total))
     every_group()
     if device.type == "cuda":
         torch.cuda.synchronize()

@@ -29,27 +29,36 @@
 // chunks of kChunk elements, and each block walks chunks in a grid-stride
 // loop, finding its leaf by binary search over the chunk starts.
 // flat_adamw_kernel: master, mu and nu are float32 and updated in place;
-// the gradient shard is float32 or bfloat16; p_out, the new parameters in
-// the parameter dtype, is written to a separate buffer for the allgather.
+// the gradient shard is float32 or bfloat16. For a bfloat16 group the new
+// parameters are also written, rounded, to p_out for the allgather; for a
+// float32 group they are master itself, so no p stream is written (the
+// Pallas kernel writes p_out and mw_out as two arrays because JAX arrays
+// are immutable: here that copy would be 4 of 32 bytes an element).
 //
 // What bounds them on this card: about 16 float32 operations per element
-// against 28 bytes moved (multi, all f32: read p m v g, write p m v) or 32
-// (flat: read master mu nu g, write p master mu nu), so about 0.5
-// operations per byte against the H100's ~20 f32 (non-tensor) operations
-// per byte of HBM: both are bound by bytes. BERT-Large (334,090,240
-// parameters in 388 leaves): 9.35 GB, 2.79 ms at 3.35 TB/s for the multi
-// kernel; its world-1 ZeRO shard (536,870,912 elements with the bucket
-// pad): 17.18 GB, 5.13 ms for the flat kernel.
-// What the design does about it: every byte is read and written once, in
-// 16-byte vector accesses for float32 (8 bytes for four bfloat16), by a
-// grid of at most 8 blocks of 256 threads per SM; the ragged tail of each
-// leaf or shard is done element by element in the same launch. Nothing is
-// allocated and no second pass is made.
+// against 28 bytes moved (multi, all f32: read p m v g, write p m v; flat,
+// a float32 group: read master mu nu g, write master mu nu) or 30 (flat, a
+// bfloat16 group: 2-byte g and p), so about 0.5 operations per byte
+// against the H100's ~20 f32 (non-tensor) operations per byte of HBM: both
+// are bound by bytes. BERT-Large (334,090,240 parameters in 388 leaves):
+// 9.35 GB, 2.79 ms at 3.35 TB/s for the multi kernel; its world-1 ZeRO
+// shard (536,870,912 elements with the bucket pad): 15.03 GB, 4.49 ms for
+// the flat kernel.
+// What the designs do about it: every byte is read and written once.
+// adamw_multi_kernel reads and writes in 16-byte vector accesses for
+// float32 (8 bytes for four bfloat16), by a grid of at most 8 blocks of
+// 256 threads per SM, the ragged tail of each leaf element by element in
+// the same launch. flat_adamw_kernel streams the shard through a ring of
+// bulk copies into shared memory (see the note above it), so its loads
+// cost its threads no registers or instructions and many bytes stay in
+// flight. Nothing is allocated and no second pass is made.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -63,11 +72,19 @@ struct Scalars {
   float b1, b2, ibc1, ibc2, lr, wd, eps;
 };
 
+// A zero under the square root or over the division is answered without
+// the IEEE slow path that sqrtf(0) and 0 / d take, with the same bits
+// (sqrt(+-0) + eps is eps; +-0 / d is +-0 for d > 0): a ZeRO shard ends in
+// a bucket pad of zeros (37.8 % of BERT-Large's world-1 shard, half of most
+// bucket groups), and flat_adamw_kernel's consumer warps, fewer than a
+// grid-stride loop keeps on a SM, cannot hide those calls on a tile of pad.
 __device__ __forceinline__ void adamw(float& p, float& m, float& v, float g,
                                       const Scalars& s) {
   m = s.b1 * m + (1.0f - s.b1) * g;
   v = s.b2 * v + (1.0f - s.b2) * g * g;
-  p = p - s.lr * ((m * s.ibc1) / (sqrtf(v * s.ibc2) + s.eps) + s.wd * p);
+  const float vh = v * s.ibc2, num = m * s.ibc1;
+  const float den = (vh == 0.0f ? 0.0f : sqrtf(vh)) + s.eps;
+  p = p - s.lr * ((num == 0.0f ? num : num / den) + s.wd * p);
 }
 
 // Four elements at a time: one 16-byte access for float32, 8 for bfloat16.
@@ -163,45 +180,244 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// --- flat_adamw_kernel: a ring of bulk copies ------------------------------
+//
+// The shard is cut into tiles of kTile elements. A persistent grid (at most
+// kRingBlocksPerSm blocks a SM, never more blocks than whole tiles) gives
+// each block a contiguous run of whole tiles. One thread of the block's
+// producer warp fills a ring of kStages stages in shared memory with 1-D
+// bulk copies (cp.async.bulk, the TMA's plain-bytes form): one a stream
+// (master, mu, nu, grad) a tile, each arriving on the stage's "full"
+// mbarrier by its byte count, each read with an L2 evict-first policy (every
+// byte is read once, and a shard is many times the 50 MB L2). The consumer
+// warps wait on "full", compute from shared memory and store master, mu and
+// nu (and p for a bfloat16 group) with 16-byte (8-byte for bfloat16)
+// streaming stores, then arrive on the stage's "empty" mbarrier, one arrive
+// a warp, which lets the producer refill it. The elements past the last
+// whole tile (fewer than kTile) are done by the last block's consumers
+// with plain loads after their ring; a shard of fewer than kTile elements
+// is only that. Every pointer is 16-byte aligned (the wrapper checks), so
+// there is no ragged head. A stage holds 64 KB of a float32 gradient's tile
+// (56 KB of a bfloat16 one), the ring 192 KB: one block a SM, whose 16
+// consumer warps keep enough IEEE divisions and square roots in flight for
+// the memory's rate (the zeros of the bucket pad answered directly, see
+// adamw()).
+
+constexpr int kTile = 4096;        // elements of a tile
+constexpr int kStages = 3;         // tiles in flight a block
+constexpr int kConsumerWarps = 16;
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kRingThreads = kConsumers + 32;  // + the producer warp
+constexpr int kRingBlocksPerSm = 1;
+constexpr int kBarBytes = 128;     // the mbarriers, before the stages
+static_assert(kTile % (4 * kConsumers) == 0, "a tile is whole float4s a "
+              "consumer");
+static_assert(2 * kStages * 8 <= kBarBytes, "the mbarriers fit before the "
+              "stages");
+
+template <typename G>
+__host__ __device__ constexpr int stage_bytes() {
+  return kTile * (3 * (int)sizeof(float) + (int)sizeof(G));
+}
+
+template <typename G>
+__host__ __device__ constexpr int ring_smem() {
+  return kBarBytes + kStages * stage_bytes<G>();
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on the mbarrier bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+
+// Four elements by one streaming (evict-first) store.
+__device__ __forceinline__ void stcs4(float* a, const float in[4]) {
+  __stcs(reinterpret_cast<float4*>(a),
+         make_float4(in[0], in[1], in[2], in[3]));
+}
+
+__device__ __forceinline__ void stcs4(bf16* a, const float in[4]) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(in[0], in[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(in[2], in[3]);
+  uint2 x;
+  x.x = *reinterpret_cast<uint32_t*>(&lo);
+  x.y = *reinterpret_cast<uint32_t*>(&hi);
+  __stcs(reinterpret_cast<uint2*>(a), x);
+}
+
+// G: the gradient's type. P: bf16 writes the new parameters to p_out;
+// float writes no p stream (a float32 group's parameters are its master).
 template <typename G, typename P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRingThreads, kRingBlocksPerSm)
     flat_adamw_kernel(float* __restrict__ master, float* __restrict__ mu,
                       float* __restrict__ nu, const G* __restrict__ grad,
                       P* __restrict__ p_out, int64_t n, Scalars s) {
-  const int64_t nvec = n / 4;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  for (int64_t i = first; i < nvec; i += stride) {
-    const int64_t e = 4 * i;
+  constexpr bool kWriteP = sizeof(P) == 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t bars = smem_u32(smem);  // full[kStages], empty[kStages]
+  unsigned char* stages = smem + kBarBytes;
+  const int64_t tiles = n / kTile;
+  const int64_t first = tiles * blockIdx.x / gridDim.x;
+  const int64_t count = tiles * (blockIdx.x + 1) / gridDim.x - first;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bars + 8 * st, 1);
+      mbar_init(bars + 8 * (kStages + st), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {  // the producer
+    if (lane == 0) {
+      const uint64_t policy = evict_first_policy();
+      for (int64_t k = 0; k < count; ++k) {
+        const int st = (int)(k % kStages);
+        const uint32_t full = bars + 8 * st;
+        if (k >= kStages)
+          mbar_wait(bars + 8 * (kStages + st),
+                    (uint32_t)((k / kStages - 1) & 1));
+        const int64_t e = (first + k) * kTile;
+        const uint32_t dst = smem_u32(stages + st * stage_bytes<G>());
+        mbar_expect_tx(full, stage_bytes<G>());
+        bulk_load(dst, master + e, kTile * 4, full, policy);
+        bulk_load(dst + kTile * 4, mu + e, kTile * 4, full, policy);
+        bulk_load(dst + kTile * 8, nu + e, kTile * 4, full, policy);
+        bulk_load(dst + kTile * 12, grad + e, kTile * sizeof(G), full,
+                  policy);
+      }
+    }
+    return;
+  }
+
+  for (int64_t k = 0; k < count; ++k) {
+    const int st = (int)(k % kStages);
+    mbar_wait(bars + 8 * st, (uint32_t)((k / kStages) & 1));
+    const unsigned char* base = stages + st * stage_bytes<G>();
+    const float* ws = reinterpret_cast<const float*>(base);
+    const float* ms = ws + kTile;
+    const float* vs = ws + 2 * kTile;
+    const G* gs = reinterpret_cast<const G*>(ws + 3 * kTile);
+    const int64_t e0 = (first + k) * kTile;
+#pragma unroll
+    for (int r = 0; r < kTile / (4 * kConsumers); ++r) {
+      const int i = 4 * (threadIdx.x + r * kConsumers);
+      float wf[4], mf[4], vf[4], gf[4];
+      load4(ws + i, wf);
+      load4(ms + i, mf);
+      load4(vs + i, vf);
+      load4(gs + i, gf);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) adamw(wf[j], mf[j], vf[j], gf[j], s);
+      const int64_t e = e0 + i;
+      stcs4(master + e, wf);
+      stcs4(mu + e, mf);
+      stcs4(nu + e, vf);
+      if constexpr (kWriteP) stcs4(p_out + e, wf);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (kStages + st));
+  }
+
+  if (blockIdx.x != gridDim.x - 1) return;
+  // the elements past the last whole tile: fewer than kTile
+  const int64_t rest = tiles * kTile;
+  const int64_t nvec = (n - rest) / 4;
+  for (int64_t i = threadIdx.x; i < nvec; i += kConsumers) {
+    const int64_t e = rest + 4 * i;
     float wf[4], mf[4], vf[4], gf[4];
     load4(master + e, wf);
     load4(mu + e, mf);
     load4(nu + e, vf);
     load4(grad + e, gf);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) adamw(wf[k], mf[k], vf[k], gf[k], s);
-    store4(p_out + e, wf);
+    for (int j = 0; j < 4; ++j) adamw(wf[j], mf[j], vf[j], gf[j], s);
     store4(master + e, wf);
     store4(mu + e, mf);
     store4(nu + e, vf);
+    if constexpr (kWriteP) store4(p_out + e, wf);
   }
-  for (int64_t e = 4 * nvec + first; e < n; e += stride) {
+  for (int64_t e = rest + 4 * nvec + threadIdx.x; e < n; e += kConsumers) {
     float wf = master[e], mf = mu[e], vf = nu[e];
     adamw(wf, mf, vf, load1(grad + e), s);
-    store1(p_out + e, wf);
     master[e] = wf;
     mu[e] = mf;
     nu[e] = vf;
+    if constexpr (kWriteP) store1(p_out + e, wf);
   }
 }
 
-int grid_limit() {
+int grid_limit(int blocks_per_sm) {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess)
     sms = 132;
-  return sms * kBlocksPerSm;
+  return sms * blocks_per_sm;
+}
+
+// Lets flat_adamw_kernel<G, P> take its ring's shared memory (over the
+// 48 KB a launch gets by default), once a device, so that no attribute is
+// set while a CUDA graph captures the launch.
+template <typename G, typename P>
+cudaError_t allow_ring_smem() {
+  static std::atomic<uint32_t> devices{0};  // bit d: done on device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  const uint32_t bit = 1u << (dev & 31);
+  if (err != cudaSuccess || (devices.load() & bit)) return err;
+  err = cudaFuncSetAttribute(flat_adamw_kernel<G, P>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             ring_smem<G>());
+  if (err == cudaSuccess) devices.fetch_or(bit);
+  return err;
 }
 
 // Calls f with a value of the C++ type of dtype code 0 (float32) or 1
@@ -227,7 +443,7 @@ int hvd_adamw_multi(const void* table, int n, long long n_chunks, int p_dt,
                     void* stream) {
   if (n <= 0 || n_chunks <= 0) return cudaErrorInvalidValue;
   const Scalars s{b1, b2, ibc1, ibc2, lr, wd, eps};
-  const long long limit = grid_limit();
+  const long long limit = grid_limit(kBlocksPerSm);
   const int blocks = (int)(n_chunks < limit ? n_chunks : limit);
   return with_dtype(p_dt, [&](auto p) {
     return with_dtype(m_dt, [&](auto m) {
@@ -244,22 +460,32 @@ int hvd_adamw_multi(const void* table, int n, long long n_chunks, int p_dt,
   });
 }
 
+int hvd_flat_adamw_tile_elems() { return kTile; }
+
+// p_dt 0 (float32): the parameters are master itself, and p_out must be
+// null or master; p_dt 1 (bfloat16): they are also written to p_out.
 int hvd_flat_adamw(void* master, void* mu, void* nu, const void* grad,
                    void* p_out, long long n, int g_dt, int p_dt, float b1,
                    float b2, float ibc1, float ibc2, float lr, float wd,
                    float eps, void* stream) {
   if (n <= 0) return cudaErrorInvalidValue;
+  if (p_dt == 0 ? p_out != nullptr && p_out != master : p_out == nullptr)
+    return cudaErrorInvalidValue;
   const Scalars s{b1, b2, ibc1, ibc2, lr, wd, eps};
-  const long long limit = grid_limit();
-  long long want = (n / 4 + kThreads - 1) / kThreads;
-  if (want < 1) want = 1;  // a shard of under 4 elements: the tail loop
-  const int blocks = (int)(want < limit ? want : limit);
+  const long long limit = grid_limit(kRingBlocksPerSm);
+  const long long tiles = n / kTile;
+  // never more blocks than whole tiles; one for a shard under one tile
+  const int blocks = (int)(tiles < 1 ? 1 : tiles < limit ? tiles : limit);
   return with_dtype(g_dt, [&](auto g) {
     return with_dtype(p_dt, [&](auto p) {
-      flat_adamw_kernel<decltype(g), decltype(p)>
-          <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-              (float*)master, (float*)mu, (float*)nu,
-              (const decltype(g)*)grad, (decltype(p)*)p_out, (int64_t)n, s);
+      typedef decltype(g) G;
+      typedef decltype(p) P;
+      const cudaError_t set = allow_ring_smem<G, P>();
+      if (set != cudaSuccess) return (int)set;
+      flat_adamw_kernel<G, P>
+          <<<blocks, kRingThreads, ring_smem<G>(), (cudaStream_t)stream>>>(
+              (float*)master, (float*)mu, (float*)nu, (const G*)grad,
+              (P*)p_out, (int64_t)n, s);
       return (int)cudaGetLastError();
     });
   });

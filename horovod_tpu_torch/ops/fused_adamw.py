@@ -64,6 +64,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     # master mu nu grad p_out n g_dt p_dt b1 b2 ibc1 ibc2 lr wd eps stream
     lib.hvd_flat_adamw.argtypes = [P] * 5 + [L, I, I] + [F] * 7 + [P]
     lib.hvd_flat_adamw.restype = I
+    lib.hvd_flat_adamw_tile_elems.argtypes = []
+    lib.hvd_flat_adamw_tile_elems.restype = I
     lib.hvd_cuda_error_string.argtypes = [I]
     lib.hvd_cuda_error_string.restype = ctypes.c_char_p
 

@@ -10,17 +10,24 @@ master weights for bf16 training). Same math as
 
 Departures from the JAX package:
 
-* master, mu and nu are updated in place and returned; only ``p`` is a
-  new tensor. For BERT-Large's padded world-1 shard (536,870,912
-  elements) that saves a second 6.4 GB copy of the three buffers on the
-  card;
+* master, mu and nu are updated in place and returned. For BERT-Large's
+  padded world-1 shard (536,870,912 elements) that saves a second 6.4 GB
+  copy of the three buffers on the card;
+* for a float32 group ``p`` is ``master`` itself, not a copy (the Pallas
+  kernel writes ``p_out`` and ``mw_out`` as two arrays, since JAX arrays
+  are immutable): the kernel writes 28 bytes an element, not 32, and a
+  step holds no second 2 GB shard. The caller must be done reading ``p``
+  (an allgather of it) before the next update writes master: waiting on
+  the collective's handle orders the caller's stream after it. For a
+  bfloat16 group ``p`` is a new tensor;
 * there is no size gating: the kernel masks its own ragged tail;
 * ``HOROVOD_SHARDED_FUSED_KERNEL`` is not read. On the TPU it chooses jnp
   over the kernel; on the card that would be a fallback hiding the kernel.
 
 The plain PyTorch version (:func:`flat_adamw_reference`, written from
-``_jnp_flat``) runs only for tensors on the CPU; for CUDA tensors the
-wrapper launches the kernel or raises. :data:`LAUNCHES` counts launches.
+``_jnp_flat``) runs only for tensors on the CPU, with the same contract;
+for CUDA tensors the wrapper launches the kernel or raises.
+:data:`LAUNCHES` counts launches.
 """
 
 from __future__ import annotations
@@ -76,7 +83,7 @@ def flat_adamw_shard(master: torch.Tensor, mu: torch.Tensor,
     6-vector ``[b1, b2, 1/(1-b1^t), 1/(1-b2^t), lr, wd]``
     (:func:`horovod_tpu_torch.ops.fused_adamw.adamw_scalars`). Updates
     master, mu and nu in place and returns ``(p[out_dtype], master, mu,
-    nu)`` with ``p`` a new tensor."""
+    nu)``: ``p`` is ``master`` for float32, a new tensor for bfloat16."""
     _check(master, mu, nu, grad)
     if kernel_build.on_cpu("flat_adamw_shard", (master, mu, nu, grad)):
         p, w2, m2, v2 = flat_adamw_reference(master, mu, nu, grad, scalars,
@@ -84,22 +91,32 @@ def flat_adamw_shard(master: torch.Tensor, mu: torch.Tensor,
         master.copy_(w2)
         mu.copy_(m2)
         nu.copy_(v2)
-        return p, master, mu, nu
+        return (master if out_dtype == torch.float32 else p), master, mu, nu
     for t in (master, mu, nu, grad):
         _fa.check_kernel_tensor("flat_adamw", t)
     if out_dtype not in _fa.DTYPE_CODES:
         raise TypeError(f"flat_adamw kernel writes float32 or bfloat16, got "
                         f"{out_dtype}")
     n = master.numel()
+    f32 = out_dtype == torch.float32
     if n == 0:
-        return master.new_empty(0, dtype=out_dtype), master, mu, nu
+        return (master if f32 else master.new_empty(0, dtype=out_dtype),
+                master, mu, nu)
     lib = _fa.lib()
-    p = torch.empty(n, dtype=out_dtype, device=master.device)
+    p = master if f32 else torch.empty(n, dtype=out_dtype,
+                                       device=master.device)
     err = lib.hvd_flat_adamw(
         master.data_ptr(), mu.data_ptr(), nu.data_ptr(), grad.data_ptr(),
-        p.data_ptr(), n, _fa.DTYPE_CODES[grad.dtype],
+        None if f32 else p.data_ptr(), n, _fa.DTYPE_CODES[grad.dtype],
         _fa.DTYPE_CODES[out_dtype], *(float(x) for x in scalars), float(eps),
         torch.cuda.current_stream(master.device).cuda_stream)
     kernel_build.check_error(lib, err, "flat adamw")
     LAUNCHES["flat_adamw"] += 1
     return p, master, mu, nu
+
+
+def tile_elems() -> int:
+    """Elements of one tile of the kernel's ring (``csrc/adamw.cu``
+    ``kTile``): the shard's whole tiles go through the ring, the rest by
+    plain loads. Builds the library on first use (the card's machine)."""
+    return _fa.lib().hvd_flat_adamw_tile_elems()

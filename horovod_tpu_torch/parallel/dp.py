@@ -40,6 +40,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     """Optimizer wrapper that allreduces gradients as they become ready
     (reference: horovod/torch/__init__.py:47-203)."""
 
+    #: its hooks allreduce the gradients (``training.make_train_step``)
+    exchanges_gradients = True
+
     def __init__(self, params, named_parameters, compression,
                  backward_passes_per_step, sparse_as_dense, op):
         super(self.__class__, self).__init__(params)
@@ -207,13 +210,14 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
 
 
 def allreduce_gradients(grads, *, average: bool = True,
-                        compression=Compression.none):
+                        compression=Compression.none,
+                        name: str = "allreduce_gradients"):
     """Allreduce a dict or list of gradient tensors as one group and return
     the same structure, reduced (port of ``dp.allreduce_gradients``). The
-    i-th gradient is named ``"allreduce_gradients.<i>"`` every call, so
-    from the second call on the runtime answers them from its response
-    cache. Inside ``buckets.prereduced()`` the gradients are returned as
-    they are; stage-2 ``ShardedGrads`` are refused."""
+    i-th gradient is named ``"<name>.<i>"`` every call, so from the second
+    call on the runtime answers them from its response cache. Inside
+    ``buckets.prereduced()`` the gradients are returned as they are;
+    stage-2 ``ShardedGrads`` are refused."""
     if isinstance(grads, zero.ShardedGrads):
         raise TypeError(
             "allreduce_gradients got a zero.ShardedGrads: stage-2 gradients "
@@ -225,7 +229,7 @@ def allreduce_gradients(grads, *, average: bool = True,
     keys = list(grads) if isinstance(grads, dict) else None
     tensors = [grads[k] for k in keys] if keys is not None else list(grads)
     out = collectives.grouped_allreduce(tensors, average=average,
-                                        name="allreduce_gradients",
+                                        name=name,
                                         compression=compression)
     return dict(zip(keys, out)) if keys is not None else out
 

@@ -448,6 +448,9 @@ class ShardedOptimizer:
     parameter's ``.grad`` (or take ``grads=``, a :class:`ShardedGrads`),
     with the state made at the first step (:attr:`state`)."""
 
+    #: it reduce-scatters the gradients itself (``training.make_train_step``)
+    exchanges_gradients = True
+
     def __init__(self, optimizer: torch.optim.Optimizer, named_parameters,
                  average: bool, compression, sparse_as_dense: bool,
                  partition):
@@ -611,6 +614,8 @@ class ShardedAdamW(NamedTuple):
 
     init: callable
     apply: callable
+    #: ``apply`` reduce-scatters the gradients itself
+    exchanges_gradients = True
 
 
 def sharded_adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
@@ -629,8 +634,19 @@ def sharded_adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
 
     Stage 2: ``apply`` takes :class:`ShardedGrads` in place of ``grads``
     and skips its reduce-scatter. Stage 3: ``init`` and ``apply`` over
-    :class:`ShardedParams`; ``apply`` returns new ``ShardedParams`` made
-    of the kernel's parameter-dtype output shards and gathers nothing."""
+    :class:`ShardedParams`; ``apply`` returns new ``ShardedParams`` of the
+    kernel's parameter shards and gathers nothing.
+
+    A float32 group's parameter shard is its master shard itself
+    (``flat_adamw_shard``): stage 1 and 2 allgather the master, and stage
+    3's ``ShardedParams`` hold it, so the next ``apply`` updates them in
+    place (``init`` copies the user's shards, which never alias it). Every
+    reader of the master waits on its gather's handle, which orders the
+    compute stream, where the next update runs, after the gather on the
+    runtime's stream: ``_gather_into`` waits on all of them, and
+    ``iter_param_buckets`` on every gather it dispatched, its prefetch
+    window too, when it ends or is closed. A bfloat16 group's shard is a
+    new tensor each step."""
 
     @torch.no_grad()
     def init(params) -> FlatAdamState:

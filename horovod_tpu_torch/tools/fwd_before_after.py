@@ -96,10 +96,11 @@ def worker(checkout: Path, iters: int, calls: int) -> dict:
             "host_us": host}
 
 
-def in_turns(script: Path, other: Path, turns: int, args: list) -> int:
+def run_turns(script: Path, other: Path, turns: int, args: list) -> tuple:
     """Run ``script --worker <checkout> *args`` in ``2 * turns`` processes,
-    other, this, this, other, ..., print each one's JSON line, then each
-    checkout's medians beside the card's name and power limit."""
+    other, this, this, other, ..., and print each one's JSON line as it
+    comes. Returns ``(0, rows)``, or the failing process's exit code and the
+    rows before it."""
     pair = (other.resolve(), HERE)
     rows = []
     for turn in range(turns):
@@ -109,23 +110,41 @@ def in_turns(script: Path, other: Path, turns: int, args: list) -> int:
                  *args], capture_output=True, text=True)
             if out.returncode:
                 print(out.stderr[-4000:], file=sys.stderr)
-                return out.returncode
+                return out.returncode, rows
             rows.append(json.loads(out.stdout.strip().splitlines()[-1]))
             print(json.dumps(rows[-1]), flush=True)
-    medians = {}
-    for checkout in pair:
-        mine = [r for r in rows if r["checkout"] == str(checkout)]
-        medians[str(checkout)] = {
-            what: {key: statistics.median(r[what][key] for r in mine)
-                   for key in mine[0][what]}
-            for what in ("ms", "host_us")}
-    print(json.dumps({"medians": medians, "args": args,
+    return 0, rows
+
+
+def medians(rows: list, what=("ms", "host_us")) -> dict:
+    """{checkout: {key in ``what``: {name: median over its processes}}}."""
+    out = {}
+    for checkout in dict.fromkeys(r["checkout"] for r in rows):
+        mine = [r for r in rows if r["checkout"] == checkout]
+        out[checkout] = {
+            w: {key: statistics.median(r[w][key] for r in mine)
+                for key in mine[0][w]}
+            for w in what}
+    return out
+
+
+def in_turns(script: Path, other: Path, turns: int, args: list) -> int:
+    """:func:`run_turns`, then each checkout's medians beside the card's
+    name and power limit."""
+    rc, rows = run_turns(script, other, turns, args)
+    if rc:
+        return rc
+    print(json.dumps({"medians": medians(rows), "args": args,
                       "card": this_timer().card_line()}), flush=True)
     return 0
 
 
-def parse_args(description: str) -> argparse.Namespace:
+def parse_args(description: str, extra=()) -> argparse.Namespace:
+    """The tools' shared options, and ``extra`` ``(flag, kwargs)`` pairs
+    of one tool."""
     ap = argparse.ArgumentParser(description=description)
+    for flag, kw in extra:
+        ap.add_argument(flag, **kw)
     ap.add_argument("--other", type=Path,
                     help="the checkout to compare with this one")
     ap.add_argument("--turns", type=int, default=2)

@@ -4,8 +4,11 @@ Port of the part of ``horovod_tpu/training.py`` that the port's paths
 run: the default loss and a train step, with the bucket-wise gradient
 release (``parallel/buckets.py``). The JAX package jits one step (or a
 ``lax.scan`` round of steps) over the global batch; here a step is eager
-PyTorch, one process per GPU, and the gradient exchange is the hooks' of
-:func:`horovod_tpu_torch.DistributedOptimizer` or a release plan's.
+PyTorch, one process per GPU, and the gradient exchange is the
+optimizer's own (the hooks of :func:`horovod_tpu_torch.DistributedOptimizer`,
+the ZeRO optimizers' reduce-scatter), a release plan's or, when neither
+exchanges, the step's: it averages the gradients over the world, so every
+optimizer sees the global batch's gradient as the JAX step does.
 ``create_train_state``'s broadcast of ``params`` and ``batch_stats`` from
 rank 0 is ``hvd.broadcast_parameters(model.state_dict(), root_rank=0)``:
 the state dict holds both.
@@ -18,7 +21,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from horovod_tpu_torch.parallel import buckets, zero
+from horovod_tpu_torch.core import basics
+from horovod_tpu_torch.parallel import buckets, dp, zero
 
 
 def default_loss_fn(logits: torch.Tensor,
@@ -53,7 +57,12 @@ def make_train_step(model: torch.nn.Module, optimizer,
     ``optimizer`` is a ``torch.optim`` optimizer (a
     ``DistributedOptimizer``, ``sharded_update``'s) or a step-level one
     with ``init``/``apply`` (``sharded_adamw``, ``fused_adamw``), whose
-    state the step keeps.
+    state the step keeps. An optimizer whose ``exchanges_gradients`` is
+    true (``DistributedOptimizer``, ``sharded_update``'s, ``sharded_adamw``)
+    exchanges the gradients itself; for any other, without a plan, the
+    step averages them over the world (``allreduce_gradients`` under the
+    names ``train_step.grads.<i>``, the same every step) before the update,
+    when ``init()`` has made a world of more than one rank.
 
     ``grad_release`` (``None`` follows ``HOROVOD_GRAD_BUCKET_RELEASE``, a
     :class:`~horovod_tpu_torch.parallel.buckets.GradReleasePlan`, or
@@ -68,6 +77,20 @@ def make_train_step(model: torch.nn.Module, optimizer,
     params = dict(model.named_parameters())
     step_level = hasattr(optimizer, "apply")
     box = [optimizer.init(params)] if step_level else None
+    # the JAX step always takes the global batch's gradient
+    # (horovod_tpu/training.py:186-195): average it here when nothing else
+    # exchanges it
+    averages = plan is None and not getattr(optimizer, "exchanges_gradients",
+                                            False)
+
+    def world_average() -> dict:
+        """The gradients averaged over the world when the step exchanges
+        them (see above) and ``init()`` made more than one rank; else {}."""
+        if not (averages and basics.is_initialized() and basics.size() > 1):
+            return {}
+        return dp.allreduce_gradients(
+            {k: p.grad for k, p in params.items() if p.grad is not None},
+            name="train_step.grads")
 
     def zero_grad():
         if step_level:
@@ -79,6 +102,7 @@ def make_train_step(model: torch.nn.Module, optimizer,
         if step_level:
             if grads is None:
                 grads = {k: p.grad for k, p in params.items()}
+                grads.update(world_average())
             _, box[0] = optimizer.apply(params, box[0], grads)
         elif isinstance(grads, zero.ShardedGrads):
             if not isinstance(optimizer, zero.ShardedOptimizer):
@@ -88,6 +112,8 @@ def make_train_step(model: torch.nn.Module, optimizer,
                     "partition=plan.zero_partition(params)")
             optimizer.step(grads=grads)
         else:
+            for k, g in world_average().items():
+                params[k].grad = g
             optimizer.step()
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -270,30 +270,57 @@ def test_adamw_multi_bit_equal_to_plain_on_card(cuda, dtypes):
     assert fadam.LAUNCHES["adamw_multi"] == 3  # one launch a step
 
 
+#: lengths for the flat kernel: (whole tiles of its ring, elements more,
+#: 16-byte units the shard starts into its buffer)
+FLAT_SIZES = {"1": (0, 1, 0), "3": (0, 3, 0), "127": (0, 127, 0),
+              "16385": (0, 16385, 0), "2^20+3": (0, (1 << 20) + 3, 0),
+              "tile-4": (1, -4, 0), "tile": (1, 0, 0), "tile+4": (1, 4, 0),
+              # many tiles a block: the ring wraps
+              "2048 tiles+5": (2048, 5, 0),
+              # off every tile's boundary
+              "3 tiles+8 at 16 bytes": (3, 8, 1)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 127, 16385, (1 << 20) + 3])
+@pytest.mark.parametrize("size", list(FLAT_SIZES))
 @pytest.mark.parametrize("grad_dtype,out_dtype", [(F32, F32), (BF16, BF16),
-                                                  (F32, BF16)])
-def test_flat_adamw_bit_equal_to_plain_on_card(cuda, n, grad_dtype,
+                                                  (F32, BF16), (BF16, F32)])
+def test_flat_adamw_bit_equal_to_plain_on_card(cuda, size, grad_dtype,
                                                out_dtype):
     """The flat ZeRO AdamW kernel against its plain version on copies, 3
-    steps, ragged lengths and bf16 gradients/outputs: bit-equal."""
+    steps: ragged lengths, the edges of its ring's tiles, a shard that
+    starts 16 bytes off a tile's boundary, f32 and bf16 gradients and
+    outputs; bit-equal. For f32 output the parameters are master's
+    storage, for bf16 a tensor of their own."""
     from horovod_tpu_torch.ops import fused_adamw as fadam
     from horovod_tpu_torch.ops import fused_optimizer as fopt
 
+    tiles, extra, offset = FLAT_SIZES[size]
+    n = tiles * fopt.tile_elems() + extra
     gen = torch.Generator(cuda).manual_seed(3)
-    master, mu, nu, grad = _adam_leaf(n, (F32, F32, F32, grad_dtype), gen,
-                                      cuda)
+    leaf = _adam_leaf(n, (F32, F32, F32, grad_dtype), gen, cuda)
+    master, mu, nu, grad = leaf
+    if offset:
+        master, mu, nu, grad = [
+            torch.zeros(n + 16 * offset // t.element_size(), dtype=t.dtype,
+                        device=cuda)[16 * offset // t.element_size():]
+            for t in leaf]
+        for dst, src in zip((master, mu, nu, grad), leaf):
+            dst.copy_(src)
+        assert all(t.data_ptr() % 64 == 16 for t in (master, mu, nu, grad))
     ref = [t.clone() for t in (master, mu, nu)]
+    fopt.reset_launch_counts()
     for step in range(1, 4):
         sc = fadam.adamw_scalars(step, 0.9, 0.999, 1e-3, 1e-2)
         p, *_ = fopt.flat_adamw_shard(master, mu, nu, grad, sc, eps=1e-8,
                                       out_dtype=out_dtype)
+        assert (p.data_ptr() == master.data_ptr()) == (out_dtype == F32)
         want = fopt.flat_adamw_reference(*ref, grad, sc, 1e-8, out_dtype)
         ref = list(want[1:])
         torch.cuda.synchronize()
         for a, b in zip((p, master, mu, nu), want):
             assert a.dtype == b.dtype and torch.equal(a, b)
+    assert fopt.LAUNCHES["flat_adamw"] == 3
 
 
 @pytest.mark.gpu

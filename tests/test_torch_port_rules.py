@@ -312,11 +312,12 @@ def test_forward_mainloop_header_is_a_source_of_both_forward_libraries():
 def test_sass_witness_counts_the_forward_kernels_instructions(monkeypatch):
     """``chip_smoke.py``'s witness that the design reached the card: the
     functions of ``cuobjdump -sass`` are demangled with their template
-    arguments, and their HGMMA, UTMALDG and SYNCS instructions counted,
-    predicated ones included: the forward's, the probe's, the backward's
-    (dq, dk/dv, fused) and the conv's kernels (an instance by its N tile,
-    not a head dim), and none in a kernel without them, read by its name
-    alone when it has no template arguments."""
+    arguments, and their HGMMA, UTMALDG, UBLKCP and SYNCS instructions
+    counted, predicated ones included: the forward's, the probe's, the
+    backward's (dq, dk/dv, fused) and the conv's kernels (an instance by
+    its N tile, not a head dim), the flat AdamW kernel's bulk copies, and
+    none in a kernel without them, read by its name alone when it has no
+    template arguments."""
     import types
 
     import chip_smoke
@@ -348,67 +349,88 @@ def test_sass_witness_counts_the_forward_kernels_instructions(monkeypatch):
         /*0030*/                   SYNCS.ARRIVE.TRANS64.A1T0 RZ, [UR4], RZ ;
                 Function : _ZN49_GLOBAL__N__2a1f5c3b_16_conv_bn_stats_cu_5b1d9e2e17column_sum_kernelEPKfS1_PfS2_ii
         /*0010*/                   FADD R4, R4, R5 ;
+                Function : _ZN40_GLOBAL__N__4c957c12_8_adamw_cu_8b6950d017flat_adamw_kernelI13__nv_bfloat16fEEvPfS2_S2_PKT_PT0_lNS_7ScalarsE
+        /*0010*/                   SYNCS.EXCH.64 URZ, [UR4], UR6 ;
+        /*0020*/                   UBLKCP.S.G [UR8], [UR10], UR12 ;
+        /*0030*/                   UBLKCP.S.G [UR8], [UR14], UR12 ;
 """
     monkeypatch.setattr(chip_smoke.kernel_build, "nvcc",
                         lambda: "/opt/cuda/bin/nvcc")
     monkeypatch.setattr(chip_smoke.subprocess, "run",
                         lambda *a, **k: types.SimpleNamespace(stdout=sass))
+    wgmma = {"UBLKCP": 0}
     assert chip_smoke.sass_counts("attention_probe") == {
         "probe_fwd_kernel<128,64,false>": {"HGMMA": 2, "UTMALDG": 1,
-                                           "SYNCS": 1},
-        "flash_bwd_dq_kernel<128>": {"HGMMA": 2, "UTMALDG": 1, "SYNCS": 1},
-        "flash_bwd_dkv_kernel<64>": {"HGMMA": 1, "UTMALDG": 1, "SYNCS": 1},
-        "flash_bwd_fused_kernel<128>": {"HGMMA": 1, "UTMALDG": 1, "SYNCS": 1},
-        "conv3x3_stats_kernel<128>": {"HGMMA": 1, "UTMALDG": 1, "SYNCS": 1},
-        "column_sum_kernel": {"HGMMA": 0, "UTMALDG": 0, "SYNCS": 0}}
+                                           "SYNCS": 1, **wgmma},
+        "flash_bwd_dq_kernel<128>": {"HGMMA": 2, "UTMALDG": 1, "SYNCS": 1,
+                                     **wgmma},
+        "flash_bwd_dkv_kernel<64>": {"HGMMA": 1, "UTMALDG": 1, "SYNCS": 1,
+                                     **wgmma},
+        "flash_bwd_fused_kernel<128>": {"HGMMA": 1, "UTMALDG": 1, "SYNCS": 1,
+                                        **wgmma},
+        "conv3x3_stats_kernel<128>": {"HGMMA": 1, "UTMALDG": 1, "SYNCS": 1,
+                                      **wgmma},
+        "column_sum_kernel": dict.fromkeys(chip_smoke.SASS_OPS, 0),
+        "flat_adamw_kernel<bf16,f32>": {"HGMMA": 0, "UTMALDG": 0,
+                                        "UBLKCP": 2, "SYNCS": 1}}
 
 
 def _witness_counts(missing=None, lacking=None):
     """SASS counts of every instance the witness expects, less the
-    instance ``missing`` and with no UTMALDG in ``lacking``."""
+    instance ``missing`` and with none of its own copy instruction
+    (UTMALDG, or UBLKCP for the flat AdamW kernel) in ``lacking``."""
     import chip_smoke
 
-    counts = {lib: {} for lib in chip_smoke.WGMMA_KERNELS}
-    for lib, kernels in chip_smoke.WGMMA_KERNELS.items():
-        for kernel, firsts in kernels.items():
+    counts = {lib: {} for lib in chip_smoke.HOPPER_KERNELS}
+    for lib, kernels in chip_smoke.HOPPER_KERNELS.items():
+        for kernel, (firsts, ops) in kernels.items():
             args = ("64,64,true", "128,128,true", "128,64,false") \
                 if kernel == "probe_fwd_kernel" else firsts
             for a in args:
-                counts[lib][f"{kernel}<{a}>"] = {"HGMMA": 8, "UTMALDG": 4,
-                                                 "SYNCS": 20}
+                counts[lib][f"{kernel}<{a}>"] = {
+                    op: (20 if op == "SYNCS" else 4) if op in ops else 0
+                    for op in chip_smoke.SASS_OPS}
     # a kernel of a witnessed library that is not witnessed
     counts["conv_bn_stats"]["column_sum_kernel"] = dict.fromkeys(
         chip_smoke.SASS_OPS, 0)
     for lib in counts:
         counts[lib].pop(missing, None)
         if lacking in counts[lib]:
-            counts[lib][lacking]["UTMALDG"] = 0
+            copy = "UBLKCP" if lib == "adamw" else "UTMALDG"
+            counts[lib][lacking][copy] = 0
     return counts
 
 
 @pytest.mark.parametrize("fault", [None, "missing", "lacking", "serialised",
-                                   "conv missing", "fused lacking"])
+                                   "conv missing", "fused lacking",
+                                   "flat lacking"])
 def test_sass_witness_holds_every_wgmma_kernel_at_both_head_dims(
         monkeypatch, fault):
-    """``chip_smoke.wgmma_witness`` holds the forward, dq, dk/dv and fused
+    """``chip_smoke.hopper_witness`` holds the forward, dq, dk/dv and fused
     backward kernels of ``flash_attention`` and the probe kernel of
     ``attention_probe`` to HGMMA, UTMALDG and SYNCS in a D64 and a D128
-    instance each, and the conv kernel of ``conv_bn_stats`` in its N-tile
-    instances of 64 and 128 (its own entry: it has no head dim): it fails
-    when an instance is missing or lacks one of them, or when ptxas
-    reports a serialised wgmma."""
+    instance each, the conv kernel of ``conv_bn_stats`` in its N-tile
+    instances of 64 and 128 (its own entry: it has no head dim), and the
+    flat AdamW kernel of ``adamw`` to UBLKCP (1-D bulk copies) and SYNCS in
+    its f32 and bf16 gradient instances: it fails when an instance is
+    missing or lacks one of them, or when ptxas reports a serialised
+    wgmma."""
     import chip_smoke
 
-    assert chip_smoke.WGMMA_KERNELS["flash_attention"] == dict.fromkeys(
+    wgmma = (chip_smoke.HEAD_DIMS, chip_smoke.WGMMA_OPS)
+    assert chip_smoke.HOPPER_KERNELS["flash_attention"] == dict.fromkeys(
         ["flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-         "flash_bwd_fused_kernel"], chip_smoke.HEAD_DIMS)
-    assert chip_smoke.WGMMA_KERNELS["conv_bn_stats"] == {
-        "conv3x3_stats_kernel": ("64", "128")}
+         "flash_bwd_fused_kernel"], wgmma)
+    assert chip_smoke.HOPPER_KERNELS["conv_bn_stats"] == {
+        "conv3x3_stats_kernel": (("64", "128"), chip_smoke.WGMMA_OPS)}
+    assert chip_smoke.HOPPER_KERNELS["adamw"] == {
+        "flat_adamw_kernel": (("f32", "bf16"), ("UBLKCP", "SYNCS"))}
     counts = _witness_counts(
         missing={"missing": "flash_bwd_dkv_kernel<128>",
                  "conv missing": "conv3x3_stats_kernel<64>"}.get(fault),
         lacking={"lacking": "flash_bwd_dq_kernel<64>",
-                 "fused lacking": "flash_bwd_fused_kernel<128>"}.get(fault))
+                 "fused lacking": "flash_bwd_fused_kernel<128>",
+                 "flat lacking": "flat_adamw_kernel<bf16>"}.get(fault))
     ptxas = ("ptxas info    : (C7512) Potential Performance Loss: "
              "wgmma.mma_async instructions are serialized due to "
              "insufficient register resources" if fault == "serialised"
@@ -418,10 +440,10 @@ def test_sass_witness_holds_every_wgmma_kernel_at_both_head_dims(
                         lambda lib: ptxas)
     monkeypatch.setattr(chip_smoke, "log", lambda msg: None)
     if fault is None:
-        chip_smoke.wgmma_witness()
+        chip_smoke.hopper_witness()
     else:
         with pytest.raises(SystemExit):
-            chip_smoke.wgmma_witness()
+            chip_smoke.hopper_witness()
 
 
 def test_backward_kernels_run_the_hopper_backward_mainloop():

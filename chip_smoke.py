@@ -75,6 +75,22 @@ Phases (any failure exits non-zero):
    equal phase 4's, bit for bit unless a library kernel is
    nondeterministic, within 1e-5 relative; both step times are printed
    beside the card's name and power limit.
+4c. The hooks path on each cycle engine, in turns: ``HOROVOD_NATIVE_CYCLE``
+   1, 0, 0, 1 (the C++ response cache and bin-packer of ``cpp/cycle.cc``,
+   then the Python ones), 2 warm-up and 3 timed steps each, then once
+   each at ``HOROVOD_FUSION_THRESHOLD=0``. Every run's losses bit-equal
+   to the first's; cache hits, slabs and groups a step equal in every run,
+   and at threshold 0 allreduce calls and responses too (fused bins follow
+   when autograd's hooks fire, so their count varies from step to step);
+   the native runs' cache a ``NativeResponseCache`` and their bins from the
+   native bin-packer, the Python runs' neither; ``hvd.metrics()`` moved by
+   what ``COUNTS`` shows (cycles equal, cache-hit lookups twice the hits);
+   each run's step ms and cycle host ms a step beside the card's name and
+   power limit. Then two steps with ``HOROVOD_TIMELINE``,
+   ``HOROVOD_TIMELINE_MARK_CYCLES=1`` and ``HOROVOD_METRICS_PORT=0``: the
+   trace parses and holds ``CYCLE_<n>`` markers, ``"C"`` counter events,
+   ``NCCL_ALLREDUCE`` activities and its drop count; ``GET /metrics``
+   serves the cycle, cache and fusion families.
 5. The optimizer paths, each on the same model, data and steps as phase 4:
    (P1) ``allreduce_gradients`` then ``fused_adamw(1e-4).apply`` (the
    multi-tensor kernel once a step, 388 allreduces a step); (P2) ZeRO-1
@@ -171,6 +187,7 @@ same code on the CPU at tiny sizes and prints neither JSON line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import gc
 import json
@@ -180,12 +197,17 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.request
 
 import numpy as np
 import torch
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.core import state as state_mod
+from horovod_tpu_torch.metrics import flatten_snapshot
+from horovod_tpu_torch.metrics import registry as metrics_registry
 from horovod_tpu_torch.models import inception as inc
 from horovod_tpu_torch.models.inception import InceptionV3
 from horovod_tpu_torch.models.resnet import BatchNormReLU, ResNet50
@@ -200,6 +222,7 @@ from horovod_tpu_torch.ops import fused_adamw as fadam
 from horovod_tpu_torch.ops import fused_optimizer as fopt
 from horovod_tpu_torch.parallel import zero as zero_mod
 from horovod_tpu_torch.parallel.zero import LeafMeta, build_spec, dtype_name
+from horovod_tpu_torch.runtime import fusion as fusion_mod
 from horovod_tpu_torch.runtime import runtime as hrt
 from horovod_tpu_torch.tools import conv_bn_probe as probe
 from horovod_tpu_torch.tools import flash_vpu_probe as vprobe
@@ -268,7 +291,7 @@ FULL = dict(
     tiny=dict(vocab_size=512, d_model=128, num_layers=2, num_heads=2,
               d_ff=512, max_seq=128), tiny_batch=2,
     model=dict(vocab_size=30522, max_seq=512), batch=8, seq=512,
-    warmup=2, steps=10, opt_iters=20,
+    warmup=2, steps=10, opt_iters=20, engine_steps=(2, 3),
     inception=dict(batch=32, size=299, classes=1000, dtype=BF16),
     tiny_inception=(8, 128), block_input=(4, 9),
     sba_iters=10,
@@ -291,7 +314,7 @@ DRY = dict(
     tiny=dict(vocab_size=64, d_model=128, num_layers=1, num_heads=2,
               d_ff=256, max_seq=32), tiny_batch=2,
     model=dict(vocab_size=1000, max_seq=64, num_layers=1), batch=2, seq=64,
-    warmup=1, steps=2, opt_iters=2,
+    warmup=1, steps=2, opt_iters=2, engine_steps=(1, 1),
     inception=dict(batch=2, size=75, classes=10, dtype=F32), sba_iters=1,
     tiny_inception=(2, 75), block_input=(2, 5),
     probe_shapes=((2, 6, 32),), probe_iters=1, profile_steps=1,
@@ -1720,7 +1743,8 @@ def train(cfg, device, card, path="hooks", profile=False,
         os.environ.pop(env.HOROVOD_FUSION_THRESHOLD, None)
 
 
-def _train(cfg, device, card, path, profile, threshold=None) -> dict:
+def _train(cfg, device, card, path, profile, threshold=None,
+           before_shutdown=None) -> dict:
     batch, seq = cfg["batch"], cfg["seq"]
     vocab = cfg["model"]["vocab_size"]
     tokens, positions, labels, n_pred = mlm_data(cfg)
@@ -1764,6 +1788,8 @@ def _train(cfg, device, card, path, profile, threshold=None) -> dict:
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
     if profile:
         breakdown(step, dev, statistics.median(times), cfg["profile_steps"])
+    if before_shutdown is not None:
+        before_shutdown()
     del model, params, held, step
     hvd.shutdown()
     free_memory(device)
@@ -1834,6 +1860,163 @@ def _train(cfg, device, card, path, profile, threshold=None) -> dict:
         log(f"  held: {shard_text}")
     return dict(losses=losses, launches=launches, step_ms=1e3 * step_s,
                 runtime=issued)
+
+
+@contextlib.contextmanager
+def knobs(**values):
+    """Environment knobs set for one run, restored after it."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def engine_run(cfg, device, card, engine: str, threshold=None,
+               inspect=None) -> dict:
+    """One hooks run of phase 4c with ``HOROVOD_NATIVE_CYCLE`` set for
+    ``engine`` ("native" or "python"): the calls of the native bin-packer
+    counted, the runtime's cache read before shutdown (and ``inspect()``
+    called there), and the metrics registry's moves over the run held
+    against those of ``COUNTS``: ``horovod_cycles_total`` by
+    ``COUNTS["cycles"]``, ``horovod_response_cache_hits_total`` by twice
+    ``COUNTS["cache_hits"]`` (a request answered from the cache is looked
+    up at its announcement and when the agreed list is applied, as in the
+    JAX package). Both are read once the run's runtime has stopped."""
+    native = engine == "native"
+    real, calls, seen = fusion_mod._bins_native, [0], {}
+
+    def counted(*args):
+        calls[0] += 1
+        return real(*args)
+
+    def before_shutdown():
+        ctrl = state_mod.global_state().runtime.controller
+        seen.update(cache=type(ctrl.cache).__name__,
+                    native=ctrl.native_engine)
+        if inspect is not None:
+            inspect()
+
+    extra = {} if threshold is None else {
+        env.HOROVOD_FUSION_THRESHOLD: threshold}
+    before, counts = flatten_snapshot(hvd.metrics()), dict(hrt.COUNTS)
+    fusion_mod._bins_native = counted
+    try:
+        with knobs(**{env.HOROVOD_NATIVE_CYCLE: int(native)}, **extra):
+            run = _train(cfg, device, card, "hooks", False, threshold,
+                         before_shutdown=before_shutdown)
+    finally:
+        fusion_mod._bins_native = real
+    after = flatten_snapshot(hvd.metrics())
+    moved = {k: after.get(k, 0) - before.get(k, 0)
+             for k in ("horovod_cycles_total",
+                       "horovod_response_cache_hits_total")}
+    counted_moves = {k: hrt.COUNTS[k] - counts[k]
+                     for k in ("cycles", "cache_hits")}
+    log(f"  engine {engine}: cache {seen['cache']}, native bin-packer "
+        f"calls {calls[0]}; metrics moved {moved}, COUNTS moved "
+        f"{counted_moves}")
+    check(seen == dict(cache="NativeResponseCache" if native
+                       else "ResponseCache", native=native),
+          f"{engine} run's runtime used {seen}")
+    check((calls[0] > 0) == native,
+          f"{engine} run called the native bin-packer {calls[0]} times")
+    check(moved["horovod_cycles_total"] == counted_moves["cycles"] > 0,
+          f"cycles moved {moved}, COUNTS {counted_moves}")
+    check(moved["horovod_response_cache_hits_total"]
+          == 2 * counted_moves["cache_hits"] > 0,
+          f"cache hits moved {moved}, COUNTS {counted_moves}")
+    run.update(engine=engine, cycle_ms=statistics.median(
+        run["runtime"]["cycle_ms"][cfg["warmup"]:]))
+    return run
+
+
+def compare_engines(cfg, device, card) -> None:
+    """Phase 4c: the hooks path on the native cycle engine and on the
+    Python one, in turns (native, Python, Python, native), then once each
+    at threshold 0; then two steps with the trace and the metrics
+    endpoint on."""
+    warmup, steps = cfg["engine_steps"]
+    cfg = dict(cfg, warmup=warmup, steps=steps)
+    runs = [engine_run(cfg, device, card, e)
+            for e in ("native", "python", "python", "native")]
+    t0 = [engine_run(cfg, device, card, e, threshold=0)
+          for e in ("native", "python")]
+    for group, keys in ((runs, ("cache_hits", "slabs", "groups")),
+                        (t0, ("allreduce", "responses", "cache_hits",
+                              "slabs", "groups"))):
+        for r in group:
+            check(r["losses"] == runs[0]["losses"],
+                  f"{r['engine']} losses {r['losses']} not bit-equal to "
+                  f"{runs[0]['losses']}")
+            check(r["runtime"]["allreduce"] == r["runtime"]["responses"],
+                  f"{r['engine']}: allreduce calls and responses differ")
+            for k in keys:
+                check(r["runtime"][k] == group[0]["runtime"][k],
+                      f"{k} a step differ across engines: "
+                      f"{[g['runtime'][k] for g in group]}")
+    log("phase 4c: losses bit-equal on both engines; cache hits, slabs and "
+        "groups a step equal in every run; at threshold 0 also allreduce "
+        "calls and responses (fused bins follow the hooks' timing)")
+    where = "(no device times)" if device.type != "cuda" else f"({card})"
+    for label, group in (("fused", runs), ("threshold 0", t0)):
+        for r in group:
+            log(f"  engines, {label}, {r['engine']}: step "
+                f"{r['step_ms']:.2f} ms median, cycle host "
+                f"{r['cycle_ms']:.2f} ms a step (median), allreduce calls "
+                f"a step {r['runtime']['allreduce']} {where}")
+    trace_and_endpoint(cfg, device, card)
+
+
+def trace_and_endpoint(cfg, device, card) -> None:
+    """Phase 4c's last run: two hooks steps with ``HOROVOD_TIMELINE``,
+    ``HOROVOD_TIMELINE_MARK_CYCLES=1`` and ``HOROVOD_METRICS_PORT=0``. The
+    trace must parse, hold cycle markers, counter events and the
+    backend's allreduce activities, and report its drop count; ``GET
+    /metrics`` must serve the cycle and cache families."""
+    cfg = dict(cfg, warmup=1, steps=1)
+    backend = "NCCL" if device.type == "cuda" else "GLOO"
+    served = {}
+
+    def fetch():
+        port = metrics_registry().http_port
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=10) as resp:
+            served.update(status=resp.status, text=resp.read().decode())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with knobs(**{env.HOROVOD_TIMELINE: path,
+                      env.HOROVOD_TIMELINE_MARK_CYCLES: 1,
+                      env.HOROVOD_METRICS_PORT: 0}):
+            engine_run(cfg, device, card, "native", inspect=fetch)
+        with open(path) as f:
+            events = json.load(f)
+    names = [e.get("name", "") for e in events]
+    marks = sum(n.startswith("CYCLE_") for n in names)
+    counters = sum(e.get("ph") == "C" for e in events)
+    reduces = names.count(f"{backend}_ALLREDUCE")
+    drops = [e["args"]["count"] for e in events
+             if e.get("name") == "dropped_events"]
+    log(f"  trace: {len(events)} events, {marks} cycle markers, {counters} "
+        f"counter events, {reduces} {backend}_ALLREDUCE, dropped "
+        f"{drops}")
+    check(marks > 0 and counters > 0 and reduces > 0 and len(drops) == 1,
+          "the trace lacks cycle markers, counter events, allreduces or "
+          "its drop count")
+    text = served.get("text", "")
+    families = ("horovod_cycles_total", "horovod_response_cache_hits_total",
+                "horovod_fusion_bytes_total")
+    log(f"  GET /metrics: status {served.get('status')}, {len(text)} bytes, "
+        f"families {[f for f in families if f'# TYPE {f} ' in text]}")
+    check(served.get("status") == 200
+          and all(f"# TYPE {f} " in text for f in families),
+          "the metrics endpoint did not serve the runtime's families")
 
 
 def check_zero_runtime(cfg, path: str, per_step: dict) -> None:
@@ -2403,6 +2586,7 @@ def main() -> int:
             for path in PATHS}
     compare_losses(runs)
     compare_fusion(cfg, device, card, runs["hooks"])
+    compare_engines(cfg, device, card)
     if args.turns > 1:
         compare_in_turns(cfg, device, card, runs, args.turns)
     inception = train_inception(cfg, device, card, args.profile)

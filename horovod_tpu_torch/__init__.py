@@ -16,11 +16,17 @@ hand-written Hopper kernels (``csrc/``). The replicated fused AdamW is
 ``horovod_tpu_torch.ops.fused_adamw.fused_adamw``. Every collective goes
 through the enqueue runtime (``runtime/``): named, negotiated across the
 ranks, allreduces fused into one call a bin, on ``torch.distributed``
-(NCCL between GPUs, gloo on the CPU).
+(NCCL between GPUs, gloo on the CPU); ``hvd.metrics()`` is its metrics
+registry's snapshot.
 
 Entry points run on the card unless the caller asks for the CPU
 (``hvd.init(device="cpu")``). Nothing here imports JAX or the JAX package.
 """
+
+# The metrics module is loaded before ``metrics`` (the function) is bound
+# below: a submodule's first import makes it an attribute of the package,
+# which would otherwise replace the function.
+import horovod_tpu_torch.metrics  # noqa: F401
 
 from horovod_tpu_torch.core.basics import (  # noqa: F401
     init,
@@ -40,6 +46,7 @@ from horovod_tpu_torch.core.basics import (  # noqa: F401
     mpi_enabled,
     mpi_threads_supported,
     device,
+    metrics,
 )
 from horovod_tpu_torch.compression import Compression  # noqa: F401
 from horovod_tpu_torch.ops.collectives import (  # noqa: F401

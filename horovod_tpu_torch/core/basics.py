@@ -20,6 +20,12 @@ on every rank: the control group (gloo, for negotiation) and the data group
 the runtime's calls apart from any a user makes on the default group. The
 runtime itself starts at the first enqueue; ``shutdown()`` stops it before
 it destroys the groups.
+
+``init()`` parses the runtime's knobs once (``utils.env.Config``) and, when
+``HOROVOD_METRICS_PORT`` is set, serves the metrics registry over HTTP;
+``shutdown()`` stops the endpoint and, when ``HOROVOD_METRICS_DUMP`` is
+set, writes this rank's snapshot there. ``metrics()`` is the snapshot, at
+any time. Without those knobs no thread and no socket exist for metrics.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch.distributed as dist
 
 from horovod_tpu_torch.core import state as state_mod
 from horovod_tpu_torch.exceptions import NotInitializedError
+from horovod_tpu_torch.metrics import registry as metrics_registry
 from horovod_tpu_torch.runtime import types as runtime_types
 from horovod_tpu_torch.utils import env
 from horovod_tpu_torch.utils import logging as log
@@ -106,12 +113,16 @@ def init(device: Union[str, torch.device, None] = None) -> None:
         st.cross_rank = env._get_int(env.HOROVOD_CROSS_RANK,
                                      rank // max(local_size, 1))
         st.device, st.owns_group = device, owns_group
+        st.config = env.Config.from_env()
         st.control_group = dist.new_group(backend="gloo")
         st.data_group = dist.new_group(backend=backend)
         runtime_types.COUNTS["groups"] += 2
         st.initialized = True
         log.debug("initialized: size=%d rank=%d device=%s", size, rank,
                   device)
+        if st.config.metrics_port is not None:
+            port = metrics_registry().serve(st.config.metrics_port)
+            log.debug("metrics endpoint serving on port %d", port)
 
 
 def shutdown() -> None:
@@ -122,6 +133,13 @@ def shutdown() -> None:
             return
         if st.runtime is not None:
             st.runtime.stop()
+        reg = metrics_registry()
+        reg.stop_server()
+        if st.config.metrics_dump:
+            try:
+                reg.dump(st.config.metrics_dump, rank=st.rank)
+            except OSError as exc:
+                log.warning("could not write metrics dump: %s", exc)
         if dist.is_initialized():
             if st.owns_group:
                 dist.destroy_process_group()
@@ -165,6 +183,15 @@ def cross_size() -> int:
 def device() -> torch.device:
     """The device this process drives."""
     return _ensure_init().device
+
+
+def metrics() -> dict:
+    """The process-wide metrics registry's snapshot, a nested
+    JSON-serializable dict: cycles and their duration, queue depth, cache
+    hits and misses, fusion bytes and fill, each op's latency and bytes,
+    stall and timeline counters (``metrics.py``). Works before ``init()``
+    too; the counters move once the runtime runs."""
+    return metrics_registry().snapshot()
 
 
 def is_homogeneous() -> bool:

@@ -2,8 +2,9 @@
 
 One singleton holds the topology, the device this process drives, whether
 ``init()`` created the ``torch.distributed`` process group (and so must
-destroy it at ``shutdown()``), the enqueue runtime's two process groups
-and the runtime itself, started at the first enqueue."""
+destroy it at ``shutdown()``), the knobs ``init()`` parsed
+(``utils.env.Config``), the enqueue runtime's two process groups and the
+runtime itself, started at the first enqueue."""
 
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ class GlobalState:
 
     device: Optional[torch.device] = None
     owns_group: bool = False
+    # utils.env.Config, parsed once by init()
+    config: Any = None
 
     # the runtime's groups (core/basics.init): negotiation on gloo, the
     # collectives on NCCL (gloo on the CPU); the runtime (runtime/runtime.py)

@@ -16,9 +16,12 @@ The transport verbs are abstract (reference: controller.h:34-124):
   verbs on a gloo process group, the reference's own Gloo controller
   design.
 
-Not ported yet: the JAX package's collective deadline
-(``_check_collective_deadline``, ROADMAP A10), its straggler attribution
-and flight-recorder events (A11). The stall inspector is.
+The coordinator's stall inspector and straggler tracker (``stall.py``)
+read the message table's arrival times. The response cache and the
+bin-packing run on the engine ``HOROVOD_NATIVE_CYCLE`` picks (the C++ one
+by default). Not ported yet: the JAX package's collective deadline
+(``_check_collective_deadline``, ROADMAP A10) and its flight-recorder
+events (A11).
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from horovod_tpu_torch.runtime import message as msg
 from horovod_tpu_torch.runtime import types
 from horovod_tpu_torch.runtime.response_cache import (CacheCoordinator,
                                                       CacheState,
-                                                      ResponseCache)
+                                                      make_response_cache)
+from horovod_tpu_torch.utils import env
 
 
 class MessageTable:
@@ -44,19 +48,29 @@ class MessageTable:
         # inspector's age baseline (stall_inspector.cc stamps on
         # IncrementTensorCount, not on its own scan)
         self._first_request_time: Dict[str, float] = {}
+        # name -> {rank: monotonic arrival time}: the straggler tracker's
+        # input (resolution: one cycle)
+        self._arrivals: Dict[str, Dict[int, float]] = {}
 
     def increment(self, request: msg.Request, world: int) -> bool:
         """Record one worker's announcement; True once every worker has
         announced the tensor."""
+        now = time.monotonic()
         reqs = self._table.setdefault(request.tensor_name, [])
         if not reqs:
-            self._first_request_time[request.tensor_name] = time.monotonic()
+            self._first_request_time[request.tensor_name] = now
+        self._arrivals.setdefault(request.tensor_name, {})[request.rank] = now
         reqs.append(request)
         return len(reqs) == world
 
     def pop(self, name: str) -> List[msg.Request]:
         self._first_request_time.pop(name, None)
+        self._arrivals.pop(name, None)
         return self._table.pop(name, [])
+
+    def arrivals(self, name: str) -> Dict[int, float]:
+        """Each announcing rank's arrival time for ``name``."""
+        return dict(self._arrivals.get(name, {}))
 
     def first_request_time(self, name: str) -> Optional[float]:
         return self._first_request_time.get(name)
@@ -176,10 +190,16 @@ class Controller:
     # stall_inspector.cc:112+); the runtime sets it to the stall warning time
     STALE_HIT_SECONDS = 60.0
 
-    def __init__(self, rank: int, world: int, cache_capacity: int = 1024):
+    def __init__(self, rank: int, world: int, cache_capacity: int = 1024,
+                 native_engine: Optional[bool] = None):
         self.rank = rank
         self.world = world
-        self.cache = ResponseCache(cache_capacity)
+        # the engine of the cache and the bin-packing (default:
+        # HOROVOD_NATIVE_CYCLE); the native one raises here if its library
+        # cannot be built
+        self.native_engine = (env.native_cycle() if native_engine is None
+                              else native_engine)
+        self.cache = make_response_cache(cache_capacity, self.native_engine)
         self.cache_enabled = cache_capacity > 0
         self.message_table = MessageTable()  # coordinator only
         self._should_shut_down = False
@@ -195,6 +215,9 @@ class Controller:
         self._deferred_first_seen: Dict[str, float] = {}
         # synchronized invalidation notices for the next slow path
         self._invalidate_queue: List[str] = []
+        # the coordinator's straggler attribution (stall.StragglerTracker),
+        # attached by the runtime; None on workers
+        self.straggler = None
 
     # -- transport verbs (reference: controller.h:98-124) ------------------
     def sync_bitvectors(self, bits: int) -> Tuple[int, int]:
@@ -287,7 +310,8 @@ class Controller:
         # fast path (reference: controller.cc:98-107)
         if self.is_coordinator and stall_inspector is not None \
                 and len(self.message_table):
-            if stall_inspector.check(self.message_table, world=self.world):
+            if stall_inspector.check(self.message_table, world=self.world,
+                                     straggler=self.straggler):
                 self.request_shutdown()
 
         common_bits = sorted(CacheCoordinator.common_hits(anded))
@@ -330,6 +354,9 @@ class Controller:
                             ready_names.append(r.tensor_name)
                 negotiated: List[msg.Response] = []
                 for name in ready_names:
+                    arrivals = self.message_table.arrivals(name)
+                    if self.straggler is not None and arrivals:
+                        self.straggler.observe(name, arrivals)
                     reqs = self.message_table.pop(name)
                     if timeline is not None:
                         timeline.negotiate_end(name)
@@ -362,8 +389,8 @@ class Controller:
                             req)
             executable.append(resp)
 
-        fused = fusion.fuse_responses_py(executable, self._pending,
-                                         fusion_threshold)
+        fused = fusion.fuse_responses(executable, self._pending,
+                                      fusion_threshold, self.native_engine)
 
         for resp in fused:
             for name in resp.tensor_names:

@@ -34,8 +34,12 @@ the pack of bin k+1 is queued before bin k's unpack. A slab's lease goes
 back to the pool when its unpack is queued: every later use of the slab
 is on the same stream, so it is ordered after that unpack.
 
-Not ported yet: the hierarchy, integrity digests, comms accounting and the
-flight recorder (ROADMAP A8, A10, A11).
+Each response's host time from dispatch to completion, its bytes, its
+errors and the part of its time not hidden behind later dispatches are
+metrics (``horovod_executor_op_*`` by op, ``horovod_comm_exposed_seconds_
+total``); on the card these are the host's times of queueing the work, not
+the device's. Not ported yet: the hierarchy, integrity digests, comms
+accounting and the flight recorder (ROADMAP A8, A10, A11).
 """
 
 from __future__ import annotations
@@ -43,14 +47,34 @@ from __future__ import annotations
 import collections
 import contextlib
 import itertools
+import time
 from typing import Callable, List, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch import timeline as timeline_mod
+from horovod_tpu_torch.metrics import registry as _metrics
 from horovod_tpu_torch.runtime import types
 from horovod_tpu_torch.runtime.fusion_buffer import FusionBufferManager
+
+_OP_LATENCY = _metrics().histogram(
+    "horovod_executor_op_duration_seconds",
+    "Wall time executing one (possibly fused) response, per op type.",
+    labelnames=("op",))
+_OP_BYTES = _metrics().counter(
+    "horovod_executor_op_bytes_total",
+    "Per-worker payload bytes executed, per op type.", labelnames=("op",))
+_OP_ERRORS = _metrics().counter(
+    "horovod_executor_op_errors_total",
+    "Responses that completed with an error status, per op type.",
+    labelnames=("op",))
+_COMM_EXPOSED = _metrics().counter(
+    "horovod_comm_exposed_seconds_total",
+    "Collective wall time NOT hidden behind other in-flight work: dispatch "
+    "busy time plus drain (device sync + unpack) time, summed across ops. "
+    "Compare against the horovod_executor_op_duration_seconds sum for the "
+    "comm-hidden fraction.")
 
 _TORCH_OPS = {types.REDUCE_SUM: dist.ReduceOp.SUM,
               types.REDUCE_AVERAGE: dist.ReduceOp.SUM,
@@ -103,23 +127,36 @@ class _PendingOp:
     fires every entry's callback once and releases the slab's lease on
     success and failure alike. Tokens complete in dispatch order."""
 
-    __slots__ = ("executor", "entries", "timeline", "name0", "finish",
-                 "done", "lease")
+    __slots__ = ("executor", "op", "entries", "timeline", "name0", "finish",
+                 "done", "lease", "t0", "t_disp_end", "t_drain_start")
 
-    def __init__(self, executor: "Executor", entries, timeline):
+    def __init__(self, executor: "Executor", op: str, entries, timeline):
         self.executor = executor
+        self.op = op
         self.entries = entries
         self.timeline = timeline
         self.name0 = entries[0].name if entries else "?"
         self.finish: Optional[Callable[[], None]] = None
         self.done = False
         self.lease = None
+        # dispatch start, dispatch end and drain start: the gap between the
+        # last two is the time the op's work stood queued behind later
+        # dispatches, hidden from the caller
+        self.t0 = time.perf_counter()
+        self.t_disp_end: Optional[float] = None
+        self.t_drain_start: Optional[float] = None
 
     def _close(self) -> None:
         self.done = True
         if self.lease is not None:
             self.executor.fusion_buffers.release(self.lease)
             self.lease = None
+        t_end = time.perf_counter()
+        total = t_end - self.t0
+        _OP_LATENCY.labels(op=self.op).observe(total)
+        disp_end = min(self.t_disp_end or t_end, t_end)
+        drain_start = min(self.t_drain_start or t_end, t_end)
+        _COMM_EXPOSED.inc(max(0.0, total - max(0.0, drain_start - disp_end)))
         if self.timeline is not None:
             self.timeline.end(self.name0)
 
@@ -128,6 +165,9 @@ class _PendingOp:
         collective_operations.cc:202-205). Idempotent."""
         if self.done:
             return
+        if self.t_drain_start is None:
+            self.t_drain_start = time.perf_counter()
+        _OP_ERRORS.labels(op=self.op).inc()
         for e in self.entries:
             e.complete(status, None)
         self._close()
@@ -135,6 +175,8 @@ class _PendingOp:
     def complete(self) -> None:
         if self.done:
             return
+        if self.t_drain_start is None:
+            self.t_drain_start = time.perf_counter()
         try:
             if self.finish is not None:
                 self.finish()
@@ -142,6 +184,8 @@ class _PendingOp:
             self.fail(types.Status.UnknownError(
                 f"{type(exc).__name__}: {exc}"))
             return
+        _OP_BYTES.labels(op=self.op).inc(
+            sum(types.entry_nbytes(e) for e in self.entries))
         ok = types.Status.OK()
         for e in self.entries:
             e.complete(ok, e.output)
@@ -206,7 +250,7 @@ class Executor:
         """Launch one (fused) response and return its pending token
         (reference: PerformOperation, operations.cc:211-279: statuses go
         through the entries' callbacks, an ERROR response fails them all)."""
-        pend = _PendingOp(self, entries, timeline)
+        pend = _PendingOp(self, response.response_type, entries, timeline)
         try:
             if timeline is not None:
                 timeline.start(pend.name0, response.response_type)
@@ -229,6 +273,8 @@ class Executor:
         except Exception as exc:
             pend.fail(types.Status.UnknownError(
                 f"{type(exc).__name__}: {exc}"))
+        if pend.t_disp_end is None:
+            pend.t_disp_end = time.perf_counter()
         return pend
 
     def _dispatch_allreduce(self, entries, timeline, pend):

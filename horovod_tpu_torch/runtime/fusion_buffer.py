@@ -8,17 +8,58 @@ ZeRO's flat layout pads each per-rank shard to a bucket, so every rank's
 shard has the same length. The executor leases one slab a fused bin: a
 torch tensor on the op's device, sized by the bucket of the larger of the
 bin and the fusion threshold, so bins that regroup from cycle to cycle
-reuse the same slabs.
+reuse the same slabs. Its allocations, reuses, bytes, live bytes and leases
+out are metrics (purpose ``fusion``), summed over every live manager.
 """
 
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Dict, List, Tuple
 
 import torch
 
+from horovod_tpu_torch.metrics import registry as _metrics
 from horovod_tpu_torch.runtime import types
+
+_BUF_ALLOCS = _metrics().counter(
+    "horovod_fusion_buffer_allocs_total",
+    "Persistent fusion-buffer allocations (new (rows, bucket, dtype) "
+    "slabs; steady state stops growing).")
+_BUF_REUSES = _metrics().counter(
+    "horovod_fusion_buffer_reuses_total",
+    "Fusion-buffer leases served from an existing slab (no allocation).")
+_BUF_BYTES = _metrics().gauge(
+    "horovod_fusion_buffer_bytes",
+    "Total bytes held in persistent fusion buffers (resident slabs, "
+    "leased or free), per purpose.", labelnames=("purpose",))
+_BUF_LIVE_BYTES = _metrics().gauge(
+    "horovod_fusion_buffer_live_bytes",
+    "Bytes in fusion slabs currently checked out on a lease, per purpose. "
+    "Returns to 0 between cycles; a leaked lease is visible here.",
+    labelnames=("purpose",))
+_BUF_LEASES_OUT = _metrics().gauge(
+    "horovod_fusion_buffer_leases_outstanding",
+    "Fusion-buffer leases acquired and not yet released, per purpose.",
+    labelnames=("purpose",))
+PURPOSE = "fusion"
+
+# every live manager (weak: a stopped runtime's manager just goes away)
+_managers_lock = threading.Lock()
+_managers: "weakref.WeakSet" = weakref.WeakSet()  # guarded-by: _managers_lock
+
+
+def _refresh_gauges() -> None:
+    with _managers_lock:
+        managers = list(_managers)
+    total = live = leases = 0
+    for mgr in managers:
+        t, li, le = mgr.usage()
+        total, live, leases = total + t, live + li, leases + le
+    _BUF_BYTES.labels(purpose=PURPOSE).set(total)
+    _BUF_LIVE_BYTES.labels(purpose=PURPOSE).set(live)
+    _BUF_LEASES_OUT.labels(purpose=PURPOSE).set(leases)
 
 
 def bucket_elems(nelems: int, itemsize: int, quantum_bytes: int) -> int:
@@ -73,6 +114,11 @@ class FusionBufferManager:
         self._lock = threading.Lock()
         self._free: Dict[Tuple, List[torch.Tensor]] = {}  # guarded-by: _lock
         self._count: Dict[Tuple, int] = {}  # guarded-by: _lock
+        self._total_bytes = 0  # guarded-by: _lock
+        self._live_bytes = 0  # guarded-by: _lock
+        self._leases_out = 0  # guarded-by: _lock
+        with _managers_lock:
+            _managers.add(self)
 
     def capacity(self, nelems: int, itemsize: int) -> int:
         floor = -(-self.floor_bytes // itemsize)
@@ -88,13 +134,21 @@ class FusionBufferManager:
                 self._free[key] = [
                     torch.empty(key[0], dtype=dtype, device=device)
                     for _ in range(self.max_per_key)]
-                types.COUNTS["slabs"] += self.max_per_key
+                types.bump("slabs", _BUF_ALLOCS, self.max_per_key)
+                self._total_bytes += self.max_per_key * key[0] \
+                    * dtype.itemsize
+            else:
+                _BUF_REUSES.inc()
             free = self._free[key]
             if not free:
                 raise RuntimeError(
                     f"fusion slab {key}: more than {self.max_per_key} leases "
                     "out at once (the pipeline depth bounds them)")
-            return BufferLease(free.pop(), key)
+            lease = BufferLease(free.pop(), key)
+            self._live_bytes += lease.capacity * dtype.itemsize
+            self._leases_out += 1
+        _refresh_gauges()  # outside this lock: it takes every manager's
+        return lease
 
     def release(self, lease: BufferLease) -> None:
         """Return a lease's slab. Idempotent: failure paths may release the
@@ -104,6 +158,14 @@ class FusionBufferManager:
                 return
             lease._released = True
             self._free.setdefault(lease._key, []).append(lease.tensor)
+            self._live_bytes -= lease.capacity * lease.tensor.element_size()
+            self._leases_out -= 1
+        _refresh_gauges()
+
+    def usage(self) -> Tuple[int, int, int]:
+        """(bytes of every slab, bytes leased out, leases out)."""
+        with self._lock:
+            return self._total_bytes, self._live_bytes, self._leases_out
 
     def slabs(self) -> int:
         with self._lock:

@@ -41,8 +41,8 @@ class GlooController(Controller):
     """Rank 0 coordinates; the verbs are collectives on ``group``."""
 
     def __init__(self, rank: int, world: int, group,
-                 cache_capacity: int = 1024):
-        super().__init__(rank, world, cache_capacity)
+                 cache_capacity: int = 1024, native_engine=None):
+        super().__init__(rank, world, cache_capacity, native_engine)
         self.group = group
         # cache bits stay below the capacity (freed bits are reused first)
         self._words = max(1, -(-(max(cache_capacity, 0)

@@ -11,18 +11,50 @@ when every queued tensor is a hit everywhere the responses come straight
 from the cache (reference: controller.cc:151-179). In steady-state training
 (the same named gradients every step) every cycle takes that path.
 
-The JAX package's native engine (``cpp/cycle.cc``) and its hit/miss
-metrics are not ported yet (ROADMAP A3, A11).
+Two engines with one behaviour: :class:`NativeResponseCache`, whose LRU
+order and bits live in the C++ engine (``cpp/cycle.cc``), and the Python
+:class:`ResponseCache`. :func:`make_response_cache` picks by
+``HOROVOD_NATIVE_CYCLE`` (default on, the native one); the Python one runs
+only when the knob is off, never as a fallback for a library that fails to
+build. The native cache keeps each entry's ``Response`` on the Python side
+by bit and hands out that object on a hit, where the JAX package packs it
+into wire bytes on ``put`` and unpacks them on every hit
+(``horovod_tpu/runtime/response_cache.py:196-210``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import enum
 import heapq
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
+from horovod_tpu_torch.metrics import registry as _metrics
 from horovod_tpu_torch.runtime import message as msg
+from horovod_tpu_torch.runtime import native
+from horovod_tpu_torch.utils import env
+
+_CACHE_HITS = _metrics().counter(
+    "horovod_response_cache_hits_total",
+    "Negotiation cache lookups that found a matching cached response.")
+_CACHE_MISSES = _metrics().counter(
+    "horovod_response_cache_misses_total",
+    "Negotiation cache lookups that found no entry for the tensor name.")
+_CACHE_INVALIDATIONS = _metrics().counter(
+    "horovod_response_cache_invalidations_total",
+    "Cached responses dropped (params changed or stale deferred hits).")
+
+
+def _record_lookup(state: "CacheState") -> "CacheState":
+    """The hit and miss counts of both engines: an INVALID lookup counts
+    as a miss (it re-enters full negotiation); the invalidation itself is
+    counted by ``invalidate``."""
+    if state is CacheState.HIT:
+        _CACHE_HITS.inc()
+    else:
+        _CACHE_MISSES.inc()
+    return state
 
 
 class CacheState(enum.Enum):
@@ -71,11 +103,11 @@ class ResponseCache:
         which every worker runs in the same sequence."""
         bit = self._name_to_bit.get(request.tensor_name)
         if bit is None or bit not in self._entries:
-            return CacheState.MISS
+            return _record_lookup(CacheState.MISS)
         _, key = self._entries[bit]
         if key == self._params_key(request):
-            return CacheState.HIT
-        return CacheState.INVALID
+            return _record_lookup(CacheState.HIT)
+        return _record_lookup(CacheState.INVALID)
 
     def put(self, response: msg.Response, request: msg.Request) -> int:
         """Insert (or refresh) a single-tensor response, evicting the least
@@ -118,9 +150,94 @@ class ResponseCache:
         bit = self._name_to_bit.pop(name, None)
         if bit is not None and self._entries.pop(bit, None) is not None:
             self._release_bit(bit)
+            _CACHE_INVALIDATIONS.inc()
 
     def __len__(self) -> int:
         return len(self._entries)
+
+
+def _pack_params_key(request: msg.Request) -> bytes:
+    """The cache key as the bytes the native cache compares, derived from
+    ``ResponseCache._params_key`` so the engines agree on what a key is."""
+    return repr(ResponseCache._params_key(request)).encode()
+
+
+class NativeResponseCache:
+    """:class:`ResponseCache`'s interface and behaviour, with the LRU order,
+    the bits and the keys in the C++ engine (``hvc_cache_*``). The C++ side
+    stores an empty blob; the ``Response`` of each bit stays here, so a hit
+    costs one call and no unpacking. ``get_by_bit`` asks the engine first:
+    a bit it evicted or invalidated is absent, whatever this side still
+    holds for it, and a reused bit's entry is overwritten by its ``put``."""
+
+    def __init__(self, capacity: int = 1024):
+        self.capacity = capacity
+        self._lib = native.load()
+        self._h = self._lib.hvc_cache_new(capacity)
+        if not self._h:
+            raise native.NativeBuildError("hvc_cache_new failed")
+        self._responses: Dict[int, msg.Response] = {}
+        self._buf = ctypes.create_string_buffer(1)
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h:
+            self._lib.hvc_cache_free(h)
+
+    def cached(self, request: msg.Request) -> CacheState:
+        key = _pack_params_key(request)
+        return _record_lookup(CacheState(self._lib.hvc_cache_cached(
+            self._h, request.tensor_name.encode(), key, len(key))))
+
+    def put(self, response: msg.Response, request: msg.Request) -> int:
+        if len(response.tensor_names) != 1:
+            raise ValueError(
+                "response cache stores single-tensor responses only")
+        if self.capacity <= 0:
+            return -1
+        key = _pack_params_key(request)
+        bit = self._lib.hvc_cache_put(
+            self._h, request.tensor_name.encode(), key, len(key), b"", 0)
+        self._responses[bit] = response
+        return bit
+
+    def get_by_bit(self, bit: int) -> Optional[msg.Response]:
+        # touches the LRU order; -1: no such bit
+        if self._lib.hvc_cache_get(self._h, bit, self._buf, 0) < 0:
+            return None
+        return self._responses[bit]
+
+    def bit_for_name(self, name: str) -> Optional[int]:
+        bit = self._lib.hvc_cache_bit_for_name(self._h, name.encode())
+        return None if bit < 0 else bit
+
+    def invalidate(self, name: str) -> None:
+        bit = self.bit_for_name(name)
+        if bit is not None:  # count only real drops, as ResponseCache does
+            _CACHE_INVALIDATIONS.inc()
+            self._lib.hvc_cache_invalidate(self._h, name.encode())
+            self._responses.pop(bit, None)
+
+    def __len__(self) -> int:
+        return int(self._lib.hvc_cache_size(self._h))
+
+
+def native_cycle_enabled() -> bool:
+    """``HOROVOD_NATIVE_CYCLE``: on (the default) unless "0", "false", "no"
+    or "off"."""
+    return env.native_cycle()
+
+
+def make_response_cache(capacity: int = 1024, native_engine=None):
+    """The native cache, or the Python one when ``native_engine`` is false
+    (default: :func:`native_cycle_enabled`). Building or loading the native
+    library raises :class:`native.NativeBuildError` on failure: there is no
+    fallback to the Python cache."""
+    if native_engine is None:
+        native_engine = native_cycle_enabled()
+    if native_engine:
+        return NativeResponseCache(capacity)
+    return ResponseCache(capacity)
 
 
 class CacheCoordinator:

@@ -16,15 +16,23 @@ than ``HOROVOD_CYCLE_TIME`` after the last one started, so gradients that
 autograd's hooks enqueue one at a time gather into bins; a grouped enqueue
 (``enqueue_allreduce_group``) starts a cycle at once.
 
+The knobs come from ``init()``'s ``utils.env.Config``. Each cycle adds one
+``CYCLE_<n>`` marker (``HOROVOD_TIMELINE_MARK_CYCLES``) and one set of
+counter events to the coordinator's timeline, and moves the cycle metrics
+(``horovod_cycles_total`` with ``COUNTS["cycles"]`` in one call,
+``horovod_cycle_duration_seconds``, ``horovod_cycle_tensors``,
+``horovod_cycle_pipeline_depth``; a handle's wait is
+``horovod_handle_wait_seconds``). The coordinator's stall inspector carries
+a straggler tracker.
+
 Not ported yet: autotune (ROADMAP A8), the elastic and resilience hooks
-and typed worker-loss errors (A10), metrics, tracing, the flight recorder
-and the lane-hazard watchdog (A11).
+and typed worker-loss errors (A10), tracing, the flight recorder and the
+lane-hazard watchdog (A11).
 """
 
 from __future__ import annotations
 
 import collections
-import os
 import threading
 import time
 from typing import Any, List, Optional
@@ -33,19 +41,39 @@ import torch
 
 from horovod_tpu_torch.core import state as state_mod
 from horovod_tpu_torch.exceptions import NotInitializedError
+from horovod_tpu_torch.metrics import COUNT_BUCKETS, registry as _metrics
+from horovod_tpu_torch.runtime import fusion as fusion_mod
 from horovod_tpu_torch.runtime import message as msg
+from horovod_tpu_torch.runtime import response_cache as cache_mod
+from horovod_tpu_torch.runtime import tensor_queue as queue_mod
 from horovod_tpu_torch.runtime import types
 from horovod_tpu_torch.runtime.controller import Controller, LocalController
 from horovod_tpu_torch.runtime.executor import Executor
 from horovod_tpu_torch.runtime.gloo_controller import GlooController
 from horovod_tpu_torch.runtime.tensor_queue import TensorQueue
-from horovod_tpu_torch.stall import StallInspector
+from horovod_tpu_torch.stall import StallInspector, StragglerTracker
 from horovod_tpu_torch.timeline import Timeline
 from horovod_tpu_torch.utils import env
 from horovod_tpu_torch.utils import logging as log
 
 COUNTS = types.COUNTS
 reset_counts = types.reset_counts
+
+_CYCLES = _metrics().counter(
+    "horovod_cycles_total", "Background negotiation+execution cycles run.")
+_CYCLE_DURATION = _metrics().histogram(
+    "horovod_cycle_duration_seconds",
+    "Wall time of one cycle body (negotiation + execution).")
+_CYCLE_TENSORS = _metrics().histogram(
+    "horovod_cycle_tensors",
+    "Tensors agreed for execution per cycle.", buckets=COUNT_BUCKETS)
+_HANDLE_WAIT = _metrics().histogram(
+    "horovod_handle_wait_seconds",
+    "Caller time blocked in RuntimeHandle.wait().")
+_PIPELINE_DEPTH = _metrics().gauge(
+    "horovod_cycle_pipeline_depth",
+    "Responses currently in flight on the pipelined data plane (bounded "
+    "by HOROVOD_CYCLE_PIPELINE_DEPTH).")
 
 
 def wire_dtype(dtype: torch.dtype) -> str:
@@ -89,11 +117,16 @@ class RuntimeHandle:
         A failed collective raises: ValueError for an invalid argument,
         RuntimeError otherwise."""
         if self._status is None:
-            if not self._lock.acquire(timeout=-1 if timeout is None
-                                      else timeout):
+            t0 = time.monotonic()
+            got = self._lock.acquire(timeout=-1 if timeout is None
+                                     else timeout)
+            _HANDLE_WAIT.observe(time.monotonic() - t0)
+            if not got:
                 raise TimeoutError(f"collective '{self.name}' did not "
                                    f"complete within {timeout}s")
             self._lock.release()
+        else:
+            _HANDLE_WAIT.observe(0.0)
         if not self._status.ok():
             exc = (ValueError
                    if self._status.type == types.StatusType.INVALID_ARGUMENT
@@ -139,35 +172,38 @@ class Runtime:
     """Owns the cycle thread, the queue, the controller and the executor.
 
     ``controller`` negotiates among ``controller.world`` ranks; the
-    collectives run on ``data_group`` from ``device``."""
+    collectives run on ``data_group`` from ``device``; the knobs are
+    ``config``'s (default: parsed from the environment now)."""
 
     def __init__(self, controller: Controller, device: torch.device,
-                 data_group):
+                 data_group, config: Optional[env.Config] = None):
+        cfg = env.Config.from_env() if config is None else config
+        self.config = cfg
         self.queue = TensorQueue()
         self.controller = controller
         self.device = device
-        self.fusion_threshold = env._get_int(
-            env.HOROVOD_FUSION_THRESHOLD, env.DEFAULT_FUSION_THRESHOLD_BYTES)
-        self.depth = max(1, env._get_int(env.HOROVOD_CYCLE_PIPELINE_DEPTH,
-                                         env.DEFAULT_CYCLE_PIPELINE_DEPTH))
-        self._cycle_time_s = env._get_float(
-            env.HOROVOD_CYCLE_TIME, env.DEFAULT_CYCLE_TIME_MS) / 1000.0
+        self.fusion_threshold = cfg.fusion_threshold_bytes
+        self.depth = max(1, cfg.cycle_pipeline_depth)
+        self._cycle_time_s = cfg.cycle_time_ms / 1000.0
         self.executor = Executor(
             device, data_group, controller.world, self.fusion_threshold,
-            env._get_int(env.HOROVOD_FUSION_BUCKET_QUANTUM,
-                         env.DEFAULT_FUSION_BUCKET_QUANTUM_BYTES),
-            self.depth)
-        path = os.environ.get(env.HOROVOD_TIMELINE, "")
+            cfg.fusion_bucket_quantum, self.depth)
         # the coordinator writes the timeline (reference: operations.cc)
-        self.timeline = (Timeline(path) if path and controller.is_coordinator
+        self.timeline = (Timeline(cfg.timeline_file,
+                                  mark_cycles=cfg.timeline_mark_cycles,
+                                  native_engine=controller.native_engine)
+                         if cfg.timeline_file and controller.is_coordinator
                          else None)
-        warn_s = env._get_float(env.HOROVOD_STALL_CHECK_TIME_SECONDS,
-                                env.DEFAULT_STALL_CHECK_TIME_SECONDS)
         self.stall_inspector = StallInspector(
-            warning_time_seconds=warn_s,
-            enabled=not env._get_bool(env.HOROVOD_STALL_CHECK_DISABLE))
+            warning_time_seconds=cfg.stall_check_time_seconds,
+            shutdown_time_seconds=cfg.stall_shutdown_time_seconds,
+            enabled=not cfg.stall_check_disable)
+        if controller.is_coordinator:
+            controller.straggler = StragglerTracker(
+                world=controller.world,
+                report_seconds=cfg.straggler_report_seconds)
         # stale deferred hits renegotiate on the stall warning's clock
-        self.controller.STALE_HIT_SECONDS = warn_s
+        self.controller.STALE_HIT_SECONDS = cfg.stall_check_time_seconds
         self._stop = threading.Event()
         self._woken = threading.Event()   # work was enqueued
         self._urgent = threading.Event()  # start a cycle now: no pacing
@@ -332,12 +368,17 @@ class Runtime:
     def run_cycle(self) -> bool:
         """One negotiation and execution cycle; False shuts the runtime
         down."""
+        if self.timeline is not None:
+            self.timeline.mark_cycle_start()
         # cache hits still waiting for the other workers come first
         requests = self.controller.take_deferred() + self.queue.pop_requests()
         if not requests and not self.controller.lockstep \
                 and not self.controller._should_shut_down:
             return True
         t0 = time.perf_counter()
+        # counted as the cycle starts, so a caller its responses wake reads
+        # it already counted
+        types.bump("cycles", _CYCLES)
         try:
             return self._run_cycle_body(requests)
         except Exception:
@@ -350,13 +391,17 @@ class Runtime:
                 e.complete(status, None)
             raise
         finally:
-            COUNTS["cycles"] += 1
-            COUNTS["cycle_ms"] += 1e3 * (time.perf_counter() - t0)
+            seconds = time.perf_counter() - t0
+            COUNTS["cycle_ms"] += 1e3 * seconds
+            _CYCLE_DURATION.observe(seconds)
+            if self.timeline is not None:
+                self._emit_timeline_counters()
 
     def _run_cycle_body(self, requests) -> bool:
         responses, shut_down = self.controller.compute_response_list(
             requests, self.fusion_threshold, timeline=self.timeline,
             stall_inspector=self.stall_inspector)
+        _CYCLE_TENSORS.observe(sum(len(r.tensor_names) for r in responses))
         pending: "collections.deque" = collections.deque()
         cycle_entries = []
         try:
@@ -370,10 +415,11 @@ class Runtime:
                 COUNTS["responses"] += 1
                 pending.append(self.executor.dispatch(
                     response, entries, timeline=self.timeline))
+                _PIPELINE_DEPTH.set(len(pending))
                 while len(pending) >= self.depth:
-                    pending.popleft().complete()
+                    self._drain_one(pending)
             while pending:
-                pending.popleft().complete()
+                self._drain_one(pending)
         except Exception:
             status = types.Status.UnknownError(
                 "background cycle failed; see runtime log")
@@ -382,7 +428,28 @@ class Runtime:
             for entries in cycle_entries:
                 _fail_incomplete_entries(entries)
             raise
+        finally:
+            _PIPELINE_DEPTH.set(0)
         return not shut_down
+
+    @staticmethod
+    def _drain_one(pending) -> None:
+        """Complete the oldest response in flight; the depth gauge moves
+        first, so no caller it wakes reads a stale depth."""
+        op = pending.popleft()
+        _PIPELINE_DEPTH.set(len(pending))
+        op.complete()
+
+    def _emit_timeline_counters(self) -> None:
+        """One ``"C"`` event a series each cycle, in the trace's clock
+        domain, so the counters' curves line up with the tensors' bars."""
+        self.timeline.counters({
+            "queue_depth": queue_mod._QUEUE_DEPTH.value,
+            "cache_hits": cache_mod._CACHE_HITS.value,
+            "cache_misses": cache_mod._CACHE_MISSES.value,
+            "fusion_bytes": fusion_mod._FUSED_BYTES.value,
+            "cycles": _CYCLES.value,
+        })
 
     def _finalize(self) -> None:
         self.queue.finalize(types.Status.Aborted(types.SHUT_DOWN_ERROR))
@@ -425,12 +492,14 @@ def get_runtime() -> Runtime:
         if not st.initialized:
             raise NotInitializedError()
         if st.runtime is None:
-            capacity = env._get_int(env.HOROVOD_CACHE_CAPACITY,
-                                    env.DEFAULT_CACHE_CAPACITY)
+            cfg = st.config
             if st.size == 1:
-                controller = LocalController(0, 1, capacity)
+                controller = LocalController(0, 1, cfg.cache_capacity,
+                                             cfg.native_cycle)
             else:
                 controller = GlooController(st.rank, st.size,
-                                            st.control_group, capacity)
-            st.runtime = Runtime(controller, st.device, st.data_group)
+                                            st.control_group,
+                                            cfg.cache_capacity,
+                                            cfg.native_cycle)
+            st.runtime = Runtime(controller, st.device, st.data_group, cfg)
         return st.runtime

@@ -5,8 +5,9 @@ horovod/common/tensor_queue.cc/.h).
 Caller threads add ``TensorTableEntry``s and negotiation ``Request``s; the
 background cycle pops pending requests and takes entries out when their
 responses arrive. A name already in flight is rejected (reference:
-tensor_queue.cc:26-29). The queue depth and enqueue metrics of the JAX
-package are observability hooks that come with ROADMAP A11.
+tensor_queue.cc:26-29). The queue's depth and the names it has accepted
+are metrics (``horovod_tensor_queue_depth``,
+``horovod_tensor_queue_enqueued_total``).
 """
 
 from __future__ import annotations
@@ -14,8 +15,16 @@ from __future__ import annotations
 import threading
 from typing import Dict, List
 
+from horovod_tpu_torch.metrics import registry as _metrics
 from horovod_tpu_torch.runtime import message as msg
 from horovod_tpu_torch.runtime import types
+
+_QUEUE_DEPTH = _metrics().gauge(
+    "horovod_tensor_queue_depth",
+    "Named tensors enqueued and not yet handed to the executor.")
+_ENQUEUED = _metrics().counter(
+    "horovod_tensor_queue_enqueued_total",
+    "Named tensors accepted into the tensor queue.")
 
 
 class DuplicateNameError(ValueError):
@@ -52,6 +61,8 @@ class TensorQueue:
                 self._table[entry.name] = entry
                 self._pending.append((-entry.priority, self._seq, request))
                 self._seq += 1
+            _ENQUEUED.inc(len(entries))
+            _QUEUE_DEPTH.set(len(self._table))
 
     def pop_requests(self) -> List[msg.Request]:
         """Drain this cycle's negotiation messages, highest priority first,
@@ -67,8 +78,10 @@ class TensorQueue:
         are skipped: a partial failure must not strand the entries that
         were popped with their callbacks unfired."""
         with self._lock:
-            return [e for e in (self._table.pop(n, None) for n in names)
-                    if e is not None]
+            out = [e for e in (self._table.pop(n, None) for n in names)
+                   if e is not None]
+            _QUEUE_DEPTH.set(len(self._table))
+        return out
 
     def __len__(self) -> int:
         with self._lock:
@@ -81,5 +94,6 @@ class TensorQueue:
             entries = list(self._table.values())
             self._table.clear()
             self._pending.clear()
+            _QUEUE_DEPTH.set(0)
         for e in entries:
             e.complete(status, None)

@@ -110,6 +110,15 @@ def reset_counts() -> None:
         COUNTS[key] = 0.0 if key == "cycle_ms" else 0
 
 
+def bump(key: str, metric, n: int = 1) -> None:
+    """Add ``n`` to ``COUNTS[key]`` and to the registry counter ``metric``
+    that counts the same event, so the two cannot drift apart (``cycles``
+    and ``horovod_cycles_total``, ``slabs`` and
+    ``horovod_fusion_buffer_allocs_total``)."""
+    COUNTS[key] += n
+    metric.inc(n)
+
+
 # the cycle thread and stop() can race to complete the same entry
 _complete_lock = threading.Lock()
 

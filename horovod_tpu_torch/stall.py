@@ -1,24 +1,118 @@
-"""Stall inspector: find workers that stopped submitting tensors (port of
-``StallInspector`` in ``horovod_tpu/stall.py``; reference:
-horovod/common/stall_inspector.cc/.h).
+"""Stall inspector and straggler attribution: find workers that stopped
+submitting tensors, and the ranks that announce late (port of
+``StragglerTracker`` and ``StallInspector`` in ``horovod_tpu/stall.py``;
+reference: horovod/common/stall_inspector.cc/.h).
 
 On the coordinator, scan the negotiation table for tensors announced by
 some but not all workers; log a warning naming the ready and missing ranks
+and, when a :class:`StragglerTracker` is given, their lateness
 (stall_inspector.cc:26-110); past the shutdown time, ask for a global
 shutdown so the job fails instead of hanging (controller.cc:98-107).
 
-Knobs (reference: common.h:78-80): ``HOROVOD_STALL_CHECK_DISABLE``,
-``HOROVOD_STALL_CHECK_TIME_SECONDS`` (default 60). The shutdown time is
-0 (never) unless a caller passes one. The JAX package's straggler
-tracker, elastic verdict and metrics come with ROADMAP A10 and A11.
+Knobs (reference: common.h:78-80), read into ``utils.env.Config`` at
+``hvd.init()``: ``HOROVOD_STALL_CHECK_DISABLE``,
+``HOROVOD_STALL_CHECK_TIME_SECONDS`` (default 60),
+``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS`` (default 0: never shut down) and
+``HOROVOD_STRAGGLER_REPORT_SECONDS`` (the tracker's report interval,
+default 60; 0: no report).
+
+Not ported yet: the flight-recorder events (``stall_warning``,
+``stall_shutdown``, ``straggler_report``; ROADMAP A11), the goodput
+ledger's straggler span (A11), and the elastic verdict, a
+``WorkerStallError`` raised in place of the shutdown (A10).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
+from horovod_tpu_torch.metrics import registry as _metrics
 from horovod_tpu_torch.utils import logging as log
+
+_STALL_WARNINGS = _metrics().counter(
+    "horovod_stall_warnings_total",
+    "Tensors reported stalled by the stall inspector (one per tensor per "
+    "warning scan).")
+_STALL_SHUTDOWNS = _metrics().counter(
+    "horovod_stall_shutdowns_total",
+    "Stall scans that exceeded HOROVOD_STALL_SHUTDOWN_TIME_SECONDS and "
+    "triggered a global shutdown.")
+_STRAGGLER_LAG = _metrics().gauge(
+    "horovod_straggler_lag_seconds",
+    "Per-rank negotiation lateness EWMA on the coordinator: how long "
+    "after the first announcing rank this rank's request arrives, "
+    "smoothed across negotiations.", labelnames=("rank",))
+_NEGOTIATE_SKEW = _metrics().histogram(
+    "horovod_negotiate_skew_seconds",
+    "Cross-rank arrival skew (last minus first announcement) per "
+    "completed negotiation on the coordinator.")
+
+
+class StragglerTracker:
+    """Straggler attribution on the coordinator, from each rank's arrival
+    time in the negotiation table.
+
+    Every completed negotiation gives one arrival map ``{rank:
+    monotonic_time}``; from it the tracker feeds the skew histogram, each
+    rank's lateness EWMA (``horovod_straggler_lag_seconds{rank=...}``) and
+    a periodic log report naming the ranks that arrive last. An arrival's
+    resolution is one cycle: ranks that announce in the same cycle read as
+    simultaneous, while a real straggler lags by many cycles and dominates
+    the EWMA."""
+
+    def __init__(self, world: int, alpha: float = 0.2,
+                 report_seconds: float = 60.0):
+        self.world = world
+        self.alpha = alpha
+        self.report_seconds = report_seconds
+        self.lag_ewma: Dict[int, float] = {}
+        self.last_counts: Dict[int, int] = {}
+        self.samples = 0
+        self._last_report = time.monotonic()
+
+    def observe(self, name: str, arrivals: Dict[int, float]) -> None:
+        if not arrivals:
+            return
+        t_first = min(arrivals.values())
+        skew = max(arrivals.values()) - t_first
+        _NEGOTIATE_SKEW.observe(skew)
+        for rank, t in arrivals.items():
+            lag = t - t_first
+            prev = self.lag_ewma.get(rank)
+            ewma = lag if prev is None else prev + self.alpha * (lag - prev)
+            self.lag_ewma[rank] = ewma
+            _STRAGGLER_LAG.labels(rank=rank).set(ewma)
+        if skew > 0:
+            last_rank = max(arrivals, key=lambda r: arrivals[r])
+            self.last_counts[last_rank] = \
+                self.last_counts.get(last_rank, 0) + 1
+        self.samples += 1
+        self.maybe_report()
+
+    def ranking(self) -> List[Tuple[int, float]]:
+        return sorted(self.lag_ewma.items(), key=lambda kv: -kv[1])
+
+    def lag_summary(self, ranks=None) -> str:
+        items = self.ranking()
+        if ranks:
+            wanted = [kv for kv in items if kv[0] in set(ranks)]
+            items = wanted or items
+        return ", ".join("rank %d=%.3fs" % kv for kv in items[:8])
+
+    def maybe_report(self) -> None:
+        if self.report_seconds <= 0 or not self.samples:
+            return
+        now = time.monotonic()
+        if now - self._last_report < self.report_seconds:
+            return
+        self._last_report = now
+        leader, _ = self.ranking()[0]
+        last_frac = self.last_counts.get(leader, 0) / self.samples
+        log.info(
+            "straggler report: over %d negotiations the lateness EWMA is "
+            "%s; rank %d arrived last in %.0f%% of them",
+            self.samples, self.lag_summary(), leader, 100.0 * last_frac)
 
 
 class StallInspector:
@@ -31,7 +125,8 @@ class StallInspector:
         # fallback age baseline for tables that carry no arrival stamp
         self._first_seen: Dict[str, float] = {}
 
-    def check(self, message_table, world: Optional[int] = None) -> bool:
+    def check(self, message_table, world: Optional[int] = None,
+              straggler: Optional[StragglerTracker] = None) -> bool:
         """Scan for stalled tensors; True when one stalled past the
         shutdown time (reference: CheckForStalledTensors,
         stall_inspector.cc:26-110)."""
@@ -42,7 +137,7 @@ class StallInspector:
             return False
         self._last_check = now
 
-        stalled, shutdown = [], False
+        stalled, shutdown, warn_missing = [], False, set()
         arrival_time = getattr(message_table, "first_request_time", None)
         pending = message_table.pending()
         for name, requests in pending.items():
@@ -58,20 +153,31 @@ class StallInspector:
             stalled.append(
                 f"{name} [ready ranks: {ready}"
                 + (f", missing ranks: {missing}]" if missing else "]"))
+            warn_missing.update(missing)
             if self.shutdown_time > 0 and age > self.shutdown_time:
                 shutdown = True
         self._first_seen = {k: v for k, v in self._first_seen.items()
                             if k in pending}
         if stalled:
+            _STALL_WARNINGS.inc(len(stalled))
+            lag_note = ""
+            if straggler is not None:
+                summary = straggler.lag_summary(warn_missing or None)
+                if summary:
+                    lag_note = (" Straggler lag EWMA (seconds since first "
+                                "announcing rank): %s." % summary)
             log.warning(
                 "One or more tensors were submitted to be reduced, gathered "
                 "or broadcasted by subset of ranks and are waiting for "
                 "remainder of ranks for more than %.0f seconds. This may "
                 "indicate that different ranks are trying to submit "
                 "different tensors or that only subset of ranks is "
-                "submitting tensors. Stalled ops: %s",
-                self.warning_time, "; ".join(stalled))
+                "submitting tensors. Stalled ops: %s%s",
+                self.warning_time, "; ".join(stalled), lag_note)
         if shutdown:
-            log.error("Stalled tensors exceeded the shutdown time (%.0fs); "
-                      "shutting down.", self.shutdown_time)
+            _STALL_SHUTDOWNS.inc()
+            log.error(
+                "Stalled tensors exceeded "
+                "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS (%.0fs); "
+                "shutting down.", self.shutdown_time)
         return shutdown

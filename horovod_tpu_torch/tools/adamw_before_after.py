@@ -30,7 +30,12 @@ calls), on ``chip_smoke.flat_inputs`` data:
 - with ``--steps``: ``ms.step_<path>`` and ``peak_gib.<path>``, the median
   step and ``max_memory_allocated`` of P2 (``zero``), P4 (``zero2``) and
   P5 (``zero3``) through that checkout's ``chip_smoke.train`` (BERT-Large
-  at full width, 2 warm-up and 10 timed steps), and ``losses.<path>``.
+  at full width, 2 warm-up and 10 timed steps), and ``losses.<path>``;
+- with ``--steps --profile-cycle``: ``cycle_profile``, a further P4 run
+  (2 warm-up and 10 steps) with the runtime's cycle thread profiled over
+  its last 10 (``tools/cycle_profile.py``: the 15 functions with the most
+  cumulative ms a step). ``HOROVOD_NATIVE_CYCLE=0`` in the environment
+  profiles this checkout's Python cycle engine.
 
 It prints one JSON line per process, then one with each checkout's
 medians, whether the checkouts' losses are bit-equal path by path and
@@ -71,7 +76,49 @@ def _chip_smoke(checkout: Path):
     return cs
 
 
-def worker(checkout: Path, iters: int, calls: int, steps: bool) -> dict:
+def _cycle_profiler():
+    """This checkout's ``tools/cycle_profile.py``, loaded by path."""
+    spec = importlib.util.spec_from_file_location(
+        "cycle_profile_by_path",
+        Path(__file__).resolve().with_name("cycle_profile.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool.CycleProfile()
+
+
+def profile_p4(cs, dev, warmup: int = 2, steps: int = 10,
+               cfg=None) -> dict:
+    """P4's step as ``chip_smoke._train`` builds it (``cfg``: its
+    ``FULL``), its cycle thread profiled over the steps after
+    ``warmup``."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import BertLarge
+
+    cfg = cs.FULL if cfg is None else cfg
+    tokens, positions, labels, _ = cs.mlm_data(cfg)
+    hvd.init(device=None if dev.type == "cuda" else "cpu")
+    model = BertLarge(**cfg["model"], device=dev, seed=0)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    params = dict(model.named_parameters())
+    batch = tuple(torch.from_numpy(a).to(dev)
+                  for a in (tokens, positions, labels))
+    step, _ = cs.make_step("zero2", model, params, dev, batch)
+    profile = _cycle_profiler()
+    for i in range(warmup + steps):
+        if i == warmup:
+            profile.start()
+        step().item()
+    profile.stop()
+    del model, params, step
+    hvd.shutdown()
+    cs.free_memory(dev)
+    return profile.top(15, steps)
+
+
+def worker(checkout: Path, iters: int, calls: int, steps: bool,
+           profile_cycle: bool = False) -> dict:
     """Measure B8 (and the steps) of the ``horovod_tpu_torch`` in
     ``checkout``."""
     sys.path.insert(0, str(checkout))
@@ -152,18 +199,24 @@ def worker(checkout: Path, iters: int, calls: int, steps: bool) -> dict:
             ms[f"step_{path}"] = run["step_ms"]
             peak[path] = torch.cuda.max_memory_allocated() / 2**30
             losses[path] = run["losses"]
-    return {"checkout": str(checkout), "package": fopt.__file__,
-            "groups": len(sizes), "ms": ms, "host_us": host,
-            "peak_gib": peak, "losses": losses}
+    out = {"checkout": str(checkout), "package": fopt.__file__,
+           "groups": len(sizes), "ms": ms, "host_us": host,
+           "peak_gib": peak, "losses": losses}
+    if steps and profile_cycle:
+        out["cycle_profile"] = profile_p4(cs, dev)
+    return out
 
 
 def main() -> int:
     ap = FWD.parse_args(__doc__.split("\n")[0], extra=(
         ("--steps", dict(action="store_true",
-                         help="also time P2, P4 and P5 as whole steps")),))
+                         help="also time P2, P4 and P5 as whole steps")),
+        ("--profile-cycle", dict(action="store_true",
+                                 help="with --steps, profile P4's cycle "
+                                      "thread in a run of its own")),))
     if ap.worker:
         print(json.dumps(worker(ap.worker.resolve(), ap.iters, ap.calls,
-                                ap.steps)), flush=True)
+                                ap.steps, ap.profile_cycle)), flush=True)
         return 0
     import torch
 
@@ -173,6 +226,8 @@ def main() -> int:
     args = ["--iters", str(ap.iters), "--calls", str(ap.calls)]
     if ap.steps:
         args.append("--steps")
+    if ap.profile_cycle:
+        args.append("--profile-cycle")
     rc, rows = FWD.run_turns(Path(__file__).resolve(), ap.other, ap.turns,
                              args)
     if rc:

@@ -17,11 +17,17 @@ host's clock: the forward and loss, the backward (hooks included),
 ``synchronize()`` (the wait for the gradients' collectives) and the
 optimizer step up to the loss's value on the host.
 The configs are ``other`` (the other checkout's hooks path), ``fused`` (this
-checkout's runtime at its defaults), ``t0`` (``HOROVOD_FUSION_THRESHOLD=0``)
-and ``cycleN`` (``HOROVOD_CYCLE_TIME=N`` ms); every turn runs them all, the
-order reversed each turn. Beside the medians it reports the collectives
-the optimizer requested a step and, for this checkout, the runtime's
-allreduce calls, cycles and cycle host ms a step (``runtime.COUNTS``).
+checkout's runtime at its defaults: the native cycle engine), ``py``
+(``HOROVOD_NATIVE_CYCLE=0``: the Python cache, bin-packer and trace
+writer), ``t0`` (``HOROVOD_FUSION_THRESHOLD=0``) and ``cycleN``
+(``HOROVOD_CYCLE_TIME=N`` ms); every turn runs them all, the order
+reversed each turn. Beside the medians it reports the collectives the
+optimizer requested a step and, for this checkout, the runtime's allreduce
+calls, cycles and cycle host ms a step (``runtime.COUNTS``).
+``--profile-cycle`` adds to each run the cycle thread's profile over the
+timed steps (``tools/cycle_profile.py``: the 15 functions with the most
+cumulative ms a step); its sampler costs the step some time, so time and
+profile in separate calls.
 
 It prints one JSON line per run, then one with each model and config's
 medians and the card's name and power limit. The module imports no
@@ -46,6 +52,8 @@ PARTS = ("step_ms", "fwd_ms", "bwd_ms", "sync_ms", "opt_ms")
 def config_env(config: str) -> dict:
     if config in ("other", "fused"):
         return {}
+    if config == "py":
+        return {"HOROVOD_NATIVE_CYCLE": "0"}
     if config == "t0":
         return {"HOROVOD_FUSION_THRESHOLD": "0"}
     if config.startswith("cycle"):
@@ -100,9 +108,23 @@ def _model(name: str, layers: int, dev, cpu: bool):
         model(toks, output="hidden"), model.token_embed, tpos, tlab)
 
 
+def cycle_profiler():
+    """This checkout's ``tools/cycle_profile.py``, loaded by path (it
+    imports nothing of the package), for either checkout's runs."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "cycle_profile_by_path",
+        Path(__file__).resolve().with_name("cycle_profile.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool.CycleProfile()
+
+
 def worker(checkout: Path, config: str, name: str, steps: int, layers: int,
-           cpu: bool = False) -> dict:
+           cpu: bool = False, profile_cycle: bool = False) -> dict:
     """One run; ``cpu`` rehearses it on the CPU (no device numbers)."""
+    profile = cycle_profiler() if profile_cycle else None
     sys.path.insert(0, str(checkout))
     import torch
 
@@ -125,6 +147,8 @@ def worker(checkout: Path, config: str, name: str, steps: int, layers: int,
     rows, requested, runtime_rows = [], [], []
     for i in range(2 + steps):
         sync()
+        if i == 2 and profile is not None:
+            profile.start()
         before = dict(collectives.COUNTS)
         rt_before = dict(issued) if issued is not None else None
         t0 = time.perf_counter()
@@ -152,6 +176,9 @@ def worker(checkout: Path, config: str, name: str, steps: int, layers: int,
     out = {"checkout": str(checkout), "config": config, "model": name,
            "card": "cpu (rehearsal)" if cpu else card_line(),
            "requested_allreduce": statistics.median(requested)}
+    if profile is not None:
+        profile.stop()
+        out["cycle_profile"] = profile.top(15, steps)
     out.update({k: 1e3 * statistics.median(r[k] for r in rows)
                 for k in PARTS})
     if runtime_rows:
@@ -175,12 +202,15 @@ def main() -> int:
                     help="rehearse on the CPU: no device numbers")
     ap.add_argument("--models", default="bert",
                     help="any of bert, inception, gpt2, comma-separated")
+    ap.add_argument("--profile-cycle", action="store_true",
+                    help="profile the cycle thread over the timed steps")
     ap.add_argument("--worker", nargs=3, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         checkout, config, name = args.worker
         print(json.dumps(worker(Path(checkout), config, name, args.steps,
-                                args.layers, args.cpu)), flush=True)
+                                args.layers, args.cpu, args.profile_cycle)),
+              flush=True)
         return 0
     import torch
 
@@ -201,7 +231,8 @@ def main() -> int:
                      "--worker", str(checkout), config, name, "--steps",
                      str(args.steps)]
                     + (["--layers", str(args.layers)] if args.layers else [])
-                    + (["--cpu"] if args.cpu else []),
+                    + (["--cpu"] if args.cpu else [])
+                    + (["--profile-cycle"] if args.profile_cycle else []),
                     capture_output=True, text=True, env=env)
                 if out.returncode:
                     print(out.stderr[-4000:], file=sys.stderr)

@@ -1,10 +1,16 @@
 """Environment knobs the port reads (port of ``horovod_tpu/utils/env.py``:
 the parsing helpers, the launcher's identity contract, the enqueue
-runtime's knobs, the fusion bucket quantum, the ZeRO stage and gradient
-release knobs, and the flash attention's ``FLASH_FUSED_BWD`` switch)."""
+runtime's knobs and :class:`Config`, the fusion bucket quantum, the metrics
+endpoint and dump, the ZeRO stage and gradient release knobs, and the flash
+attention's ``FLASH_FUSED_BWD`` switch).
+
+``hvd.init()`` parses the runtime's knobs once into :class:`Config`
+(``horovod_tpu/utils/env.py:224-350``); the runtime reads that. The knobs
+in :data:`ENV_DIRECT_KNOBS` are read where they are used instead."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 # Identity / wiring the launcher sets before init (reference:
@@ -34,11 +40,29 @@ DEFAULT_CACHE_CAPACITY = 1024
 # Fused responses in flight before the oldest is drained.
 HOROVOD_CYCLE_PIPELINE_DEPTH = "HOROVOD_CYCLE_PIPELINE_DEPTH"
 DEFAULT_CYCLE_PIPELINE_DEPTH = 2
-# Path of the Chrome-trace timeline rank 0 writes; unset: none.
+# Path of the Chrome-trace timeline rank 0 writes; unset: none. With
+# HOROVOD_TIMELINE_MARK_CYCLES an instant CYCLE_<n> marks each cycle's
+# start (reference: operations.cc:363-375).
 HOROVOD_TIMELINE = "HOROVOD_TIMELINE"
+HOROVOD_TIMELINE_MARK_CYCLES = "HOROVOD_TIMELINE_MARK_CYCLES"
+# The stall inspector: the warning's age, and the age past which a stall
+# shuts the job down (0: never); the straggler report's interval (0: no
+# report; the lag gauge and skew histogram stay on).
 HOROVOD_STALL_CHECK_DISABLE = "HOROVOD_STALL_CHECK_DISABLE"
 HOROVOD_STALL_CHECK_TIME_SECONDS = "HOROVOD_STALL_CHECK_TIME_SECONDS"
 DEFAULT_STALL_CHECK_TIME_SECONDS = 60.0
+HOROVOD_STALL_SHUTDOWN_TIME_SECONDS = "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS"
+HOROVOD_STRAGGLER_REPORT_SECONDS = "HOROVOD_STRAGGLER_REPORT_SECONDS"
+DEFAULT_STRAGGLER_REPORT_SECONDS = 60.0
+# The metrics registry (metrics.py): the Prometheus endpoint's port, served
+# from init() (0: any free port; unset: no thread, no socket), and where
+# shutdown() writes this rank's snapshot (unset: nowhere).
+HOROVOD_METRICS_PORT = "HOROVOD_METRICS_PORT"
+HOROVOD_METRICS_DUMP = "HOROVOD_METRICS_DUMP"
+# The native cycle engine (cpp/cycle.cc, cpp/timeline.cc): on unless "0",
+# "false", "no" or "off"; off runs the Python cache, bin-packer and trace
+# writer.
+HOROVOD_NATIVE_CYCLE = "HOROVOD_NATIVE_CYCLE"
 
 # Size-bucket quantum of flat fused payloads, in bytes (reference:
 # horovod_tpu/utils/env.py:55,156); ZeRO pads each per-rank shard to it.
@@ -92,6 +116,80 @@ def _get_bool(name: str, default: bool = False) -> bool:
     if value is None or value == "":
         return default
     return value.strip().lower() not in ("0", "false", "no", "off", "")
+
+
+def native_cycle() -> bool:
+    """``HOROVOD_NATIVE_CYCLE``, default on."""
+    return _get_bool(HOROVOD_NATIVE_CYCLE, True)
+
+
+# Knobs read where they are used rather than parsed into Config: the
+# launcher's identity and wiring (read by init() before a Config exists),
+# the ZeRO and release-plan knobs (read when a plan or a training step is
+# built) and the attention backward's switch (read at each backward).
+ENV_DIRECT_KNOBS = (
+    HOROVOD_RANK, HOROVOD_SIZE, HOROVOD_LOCAL_RANK, HOROVOD_LOCAL_SIZE,
+    HOROVOD_CROSS_RANK, HOROVOD_CROSS_SIZE, HOROVOD_COORDINATOR_ADDR,
+    HOROVOD_LOG_LEVEL, HOROVOD_LOG_HIDE_TIME, HOROVOD_ZERO_STAGE,
+    HOROVOD_ZERO_PREFETCH_BUCKETS, HOROVOD_GRAD_BUCKET_BYTES,
+    HOROVOD_GRAD_BUCKET_RELEASE, FLASH_FUSED_BWD,
+)
+
+
+@dataclasses.dataclass
+class Config:
+    """The runtime's knobs, parsed once at ``hvd.init()`` (the JAX
+    package's ``Config``, ``horovod_tpu/utils/env.py:224-350``, holding only
+    the knobs of what the port has; reference: operations.cc:363-454)."""
+
+    fusion_threshold_bytes: int = DEFAULT_FUSION_THRESHOLD_BYTES
+    cycle_time_ms: float = DEFAULT_CYCLE_TIME_MS
+    cache_capacity: int = DEFAULT_CACHE_CAPACITY
+    timeline_file: str = ""
+    timeline_mark_cycles: bool = False
+    # None: no endpoint (no thread, no socket); 0: any free port
+    metrics_port: "int | None" = None
+    metrics_dump: str = ""
+    stall_check_disable: bool = False
+    stall_check_time_seconds: float = DEFAULT_STALL_CHECK_TIME_SECONDS
+    stall_shutdown_time_seconds: float = 0.0
+    straggler_report_seconds: float = DEFAULT_STRAGGLER_REPORT_SECONDS
+    # responses in flight per cycle (1: serial)
+    cycle_pipeline_depth: int = DEFAULT_CYCLE_PIPELINE_DEPTH
+    fusion_bucket_quantum: int = DEFAULT_FUSION_BUCKET_QUANTUM_BYTES
+    native_cycle: bool = True
+
+    @classmethod
+    def from_env(cls) -> "Config":
+        return cls(
+            fusion_threshold_bytes=_get_int(HOROVOD_FUSION_THRESHOLD,
+                                            DEFAULT_FUSION_THRESHOLD_BYTES),
+            cycle_time_ms=_get_float(HOROVOD_CYCLE_TIME,
+                                     DEFAULT_CYCLE_TIME_MS),
+            cache_capacity=_get_int(HOROVOD_CACHE_CAPACITY,
+                                    DEFAULT_CACHE_CAPACITY),
+            timeline_file=os.environ.get(HOROVOD_TIMELINE, ""),
+            timeline_mark_cycles=_get_bool(HOROVOD_TIMELINE_MARK_CYCLES),
+            metrics_port=(_get_int(HOROVOD_METRICS_PORT, 0)
+                          if os.environ.get(HOROVOD_METRICS_PORT, "") != ""
+                          else None),
+            metrics_dump=os.environ.get(HOROVOD_METRICS_DUMP, ""),
+            stall_check_disable=_get_bool(HOROVOD_STALL_CHECK_DISABLE),
+            stall_check_time_seconds=_get_float(
+                HOROVOD_STALL_CHECK_TIME_SECONDS,
+                DEFAULT_STALL_CHECK_TIME_SECONDS),
+            stall_shutdown_time_seconds=_get_float(
+                HOROVOD_STALL_SHUTDOWN_TIME_SECONDS, 0.0),
+            straggler_report_seconds=_get_float(
+                HOROVOD_STRAGGLER_REPORT_SECONDS,
+                DEFAULT_STRAGGLER_REPORT_SECONDS),
+            cycle_pipeline_depth=_get_int(HOROVOD_CYCLE_PIPELINE_DEPTH,
+                                          DEFAULT_CYCLE_PIPELINE_DEPTH),
+            fusion_bucket_quantum=_get_int(
+                HOROVOD_FUSION_BUCKET_QUANTUM,
+                DEFAULT_FUSION_BUCKET_QUANTUM_BYTES),
+            native_cycle=native_cycle(),
+        )
 
 
 def flash_fused_bwd() -> bool:

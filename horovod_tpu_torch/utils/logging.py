@@ -57,6 +57,10 @@ def debug(msg: str, *args) -> None:
     get_logger().debug(msg, *args)
 
 
+def info(msg: str, *args) -> None:
+    get_logger().info(msg, *args)
+
+
 def warning(msg: str, *args) -> None:
     get_logger().warning(msg, *args)
 

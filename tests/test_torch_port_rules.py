@@ -101,6 +101,78 @@ def test_import_leaves_jax_out_of_sys_modules():
                    cwd=REPO, timeout=120)
 
 
+def test_new_runtime_modules_leave_jax_out_and_start_nothing():
+    """Importing the port, its metrics, native loader, timeline and stall
+    modules (and reading ``hvd.metrics()``) imports no JAX, starts no
+    thread and opens no socket: the endpoint and the writers exist only
+    when a knob or a call asks for them."""
+    code = (
+        "import os, sys, threading\n"
+        "import horovod_tpu_torch as hvd, horovod_tpu_torch.metrics\n"
+        "import horovod_tpu_torch.runtime.native\n"
+        "import horovod_tpu_torch.runtime.runtime\n"
+        "import horovod_tpu_torch.timeline, horovod_tpu_torch.stall\n"
+        "hvd.metrics()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "socks = []\n"
+        "for fd in os.listdir('/proc/self/fd'):\n"
+        "    try:\n"
+        "        link = os.readlink('/proc/self/fd/' + fd)\n"
+        "    except OSError:  # the listing's own descriptor\n"
+        "        continue\n"
+        "    if link.startswith('socket:'):\n"
+        "        socks.append(link)\n"
+        "assert not socks, socks\n" % (FORBIDDEN,))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    for knob in ("HOROVOD_METRICS_PORT", "HOROVOD_TIMELINE"):
+        env.pop(knob, None)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=REPO, timeout=120)
+
+
+def _exported(path: Path) -> set:
+    import re
+
+    text = path.read_text()
+    block = text[text.index('extern "C" {'):]
+    return set(re.findall(r"^\w[\w\s\*]*?\b(hv\w+)\(", block, re.M))
+
+
+def test_native_library_is_built_from_the_ports_sources_only(monkeypatch,
+                                                             tmp_path):
+    """The cycle engine and trace writer are the port's own copies
+    (``horovod_tpu_torch/cpp``) with the JAX package's C ABI, compiled by
+    one command that names no file outside that folder; the JAX package's
+    ``cpp/`` and its transport library are never built or loaded."""
+    from horovod_tpu_torch.runtime import native
+
+    assert native.CPP == REPO / "horovod_tpu_torch" / "cpp"
+    ours = set().union(*(_exported(native.CPP / s) for s in native.SOURCES))
+    theirs = set().union(*(_exported(REPO / "horovod_tpu" / "cpp" / s)
+                           for s in native.SOURCES))
+    assert len(theirs) == 13 and ours == theirs | {"hvd_cycle_abi_version"}
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native.subprocess, "run", fake_run)
+    so = native.build()
+    assert so.parent == tmp_path and so.exists()
+    (cmd,) = calls
+    files = [Path(a) for a in cmd if a.endswith(".cc")]
+    assert files == [native.CPP / s for s in native.SOURCES]
+    for f in _port_files():
+        text = f.read_text()
+        assert "libhvdtpu_net" not in text, f
+        assert "horovod_tpu/cpp" not in text, f
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
@@ -521,7 +593,11 @@ def test_chip_smoke_cpu_rehearsal_prints_no_result(no_card):
                   "runtime per step (hooks):",
                   "slice (hooks, fusion threshold 0:",
                   "hooks losses, threshold 0 vs phase 4",
-                  "phase 4b rehearsed", "runtime per step (Inception-V3):",
+                  "phase 4b rehearsed", "engine native: cache "
+                  "NativeResponseCache", "engine python: cache ResponseCache",
+                  "phase 4c: losses bit-equal on both engines",
+                  "cycle markers", "GET /metrics: status 200",
+                  "runtime per step (Inception-V3):",
                   "runtime per step (GPT-2, fused backward B7):",
                   "slice (ResNet-50)", "runtime per step (ResNet-50):",
                   "collectives through the runtime at world 1"):

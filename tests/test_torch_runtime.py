@@ -355,7 +355,8 @@ def test_timeline_writes_chrome_trace_with_fusion_activities(world1,
     assert {"MEMCPY_IN_FUSION_BUFFER", "GLOO_ALLREDUCE",
             "MEMCPY_OUT_FUSION_BUFFER", "NEGOTIATE_ALLREDUCE", "ALLREDUCE",
             "GLOO_BROADCAST", "RANK_0_READY"} <= names
-    lanes = {e["args"]["name"] for e in events if e.get("ph") == "M"}
+    lanes = {e["args"]["name"] for e in events
+             if e.get("name") == "process_name"}
     assert {"tl.0", "tl.1", "tl.b"} <= lanes
     # every begun span ends
     for pid in {e["pid"] for e in events if "pid" in e}:

@@ -91,6 +91,7 @@ def run(rank: int, size: int, tmpdir: str, bert: bool) -> None:
                       HOROVOD_TIMELINE=os.path.join(tmpdir, "timeline.json"))
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.core import state
+    from horovod_tpu_torch.utils import env
 
     # tiny shapes: more threads only contend with a loaded host's other
     # processes
@@ -104,17 +105,20 @@ def run(rank: int, size: int, tmpdir: str, bert: bool) -> None:
         # shutdown bit, so every rank's loop ends in the same cycle), at a
         # 256-byte threshold, so a group makes several bins, first at
         # pipeline depth 2, then 1
+        # (a runtime reads the knobs init() parsed: re-parse them)
         st = state.global_state()
         os.environ["HOROVOD_FUSION_THRESHOLD"] = "256"
         for depth in ("2", "1"):
             st.runtime.stop()
             st.runtime = None
             os.environ["HOROVOD_CYCLE_PIPELINE_DEPTH"] = depth
+            st.config = env.Config.from_env()
             _collectives(hvd, inp, rank, size, out, f"depth{depth}_")
         del os.environ["HOROVOD_CYCLE_PIPELINE_DEPTH"]
         del os.environ["HOROVOD_FUSION_THRESHOLD"]
         st.runtime.stop()
         st.runtime = None
+        st.config = env.Config.from_env()
         if bert:
             _bert(hvd, inp, rank, out)
         np.savez(os.path.join(tmpdir, f"rank{rank}.npz"), **out)

@@ -147,6 +147,31 @@ Phases (any failure exits non-zero):
    card): allgather, alltoall, a differentiable allreduce and its
    backward, an int64 allreduce past 2**40, a sparse allreduce and
    ``broadcast_object``, each exact.
+10. The training API (no kernel of its own). 10a: phase 8's ResNet-50,
+   data and optimizer through ``create_train_state`` and
+   ``make_train_round(steps=3)``, one warm-up and 3 timed rounds, each
+   inside ``hvd.profiler.step`` with ``HOROVOD_PROFILE=1`` and
+   ``set_flops_per_step(128 x 3 x 3 x 8.234e9, 989e12)``: every step's
+   loss finite, falling and within 1e-5 (first step) and 1e-2 (every
+   step; cuDNN's bf16 backward need not be deterministic) relative of
+   phase 8's; one record a round; each record's four phases summing to
+   its wall; dispatches and MFU above 0; each round's step_breakdown,
+   comm_hidden_fraction, MFU and peak_hbm_bytes printed. 10b: the same
+   rounds at ``HOROVOD_PROFILE`` 0, 1, 1, 0, ms a step each. 10c:
+   BERT-Large on phase 4's hooks path (2 warm-up, 3 timed steps) with
+   ``HOROVOD_PROFILE_DIR`` and ``HOROVOD_PROFILE_JAX``: one record a step
+   from the optimizer's own boundary, the optimizer phase above 0, the
+   phases summing to the wall; ``shutdown()``'s dump parses and
+   ``merge_profile_dir`` gives a trace with the step markers and the
+   ``torch.profiler`` device lane's kernels. 10d: the rounds at
+   ``HOROVOD_INTEGRITY`` 1, 0, 0, 1 with no healthy step skipped, the
+   guard's norm timed alone, then one ``DistributedOptimizer`` step with
+   one NaN written into one gradient by a gradient hook: skipped, the
+   parameters and SGD momentum bit-equal, the skipped-steps counter moved
+   by 1. 10e: the three examples (``horovod_tpu_torch/examples``), each
+   a process at world 1 on the card: ``synthetic_benchmark`` with and
+   without ``--fp16-allreduce``, ``mnist`` for 1 epoch,
+   ``bert_large_sparse`` at full width (tokens/s and "lockstep OK").
 
 Between them: 2d. kernel B10 (fused BN + ReLU) bit-equal to its plain
 version at every distinct BN input of Inception-V3 at batch 32 (bf16),
@@ -305,7 +330,8 @@ FULL = dict(
     fused_timed=("a", "b"),
     vprobe_case=vprobe.SHAPES["bert-large"][:4],
     gpt=dict(vocab_size=50257), gpt_batch=16, gpt_seq=1024,
-    resnet=dict(batch=128, size=224, classes=1000, dtype=BF16))
+    resnet=dict(batch=128, size=224, classes=1000, dtype=BF16),
+    round_steps=3, api_rounds=3)
 DRY = dict(
     cases={"a": (1, 2, 64, 64, False, 0, 0), "b": (1, 2, 96, 64, True, 0, 0),
            "d_masked": (1, 2, 64, 64, True, 8, 40),
@@ -324,7 +350,8 @@ DRY = dict(
     fused_timed=("a",), vprobe_case=(1, 2, 96, 64),
     gpt=dict(vocab_size=512, d_model=128, num_layers=2, num_heads=2,
              d_ff=256, max_seq=64), gpt_batch=2, gpt_seq=64,
-    resnet=dict(batch=2, size=32, classes=10, dtype=F32))
+    resnet=dict(batch=2, size=32, classes=10, dtype=F32),
+    round_steps=1, api_rounds=2)
 
 
 def check(ok: bool, what: str) -> None:
@@ -2454,6 +2481,329 @@ def check_collectives(device) -> None:
         hvd.shutdown()
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the training API
+# ---------------------------------------------------------------------------
+
+
+def resnet_setup(cfg, device, losses=None) -> dict:
+    """Phase 8's ResNet-50, data and optimizer for the training API:
+    ``hvd.init()``, ``ResNet50(seed=0)``, ``DistributedOptimizer(SGD(0.01 x
+    size, momentum 0.9))``, ``create_train_state``. ``losses`` collects
+    every step's loss (the loss function's own output, unread)."""
+    rn = cfg["resnet"]
+    rng = np.random.RandomState(0)  # bench.py:306-312, as phase 8
+    images = rng.uniform(-1, 1, (rn["batch"], rn["size"], rn["size"], 3)) \
+        .astype(np.float32)
+    labels = rng.randint(0, rn["classes"], (rn["batch"],)).astype(np.int32)
+    hvd.init(device=None if device.type == "cuda" else "cpu")
+    dev = hvd.device()
+    model = ResNet50(num_classes=rn["classes"], dtype=rn["dtype"], seed=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01 * hvd.size(),
+                        momentum=0.9),
+        named_parameters=model.named_parameters())
+    state = hvd.training.create_train_state(model, opt)
+    check(all(t.device == dev for t in state.params.values()),
+          "create_train_state: parameters off the device")
+
+    def loss_fn(logits, y):
+        loss = hvd.training.default_loss_fn(logits, y)
+        if losses is not None:
+            losses.append(loss.detach())
+        return loss
+
+    x, y = (torch.from_numpy(a).to(dev) for a in (images, labels))
+    return dict(model=model, opt=opt, loss_fn=loss_fn, x=x, y=y, dev=dev)
+
+
+def timed_rounds(cfg, setup: dict, rounds: int, explicit: bool = False,
+                 flops: bool = False) -> dict:
+    """A ``make_train_round(steps=cfg["round_steps"])`` of ``setup``'s
+    model, made under the knobs as they stand (the profiler and the guard
+    wrap it or not), one warm-up round, then ``rounds`` timed ones (each
+    inside ``hvd.profiler.step`` when ``explicit``), the device drained
+    after each. Returns the rounds' ms a step, the timed rounds' records,
+    the history's growth after each, and whether the round was wrapped."""
+    k, dev = cfg["round_steps"], setup["dev"]
+    round_fn = hvd.training.make_train_round(
+        setup["model"], setup["opt"], loss_fn=setup["loss_fn"], steps=k)
+    if flops:  # per-card FLOPs of one round (3 x forward a step)
+        hvd.profiler.set_flops_per_step(
+            cfg["resnet"]["batch"] * k * RESNET_FLOPS, PEAK_FLOPS)
+    x, y = setup["x"], setup["y"]
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    round_fn(x, y)
+    sync()
+    hvd.profiler.dump()  # closes the warm-up's record, if profiling
+    n0 = len(hvd.profiler.history())
+    ms, records, counts = [], [], []
+    for i in range(rounds):
+        t0 = time.perf_counter()
+        if explicit:
+            with hvd.profiler.step(f"round {i}") as rec:
+                round_fn(x, y)
+            records.append(rec.breakdown if rec is not None else None)
+            counts.append(len(hvd.profiler.history()) - n0)
+        else:
+            round_fn(x, y)
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0) / k)
+    hvd.profiler.dump()
+    if flops:
+        hvd.profiler.set_flops_per_step(None)
+    return dict(ms=ms, records=records, counts=counts,
+                wrapped=hasattr(round_fn, "__wrapped__"))
+
+
+def training_api(cfg, device, card, phase8_losses: list) -> None:
+    """Phase 10: the training API around the step, on the bench's
+    ResNet-50 and BERT-Large."""
+    where = f"({card})" if device.type == "cuda" else "(no device times)"
+    k = cfg["round_steps"]
+    rounds = cfg["api_rounds"]
+
+    # 10a: the profiled rounds, one record a round
+    step_losses = []
+    with knobs(**{env.HOROVOD_PROFILE: 1}):
+        setup = resnet_setup(cfg, device, losses=step_losses)
+        run = timed_rounds(cfg, setup, rounds, explicit=True, flops=True)
+    records, counts = run["records"], run["counts"]
+    setup.clear()
+    hvd.shutdown()
+    free_memory(device)
+    got = [v.item() for v in step_losses]
+    check(all(math.isfinite(v) for v in got) and got[-1] < got[0],
+          f"10a: losses not finite or not falling: {got}")
+    n = min(len(got), len(phase8_losses))
+    rel = [abs(a - b) / abs(b) for a, b in zip(got[:n], phase8_losses[:n])]
+    log(f"10a training API (ResNet-50, create_train_state + "
+        f"make_train_round(steps={k})): {len(got)} steps; largest "
+        f"relative difference from phase 8's losses: first step "
+        f"{rel[0]:.3e} (limit 1e-5), any step {max(rel):.3e} (limit 1e-2)")
+    log("  losses: " + " ".join(f"{v:.4f}" for v in got))
+    check(rel[0] <= 1e-5 and max(rel) <= 1e-2,
+          f"10a: round losses off phase 8's: {rel}")
+    check(counts == list(range(1, rounds + 1)),
+          f"10a: history grew by {counts}, want one record a round")
+    for i, b in enumerate(records):
+        total = sum(b["phases"].values())
+        check(abs(total - b["wall_seconds"]) <= 1e-9 * b["wall_seconds"],
+              f"10a: round {i} phases sum {total} != {b['wall_seconds']}")
+        check(b["comm"]["dispatches"] > 0 and (b["mfu"] or 0) > 0,
+              f"10a: round {i} dispatches {b['comm']['dispatches']}, "
+              f"mfu {b['mfu']}")
+        log(f"  round {i}: wall {1e3 * b['wall_seconds']:.2f} ms; "
+            f"step_breakdown ms " + json.dumps(
+                {p: round(1e3 * v, 3) for p, v in b["phases"].items()})
+            + f"; comm_hidden_fraction {b['comm']['hidden_fraction']:.4f}"
+            f" ({b['comm']['dispatches']} dispatches, "
+            f"{b['comm']['bytes']} bytes); mfu {b['mfu']:.4f}; "
+            f"peak_hbm_bytes {b['peak_hbm_bytes']} {where}")
+
+    # 10b and 10d run on one model, the knobs switched between turns (the
+    # profiler re-reads them at configure(); the guard at each step)
+    from horovod_tpu_torch.integrity import guards
+
+    setup = resnet_setup(cfg, device)
+    turns = {"profile": {}, "integrity": {}}
+    guards.reset()
+    skipped0 = guards._SKIPPED.value
+    for knob, key in ((env.HOROVOD_PROFILE, "profile"),
+                      (env.HOROVOD_INTEGRITY, "integrity")):
+        for on in (0, 1, 1, 0) if key == "profile" else (1, 0, 0, 1):
+            with knobs(**{knob: on}):
+                hvd.profiler.configure()
+                run = timed_rounds(cfg, setup, rounds)
+            turns[key].setdefault(on, []).append(statistics.median(
+                run["ms"]))
+            check(run["wrapped"] == bool(on),
+                  f"{knob}={on}: round wrapped {run['wrapped']}")
+    hvd.profiler.configure()
+    cost, guarded = turns["profile"], turns["integrity"]
+    log(f"10b profiler cost, ResNet-50 round of {k} steps, ms a step "
+        f"(median of {rounds} rounds), turns off, on, on, off: "
+        + " ".join(f"{cost[o][i]:.2f}" for o, i in ((0, 0), (1, 0), (1, 1),
+                                                     (0, 1)))
+        + f" {where}")
+    check(guards._SKIPPED.value == skipped0,
+          f"10d: the healthy runs skipped "
+          f"{guards._SKIPPED.value - skipped0} steps")
+
+    # 10d: the guard's own cost (the norm of the last step's gradients
+    # and its read, on an idle device; ms a call, median of 10), then a
+    # step with one NaN in one gradient
+    model, opt, x, y = (setup[n] for n in ("model", "opt", "x", "y"))
+    grads = [p.grad for p in model.parameters()]
+    norm_ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        guards.global_norm(grads)
+        norm_ms.append(1e3 * (time.perf_counter() - t0))
+    with knobs(**{env.HOROVOD_INTEGRITY: 1}):
+        before = [p.detach().clone() for p in model.parameters()]
+        momentum = [opt.state[p]["momentum_buffer"].clone()
+                    for p in model.parameters()]
+        target = next(model.parameters())
+
+        def one_nan(g):
+            g = g.clone()
+            g[(0,) * g.dim()] = float("nan")
+            return g
+
+        hook = target.register_hook(one_nan)
+        opt.zero_grad()
+        model.train()
+        hvd.training.default_loss_fn(model(x), y).backward()
+        opt.step()
+        hook.remove()
+        same = all(torch.equal(a, b) for a, b in zip(before,
+                                                     model.parameters()))
+        same_m = all(torch.equal(m, opt.state[p]["momentum_buffer"])
+                     for m, p in zip(momentum, model.parameters()))
+        moved = guards._SKIPPED.value - skipped0
+    setup.clear()
+    hvd.shutdown()
+    free_memory(device)
+    guards.reset()
+    log(f"10d integrity guard, ResNet-50 round of {k} steps, ms a step "
+        f"(median of {rounds} rounds), turns on, off, off, on: "
+        + " ".join(f"{guarded[o][i]:.2f}" for o, i in ((1, 0), (0, 0),
+                                                        (0, 1), (1, 1)))
+        + f"; the norm of the 161 gradients and its read alone "
+        f"{statistics.median(norm_ms):.3f} ms {where}; no healthy step "
+        f"skipped")
+    log(f"10d NaN step skipped: parameters bit-equal {same}, momentum "
+        f"bit-equal {same_m}, horovod_integrity_skipped_steps_total moved "
+        f"{moved}")
+    check(same and same_m and moved == 1,
+          "10d: the NaN step was not skipped cleanly")
+
+    # 10c: BERT-Large on the hooks path, the optimizer's own boundaries
+    profiler_10c(cfg, device, card)
+
+    # 10e: the three examples on the card, each a process of its own
+    run_examples(device)
+
+
+def profiler_10c(cfg, device, card) -> None:
+    """10c: BERT-Large on phase 4's hooks path with ``HOROVOD_PROFILE_DIR``
+    and ``HOROVOD_PROFILE_JAX``, no explicit step: the optimizer's own
+    boundary makes one record a step; ``shutdown()`` writes the dump and
+    the device trace, and ``merge_profile_dir`` joins them."""
+    warmup, steps = cfg["engine_steps"]
+    cfg = dict(cfg, warmup=warmup, steps=steps)
+    first = hvd.profiler.profiler()._step_index
+    with tempfile.TemporaryDirectory() as tmp:
+        with knobs(**{env.HOROVOD_PROFILE: 1, env.HOROVOD_PROFILE_DIR: tmp,
+                      env.HOROVOD_PROFILE_JAX: 1}):
+            _train(cfg, device, card, "hooks", False)
+        recs = [r for r in hvd.profiler.history() if r["step"] > first]
+        dumps = hvd.profiler.load_dumps(tmp)
+        t0 = time.perf_counter()
+        out, n_events = hvd.profiler.merge_profile_dir(tmp)
+        merge_s = time.perf_counter() - t0
+        with open(out) as f:
+            events = json.load(f)["traceEvents"]
+        trace_mb = os.path.getsize(os.path.join(
+            tmp, "jax-rank-0", hvd.profiler.DEVICE_TRACE)) / 2**20
+    check(len(recs) == warmup + steps and all(r["auto"] for r in recs),
+          f"10c: {len(recs)} records for {warmup + steps} steps")
+    for r in recs:
+        check(r["phases"]["optimizer"] > 0
+              and abs(sum(r["phases"].values()) - r["wall_seconds"])
+              <= 1e-9 * r["wall_seconds"],
+              f"10c: record {r['step']} phases {r['phases']}")
+    lanes = [(e["args"]["labels"], e["pid"]) for e in events
+             if e.get("name") == "process_labels"]
+    labels = {label for label, _ in lanes}
+    markers = [e for e in events if e.get("ph") == "X"
+               and str(e.get("name", "")).startswith("step ")]
+    device_pids = {pid for label, pid in lanes if label == "rank 0 device"}
+    kernels = [e for e in events if e.get("pid") in device_pids
+               and e.get("cat") == "kernel"]
+    check(len(dumps) == 1 and len(dumps[0]["steps"]) >= warmup + steps,
+          f"10c: dumps {[len(d.get('steps', ())) for d in dumps]}")
+    check("rank 0 steps" in labels and "rank 0 device" in labels
+          and len(markers) >= warmup + steps,
+          f"10c: merged trace lanes {sorted(labels)}, {len(markers)} "
+          f"step markers")
+    if device.type == "cuda":
+        check(len(kernels) > 0, "10c: the device trace holds no kernel")
+    where = f"({card})" if device.type == "cuda" else "(no device times)"
+    for r in recs:
+        log(f"  10c record {r['step']}: wall {1e3 * r['wall_seconds']:.2f} "
+            f"ms; phases ms " + json.dumps(
+                {p: round(1e3 * v, 3) for p, v in r["phases"].items()})
+            + f"; comm_hidden_fraction {r['comm']['hidden_fraction']:.4f}"
+            f" {where}")
+    log(f"10c profiler on BERT-Large hooks: {len(recs)} records for "
+        f"{warmup + steps} steps (optimizer > 0, phases = wall); merged "
+        f"trace {n_events} events, {len(markers)} step markers, "
+        f"{len(kernels)} device kernels, device trace {trace_mb:.1f} MiB, "
+        f"merge {merge_s:.2f} s")
+
+
+EXAMPLES = {  # (module, arguments on the card, arguments for the rehearsal)
+    "synthetic_benchmark": ([], ["--batch-size", "4", "--image-size",
+                                 "32"]),
+    "synthetic_benchmark --fp16-allreduce": (
+        ["--fp16-allreduce"], ["--batch-size", "4", "--image-size", "32",
+                               "--fp16-allreduce"]),
+    "mnist": (["--epochs", "1"], ["--epochs", "1"]),
+    "bert_large_sparse": ([], ["--layers", "1", "--seq", "16", "--batch",
+                               "2", "--steps", "2"]),
+}
+
+
+def run_examples(device) -> None:
+    """10e: each example as its own process at world 1: on the card at
+    their defaults (BERT-Large at full width), one after another; in the
+    rehearsal on the CPU at tiny sizes, all at once. A non-zero exit fails
+    the phase."""
+    free_memory(device)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env_ = {k: v for k, v in os.environ.items()
+            if not k.startswith("HOROVOD_")}  # world 1, no knob
+
+    def start(label):
+        card_args, dry_args = EXAMPLES[label]
+        args = card_args if device.type == "cuda" else \
+            ["--device", "cpu", *dry_args]
+        return subprocess.Popen(
+            [sys.executable, "-m",
+             "horovod_tpu_torch.examples." + label.split()[0], *args],
+            cwd=here, env=env_, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    def finish(label, proc, t0):
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        lines = out.strip().splitlines()
+        log(f"10e example {label}: exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s; last line: "
+            f"{lines[-1] if lines else ''}")
+        check(proc.returncode == 0,
+              f"example {label} failed:\n{out[-2000:]}\n{err[-3000:]}")
+        if label == "bert_large_sparse":
+            check("lockstep OK" in out and "tokens/s" in out,
+                  "bert_large_sparse printed no tokens/s and lockstep OK")
+
+    if device.type == "cuda":
+        for label in EXAMPLES:
+            t0 = time.perf_counter()
+            finish(label, start(label), t0)
+    else:
+        t0 = time.perf_counter()
+        procs = {label: start(label) for label in EXAMPLES}
+        for label, proc in procs.items():
+            finish(label, proc, t0)
+
+
 GROUPS = (  # kernel-name fragments -> group, first match wins
     ("flash_", "attention kernels (port)"),
     ("sba_kernel", "BN + ReLU kernel B10 (port)"),
@@ -2593,8 +2943,9 @@ def main() -> int:
     gpt = {fused: train_gpt(cfg, device, card, fused, args.profile)
            for fused in (False, True)}
     compare_gpt_runs(gpt[False], gpt[True])
-    train_resnet(cfg, device, card, args.profile)
+    resnet = train_resnet(cfg, device, card, args.profile)
     check_collectives(device)
+    training_api(cfg, device, card, resnet["losses"])
     if dry:
         log("DRY RUN complete: control flow rehearsed; no result line")
         return 0

@@ -17,7 +17,10 @@ hand-written Hopper kernels (``csrc/``). The replicated fused AdamW is
 through the enqueue runtime (``runtime/``): named, negotiated across the
 ranks, allreduces fused into one call a bin, on ``torch.distributed``
 (NCCL between GPUs, gloo on the CPU); ``hvd.metrics()`` is its metrics
-registry's snapshot.
+registry's snapshot. ``hvd.training`` (``create_train_state``,
+``make_train_step``, ``make_train_round``), ``hvd.callbacks``,
+``hvd.profiler`` (the step profiler) and ``hvd.integrity`` (the step
+guard) are modules of the package.
 
 Entry points run on the card unless the caller asks for the CPU
 (``hvd.init(device="cpu")``). Nothing here imports JAX or the JAX package.
@@ -25,8 +28,13 @@ Entry points run on the card unless the caller asks for the CPU
 
 # The metrics module is loaded before ``metrics`` (the function) is bound
 # below: a submodule's first import makes it an attribute of the package,
-# which would otherwise replace the function.
+# which would otherwise replace the function. The same holds for every
+# module attribute, so they all come first.
 import horovod_tpu_torch.metrics  # noqa: F401
+from horovod_tpu_torch import profiler  # noqa: F401
+from horovod_tpu_torch import integrity  # noqa: F401
+from horovod_tpu_torch import training  # noqa: F401
+from horovod_tpu_torch import callbacks  # noqa: F401
 
 from horovod_tpu_torch.core.basics import (  # noqa: F401
     init,

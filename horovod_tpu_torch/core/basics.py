@@ -26,6 +26,11 @@ it destroys the groups.
 ``shutdown()`` stops the endpoint and, when ``HOROVOD_METRICS_DUMP`` is
 set, writes this rank's snapshot there. ``metrics()`` is the snapshot, at
 any time. Without those knobs no thread and no socket exist for metrics.
+
+``init()`` configures the step profiler (``profiler.py``) with this rank
+and device; ``shutdown()`` closes its open step and writes its dump
+(``HOROVOD_PROFILE_DIR``). Without ``HOROVOD_PROFILE`` or a profile dir it
+records nothing and writes nothing.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from typing import Optional, Union
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch import profiler
 from horovod_tpu_torch.core import state as state_mod
 from horovod_tpu_torch.exceptions import NotInitializedError
 from horovod_tpu_torch.metrics import registry as metrics_registry
@@ -123,6 +129,7 @@ def init(device: Union[str, torch.device, None] = None) -> None:
         if st.config.metrics_port is not None:
             port = metrics_registry().serve(st.config.metrics_port)
             log.debug("metrics endpoint serving on port %d", port)
+        profiler.configure(rank=rank, device=device, config=st.config)
 
 
 def shutdown() -> None:
@@ -133,6 +140,7 @@ def shutdown() -> None:
             return
         if st.runtime is not None:
             st.runtime.stop()
+        profiler.finalize()
         reg = metrics_registry()
         reg.stop_server()
         if st.config.metrics_dump:

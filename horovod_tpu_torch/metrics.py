@@ -23,7 +23,7 @@ Consumers (wired in ``core/basics.py`` and ``runtime/runtime.py``):
 * ``hvd.metrics()``: the snapshot, a JSON-serializable nested dict;
 * ``HOROVOD_METRICS_PORT``: Prometheus text over the standard library's
   ``http.server`` on a daemon thread, ``GET /metrics`` (and ``/``,
-  ``/debug/routes``, ``/healthz``);
+  ``/debug/routes``, ``/profile``, ``/healthz``);
 * the timeline's ``"C"`` counter events, one set each cycle;
 * ``HOROVOD_METRICS_DUMP``: this rank's snapshot as JSON at
   ``hvd.shutdown()``; :func:`summarize_dumps` and :func:`format_summary`
@@ -38,7 +38,8 @@ wait, pipeline depth), ``runtime/tensor_queue.py`` (depth, enqueued),
 bytes and leases out, purpose ``fusion``), ``runtime/executor.py`` (op
 duration, bytes and errors by op, comm exposed seconds), ``stall.py``
 (warnings, shutdowns, straggler lag, negotiation skew) and ``timeline.py``
-(dropped events).
+(dropped events), ``profiler.py`` (step seconds, comm hidden fraction,
+MFU) and ``integrity/guards.py`` (skipped steps).
 
 Not ported: ``horovod_autotune_param`` and ``horovod_autotune_commits_
 total`` wait for the autotuner (ROADMAP A8);
@@ -68,11 +69,12 @@ RATIO_BUCKETS = (0.01, 0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0)
 
 # Every route the HTTP endpoint serves, with a one-line description: the
 # payload of GET / and GET /debug/routes. The JAX package's other routes
-# (/debug, /serve, /profile, /memory, /comms, /slo, /goodput) come with the
-# planes that back them.
+# (/debug, /serve, /memory, /comms, /slo, /goodput) come with the planes
+# that back them.
 HTTP_ROUTES: Dict[str, str] = {
     "/metrics": "Prometheus text exposition of every registered family",
     "/debug/routes": "this route index",
+    "/profile": "step-profiler phase breakdowns and summary",
     "/healthz": "readiness gate (200 once init ran)",
 }
 
@@ -311,6 +313,19 @@ class MetricsRegistry:
                     # route index: which surfaces this endpoint serves,
                     # so tooling discovers them instead of probing 404s
                     body = json.dumps(route_index(), default=repr).encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                elif route == "/profile":
+                    # step-profiler state: the last N breakdowns and the
+                    # summary (a rate-limited snapshot, see
+                    # profiler.profile_state)
+                    from horovod_tpu_torch import profiler
+
+                    body = json.dumps(profiler.profile_state(),
+                                      default=repr).encode()
                     self.send_response(200)
                     self.send_header("Content-Type", "application/json")
                     self.send_header("Content-Length", str(len(body)))

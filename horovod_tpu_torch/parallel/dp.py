@@ -17,6 +17,15 @@ densifies it first (``horovod_tpu/torch/__init__.py:79-82, 141-147,
 leave it alone, so no gradient goes out twice.
 ``shard_optimizer_states=True`` returns the ZeRO wrapper
 (``parallel/zero.py`` ``sharded_update``) in place of the hooks.
+
+``step()`` carries the JAX update's two hooks (``horovod_tpu/parallel/
+dp.py:214-254``): a step-profiler boundary (``profiler.auto_step()``)
+before the exchange is awaited, the inner step inside
+``profiler.annotate("optimizer")``, and, under ``HOROVOD_INTEGRITY``, the
+step guard over the averaged gradients' global norm: a flagged step is
+skipped, leaving the parameters, the inner optimizer's state and its step
+count as they were, as zero updates and the unchanged ``opt_state`` do in
+optax. The ZeRO wrapper has neither hook, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from horovod_tpu_torch import integrity, profiler
 from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.core import basics
 from horovod_tpu_torch.ops import collectives
@@ -150,6 +160,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self._should_synchronize = True
 
     def step(self, closure=None):
+        profiler.auto_step()
         if self._should_synchronize:
             if self._synchronized:
                 warnings.warn(
@@ -158,7 +169,13 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                     "are allreduced a second time")
             self.synchronize()
         self._synchronized = False
-        return super(self.__class__, self).step(closure)
+        if integrity.enabled() and not integrity.guards.guard_gradients(
+                [p.grad for p in self._requires_update]):
+            # every rank observes the same averaged norm, so every rank
+            # skips this step; the batch stays consumed
+            return None
+        with profiler.annotate("optimizer"):
+            return super(self.__class__, self).step(closure)
 
     def zero_grad(self, *args, **kwargs):
         """Zeroing gradients that async allreduces are still reading would

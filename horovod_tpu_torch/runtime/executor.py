@@ -37,9 +37,10 @@ is on the same stream, so it is ordered after that unpack.
 Each response's host time from dispatch to completion, its bytes, its
 errors and the part of its time not hidden behind later dispatches are
 metrics (``horovod_executor_op_*`` by op, ``horovod_comm_exposed_seconds_
-total``); on the card these are the host's times of queueing the work, not
-the device's. Not ported yet: the hierarchy, integrity digests, comms
-accounting and the flight recorder (ROADMAP A8, A10, A11).
+total``) and the comm clock the step profiler diffs (:func:`comm_totals`);
+on the card these are the host's times of queueing the work, not the
+device's. Not ported yet: the hierarchy, integrity digests, the comms
+plane's bandwidth tracker and the flight recorder (ROADMAP A8, A10, A11).
 """
 
 from __future__ import annotations
@@ -75,6 +76,52 @@ _COMM_EXPOSED = _metrics().counter(
     "busy time plus drain (device sync + unpack) time, summed across ops. "
     "Compare against the horovod_executor_op_duration_seconds sum for the "
     "comm-hidden fraction.")
+
+
+
+class _CommClock:
+    """Cumulative comm-exposure accounting that the step profiler
+    (``profiler.py``) diffs at step boundaries. Per completed op the
+    lifetime splits into dispatch-busy (pack + launch), an overlap window
+    (the token parked in the pipeline while later responses dispatch, the
+    only part hidden from the caller) and drain-busy (the wait and the
+    unpack). Plain float adds under the GIL, as in the metrics registry."""
+
+    __slots__ = ("total_seconds", "exposed_seconds", "total_bytes",
+                 "hidden_bytes", "ops")
+
+    def __init__(self) -> None:
+        self.total_seconds = 0.0
+        self.exposed_seconds = 0.0
+        self.total_bytes = 0
+        self.hidden_bytes = 0.0
+        self.ops = 0
+
+    def record(self, total: float, exposed: float, nbytes: int) -> None:
+        """One completed op; moves ``horovod_comm_exposed_seconds_total``
+        by the same ``exposed``."""
+        self.total_seconds += total
+        self.exposed_seconds += exposed
+        self.total_bytes += nbytes
+        self.ops += 1
+        if total > 0.0:
+            self.hidden_bytes += nbytes * (1.0 - exposed / total)
+        _COMM_EXPOSED.inc(exposed)
+
+
+_comm_clock = _CommClock()
+
+
+def comm_totals() -> dict:
+    """Snapshot of the cumulative comm-exposure accumulators (the step
+    profiler diffs two of these to attribute one step's collectives)."""
+    c = _comm_clock
+    return {"total_seconds": c.total_seconds,
+            "exposed_seconds": c.exposed_seconds,
+            "total_bytes": c.total_bytes,
+            "hidden_bytes": c.hidden_bytes,
+            "ops": c.ops}
+
 
 _TORCH_OPS = {types.REDUCE_SUM: dist.ReduceOp.SUM,
               types.REDUCE_AVERAGE: dist.ReduceOp.SUM,
@@ -128,7 +175,8 @@ class _PendingOp:
     success and failure alike. Tokens complete in dispatch order."""
 
     __slots__ = ("executor", "op", "entries", "timeline", "name0", "finish",
-                 "done", "lease", "t0", "t_disp_end", "t_drain_start")
+                 "done", "lease", "nbytes", "t0", "t_disp_end",
+                 "t_drain_start")
 
     def __init__(self, executor: "Executor", op: str, entries, timeline):
         self.executor = executor
@@ -139,6 +187,7 @@ class _PendingOp:
         self.finish: Optional[Callable[[], None]] = None
         self.done = False
         self.lease = None
+        self.nbytes = sum(types.entry_nbytes(e) for e in entries)
         # dispatch start, dispatch end and drain start: the gap between the
         # last two is the time the op's work stood queued behind later
         # dispatches, hidden from the caller
@@ -156,7 +205,9 @@ class _PendingOp:
         _OP_LATENCY.labels(op=self.op).observe(total)
         disp_end = min(self.t_disp_end or t_end, t_end)
         drain_start = min(self.t_drain_start or t_end, t_end)
-        _COMM_EXPOSED.inc(max(0.0, total - max(0.0, drain_start - disp_end)))
+        _comm_clock.record(total,
+                           max(0.0, total - max(0.0, drain_start - disp_end)),
+                           self.nbytes)
         if self.timeline is not None:
             self.timeline.end(self.name0)
 
@@ -184,8 +235,7 @@ class _PendingOp:
             self.fail(types.Status.UnknownError(
                 f"{type(exc).__name__}: {exc}"))
             return
-        _OP_BYTES.labels(op=self.op).inc(
-            sum(types.entry_nbytes(e) for e in self.entries))
+        _OP_BYTES.labels(op=self.op).inc(self.nbytes)
         ok = types.Status.OK()
         for e in self.entries:
             e.complete(ok, e.output)

@@ -22,8 +22,10 @@ counter events to the coordinator's timeline, and moves the cycle metrics
 (``horovod_cycles_total`` with ``COUNTS["cycles"]`` in one call,
 ``horovod_cycle_duration_seconds``, ``horovod_cycle_tensors``,
 ``horovod_cycle_pipeline_depth``; a handle's wait is
-``horovod_handle_wait_seconds``). The coordinator's stall inspector carries
-a straggler tracker.
+``horovod_handle_wait_seconds``, whose sum the step profiler diffs into a
+step's ``exposed_comm`` phase: on the card, host time until the
+collective is queued, not the device's). The coordinator's stall
+inspector carries a straggler tracker.
 
 Not ported yet: autotune (ROADMAP A8), the elastic and resilience hooks
 and typed worker-loss errors (A10), tracing, the flight recorder and the

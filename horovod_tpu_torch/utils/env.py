@@ -1,8 +1,9 @@
 """Environment knobs the port reads (port of ``horovod_tpu/utils/env.py``:
 the parsing helpers, the launcher's identity contract, the enqueue
 runtime's knobs and :class:`Config`, the fusion bucket quantum, the metrics
-endpoint and dump, the ZeRO stage and gradient release knobs, and the flash
-attention's ``FLASH_FUSED_BWD`` switch).
+endpoint and dump, the ZeRO stage and gradient release knobs, the step
+profiler's and the integrity guard's knobs, and the flash attention's
+``FLASH_FUSED_BWD`` switch).
 
 ``hvd.init()`` parses the runtime's knobs once into :class:`Config`
 (``horovod_tpu/utils/env.py:224-350``); the runtime reads that. The knobs
@@ -63,6 +64,22 @@ HOROVOD_METRICS_DUMP = "HOROVOD_METRICS_DUMP"
 # "false", "no" or "off"; off runs the Python cache, bin-packer and trace
 # writer.
 HOROVOD_NATIVE_CYCLE = "HOROVOD_NATIVE_CYCLE"
+
+# The step profiler (profiler.py): on, the directory each rank dumps its
+# profile into (which also turns profiling on), the step ring's size, and a
+# torch.profiler trace of the device into that directory (the JAX
+# package's name, where it captures a jax.profiler trace).
+HOROVOD_PROFILE = "HOROVOD_PROFILE"
+HOROVOD_PROFILE_DIR = "HOROVOD_PROFILE_DIR"
+HOROVOD_PROFILE_HISTORY = "HOROVOD_PROFILE_HISTORY"
+HOROVOD_PROFILE_JAX = "HOROVOD_PROFILE_JAX"
+DEFAULT_PROFILE_HISTORY = 64
+
+# The integrity step guard (integrity/): armed, its spike threshold in
+# EWMA standard deviations, and the consecutive skips before it raises.
+HOROVOD_INTEGRITY = "HOROVOD_INTEGRITY"
+HOROVOD_INTEGRITY_SPIKE_SIGMA = "HOROVOD_INTEGRITY_SPIKE_SIGMA"
+HOROVOD_INTEGRITY_SKIP_STEPS = "HOROVOD_INTEGRITY_SKIP_STEPS"
 
 # Size-bucket quantum of flat fused payloads, in bytes (reference:
 # horovod_tpu/utils/env.py:55,156); ZeRO pads each per-rank shard to it.
@@ -126,13 +143,15 @@ def native_cycle() -> bool:
 # Knobs read where they are used rather than parsed into Config: the
 # launcher's identity and wiring (read by init() before a Config exists),
 # the ZeRO and release-plan knobs (read when a plan or a training step is
-# built) and the attention backward's switch (read at each backward).
+# built), the attention backward's switch (read at each backward) and the
+# integrity knobs (read when a guard is made or a step is taken).
 ENV_DIRECT_KNOBS = (
     HOROVOD_RANK, HOROVOD_SIZE, HOROVOD_LOCAL_RANK, HOROVOD_LOCAL_SIZE,
     HOROVOD_CROSS_RANK, HOROVOD_CROSS_SIZE, HOROVOD_COORDINATOR_ADDR,
     HOROVOD_LOG_LEVEL, HOROVOD_LOG_HIDE_TIME, HOROVOD_ZERO_STAGE,
     HOROVOD_ZERO_PREFETCH_BUCKETS, HOROVOD_GRAD_BUCKET_BYTES,
-    HOROVOD_GRAD_BUCKET_RELEASE, FLASH_FUSED_BWD,
+    HOROVOD_GRAD_BUCKET_RELEASE, FLASH_FUSED_BWD, HOROVOD_INTEGRITY,
+    HOROVOD_INTEGRITY_SPIKE_SIGMA, HOROVOD_INTEGRITY_SKIP_STEPS,
 )
 
 
@@ -158,6 +177,12 @@ class Config:
     cycle_pipeline_depth: int = DEFAULT_CYCLE_PIPELINE_DEPTH
     fusion_bucket_quantum: int = DEFAULT_FUSION_BUCKET_QUANTUM_BYTES
     native_cycle: bool = True
+    # step profiler (profiler.py): a profile dir also turns profiling on
+    profile: bool = False
+    profile_dir: str = ""
+    profile_history: int = DEFAULT_PROFILE_HISTORY
+    # also capture a torch.profiler trace of the device into the dir
+    profile_jax: bool = False
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -189,6 +214,12 @@ class Config:
                 HOROVOD_FUSION_BUCKET_QUANTUM,
                 DEFAULT_FUSION_BUCKET_QUANTUM_BYTES),
             native_cycle=native_cycle(),
+            profile=(_get_bool(HOROVOD_PROFILE)
+                     or os.environ.get(HOROVOD_PROFILE_DIR, "") != ""),
+            profile_dir=os.environ.get(HOROVOD_PROFILE_DIR, ""),
+            profile_history=_get_int(HOROVOD_PROFILE_HISTORY,
+                                     DEFAULT_PROFILE_HISTORY),
+            profile_jax=_get_bool(HOROVOD_PROFILE_JAX),
         )
 
 

@@ -134,7 +134,7 @@ def test_endpoint_serves_its_routes_and_stops():
             status, kind, body = _get(port, route)
             assert status == 200 and kind == "application/json"
             assert set(json.loads(body)["routes"]) == {
-                "/metrics", "/debug/routes", "/healthz"}
+                "/metrics", "/debug/routes", "/profile", "/healthz"}
         hvd.shutdown()
         status, _, _ = _get(port, "/healthz")
         assert status == 503

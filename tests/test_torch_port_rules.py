@@ -132,6 +132,41 @@ def test_new_runtime_modules_leave_jax_out_and_start_nothing():
                    cwd=REPO, timeout=120)
 
 
+def test_training_api_leaves_jax_out_and_starts_nothing(tmp_path):
+    """The training API, the profiler, the step guard, the callbacks and
+    the examples import no JAX; ``hvd.profiler``, ``hvd.callbacks``,
+    ``hvd.training`` and ``hvd.integrity`` are modules; after ``init(device=
+    "cpu")`` with no knob set the profiler is off and records nothing, and
+    no thread and no file exist (run in an empty directory)."""
+    code = (
+        "import os, sys, threading, types\n"
+        "import horovod_tpu_torch as hvd\n"
+        "import horovod_tpu_torch.examples.synthetic_benchmark\n"
+        "import horovod_tpu_torch.examples.mnist\n"
+        "import horovod_tpu_torch.examples.bert_large_sparse\n"
+        "import horovod_tpu_torch.integrity.guards\n"
+        "for name in ('profiler', 'callbacks', 'training', 'integrity'):\n"
+        "    assert isinstance(getattr(hvd, name), types.ModuleType), name\n"
+        "hvd.init(device='cpu')\n"
+        "assert not hvd.profiler.enabled() and not hvd.integrity.enabled()\n"
+        "with hvd.profiler.step() as rec:\n"
+        "    hvd.profiler.auto_step()\n"
+        "assert rec is None and hvd.profiler.history() == []\n"
+        "assert hvd.profiler.profiler()._device_trace is None\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "hvd.shutdown()\n"
+        "assert os.listdir('.') == [], os.listdir('.')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n" % (FORBIDDEN,))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    for knob in ("HOROVOD_METRICS_PORT", "HOROVOD_METRICS_DUMP",
+                 "HOROVOD_TIMELINE", "HOROVOD_PROFILE", "HOROVOD_PROFILE_DIR",
+                 "HOROVOD_PROFILE_JAX", "HOROVOD_INTEGRITY"):
+        env.pop(knob, None)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=tmp_path, timeout=120)
+
+
 def _exported(path: Path) -> set:
     import re
 
@@ -600,7 +635,10 @@ def test_chip_smoke_cpu_rehearsal_prints_no_result(no_card):
                   "runtime per step (Inception-V3):",
                   "runtime per step (GPT-2, fused backward B7):",
                   "slice (ResNet-50)", "runtime per step (ResNet-50):",
-                  "collectives through the runtime at world 1"):
+                  "collectives through the runtime at world 1",
+                  "10a training API", "10b profiler cost",
+                  "10c profiler on BERT-Large hooks", "10d integrity guard",
+                  "10d NaN step skipped", "10e example bert_large_sparse"):
         assert phase in out.stdout, phase
     assert "BERT-Large MLM" in out.stdout
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout

@@ -172,6 +172,31 @@ Phases (any failure exits non-zero):
    a process at world 1 on the card: ``synthetic_benchmark`` with and
    without ``--fp16-allreduce``, ``mnist`` for 1 epoch,
    ``bert_large_sparse`` at full width (tokens/s and "lockstep OK").
+11. Checkpoint and resume (no kernel of its own), in a temporary
+   directory whose free space is checked first (the phase fails, with
+   the numbers, when it is short). 11a: phase 5's P2 (BERT-Large, seed 0,
+   the bench's batch, ``sharded_adamw`` through B8, flash B1-B6 in the
+   forward and backward), 2 warm-up steps, ``hvd.ckpt.CheckpointManager(
+   dir, async_write=True, keep=1).commit({"params", "opt"}, step=2)``,
+   step 3 at once (racing the writer), ``wait()``, steps 4-5; a model and
+   state from seed 1 restored by ``hvd.ckpt.restore_latest``: every
+   parameter, master, mu, nu and the count bit-equal to a host copy taken
+   at the commit, the replay of steps 3-5 on the same batch with the
+   first loss bit-equal to step 3's and the rest within 1e-2 relative;
+   the manifest at step 2 exists and no commit was abandoned. Printed
+   beside the card's name and power limit: the commit's inline ms, the
+   writer's ms and commit to ``wait()``, bytes a rank, the racing step's
+   ms against steps 4-5, restore seconds. 11b: the restored state
+   committed again, then one step (B8 in place) at once with no
+   synchronize: the shard file holds the pre-step bytes of every
+   parameter, master, mu and nu, the step moved master, and the second
+   commit allocated no host slab. B1-B6 launched 24 times a step and B8
+   once a group a step over the 9 steps. 11c: phase 8's ResNet-50 saved
+   after step 2 by ``hvd.checkpoint.save`` (parameters, batch-norm
+   buffers, SGD momentum), ``restore_latest`` into a model from seed 1:
+   every tensor bit-equal, the next step's loss bit-equal to the
+   uninterrupted run's; a copy with one byte of its largest leaf flipped
+   raises ``CheckpointCorruptError`` naming that leaf.
 
 Between them: 2d. kernel B10 (fused BN + ReLU) bit-equal to its plain
 version at every distinct BN input of Inception-V3 at batch 32 (bf16),
@@ -219,6 +244,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2804,6 +2830,297 @@ def run_examples(device) -> None:
             finish(label, proc, t0)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: checkpoint and resume
+# ---------------------------------------------------------------------------
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _host(tensors) -> list:
+    return [t.detach().cpu().clone() for t in tensors]
+
+
+def ckpt_space(directory: str, need: int, what: str) -> None:
+    """Fail, with the numbers, unless ``directory`` has room for ``need``
+    bytes."""
+    free = shutil.disk_usage(directory).free
+    log(f"  {what}: {directory} has {free:,} bytes free; the phase writes "
+        f"up to {need:,}")
+    check(free >= need, f"{what}: {directory} has {free:,} bytes free, the "
+                        f"phase writes up to {need:,}")
+
+
+def checkpoint_p2(cfg, device, card, tmp) -> None:
+    """11a and 11b: BERT-Large MLM on P2 (phase 5's setup: seed 0, the
+    bench's batch, ZeRO-1 ``sharded_adamw`` through B8) committed by the
+    sharded writer while training goes on, restored into a model from
+    seed 1 and replayed; then the in-place hazard: a commit followed at
+    once by a B8 step."""
+    where = f"({card})" if device.type == "cuda" else "(no device times)"
+    tokens, positions, labels, _ = mlm_data(cfg)
+    for counts in (fa.LAUNCHES, fopt.LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
+    hvd.init(device=None if device.type == "cuda" else "cpu")
+    dev = hvd.device()
+    toks, pos, lab = (torch.from_numpy(a).to(dev)
+                      for a in (tokens, positions, labels))
+    tx = hvd.sharded_adamw(1e-4)
+
+    def build(seed):
+        model = BertLarge(**cfg["model"], device=dev, seed=seed)
+        params = dict(model.named_parameters())
+        return model, params, {"opt": tx.init(params)}
+
+    def step(model, params, box):
+        model.zero_grad(set_to_none=True)
+        loss = masked_lm_loss_gathered(model(toks, output="hidden"),
+                                       model.token_embed, pos, lab)
+        loss.backward()
+        _, box["opt"] = tx.apply(params, box["opt"],
+                                 {k: p.grad for k, p in params.items()})
+        return loss.detach()
+
+    def timed(model, params, box):
+        t0 = time.perf_counter()
+        loss = step(model, params, box).item()  # waits for its last kernel
+        return loss, 1e3 * (time.perf_counter() - t0)
+
+    def state_host(params, box):
+        st = box["opt"]
+        return ({k: p.detach().cpu().clone() for k, p in params.items()},
+                {c: _host(getattr(st, c)) for c in ("master", "mu", "nu")},
+                st.count)
+
+    # 11a: 2 warm-up steps, the commit, step 3 racing the writer, 4-5
+    model, params, box = build(0)
+    n_layers, n_groups = len(model.layers), len(box["opt"].spec.groups)
+    losses = [step(model, params, box).item() for _ in range(2)]
+    snap_params, snap_state, snap_count = state_host(params, box)
+    payload = nbytes(params.values()) + sum(
+        nbytes(v) for v in snap_state.values())
+    ckpt_space(tmp, 2 * payload + (1 << 30), "11a")
+    d = os.path.join(tmp, "p2")
+    mgr = hvd.ckpt.CheckpointManager(d, async_write=True, keep=1)
+    abandoned = hvd.ckpt.stats.COMMITS_ABANDONED.value
+    _sync(dev)
+    t0 = time.perf_counter()
+    mgr.commit({"params": params, "opt": box["opt"]}, step=2)
+    inline_ms = 1e3 * (time.perf_counter() - t0)
+    loss3, contended_ms = timed(model, params, box)
+    mgr.wait()
+    wall_s = time.perf_counter() - t0
+    commit = dict(mgr.last_commit)
+    slabs_first = mgr.slab_allocations
+    rest = [timed(model, params, box) for _ in range(2)]
+    losses += [loss3] + [v for v, _ in rest]
+    check(commit["step"] == 2 and hvd.ckpt.latest_step(d) == 2
+          and os.path.exists(hvd.ckpt.manifest.manifest_path(d, 2)),
+          f"11a: no manifest at step 2 in {sorted(os.listdir(d))}")
+    check(hvd.ckpt.stats.COMMITS_ABANDONED.value == abandoned,
+          "11a: the commit was abandoned")
+    del model, params, box
+    free_memory(device)
+
+    model2, params2, box2 = build(1)
+    _sync(dev)
+    t0 = time.perf_counter()
+    trees, got = hvd.ckpt.restore_latest(d, {"params": params2,
+                                            "opt": box2["opt"]})
+    _sync(dev)
+    restore_s = time.perf_counter() - t0
+    check(got == 2, f"11a: restored step {got}, want 2")
+    with torch.no_grad():
+        for k, p in params2.items():
+            p.copy_(trees["params"][k])
+    box2["opt"] = trees["opt"]
+    del trees
+    got_params, got_state, got_count = state_host(params2, box2)
+    bad = [k for k in snap_params if not torch.equal(got_params[k],
+                                                     snap_params[k])]
+    bad += [f"{c}/{gi}" for c in snap_state
+            for gi, (a, b) in enumerate(zip(got_state[c], snap_state[c]))
+            if not torch.equal(a, b)]
+    check(not bad and got_count == snap_count,
+          f"11a: restored state not bit-equal to the commit's: {bad[:8]}, "
+          f"count {got_count} (want {snap_count})")
+    del got_params, got_state, snap_params, snap_state
+    replay = [timed(model2, params2, box2)[0] for _ in range(3)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(replay, losses[2:])]
+    log(f"11a P2 checkpoint (BERT-Large, sharded_adamw, world 1): commit at "
+        f"step 2, {commit['bytes']:,} bytes a rank ({payload:,} of tensors), "
+        f"{n_groups} group(s) {where}; restored into seed-1 weights "
+        f"bit-equal (parameters, master, mu, nu, count {got_count})")
+    log("  losses: " + " ".join(f"{v:.6f}" for v in losses)
+        + "; replayed 3-5: " + " ".join(f"{v:.6f}" for v in replay))
+    log(f"  replay vs steps 3-5, relative: {' '.join(f'{v:.3e}' for v in rel)}"
+        f" (first bit-equal, the rest within 1e-2)")
+    check(replay[0] == losses[2], f"11a: first replayed loss {replay[0]!r} "
+                                  f"!= step 3's {losses[2]!r}")
+    check(max(rel) <= 1e-2, f"11a: replayed losses off: {rel}")
+    log(f"  commit inline {inline_ms:.2f} ms (first commit: {slabs_first} "
+        f"host slab(s) allocated, pinned for CUDA tensors); writer "
+        f"{1e3 * commit['seconds']:.1f} ms; commit to wait() "
+        f"{1e3 * wall_s:.1f} ms {where}")
+    log(f"  step 3 racing the writer {contended_ms:.2f} ms; steps 4, 5 "
+        f"{rest[0][1]:.2f}, {rest[1][1]:.2f} ms; restore {restore_s:.3f} s "
+        f"{where}")
+
+    # 11b: commit, then one B8 step at once, no synchronize
+    pre_params, pre_state, _ = state_host(params2, box2)
+    slabs = mgr.slab_allocations
+    _sync(dev)
+    t0 = time.perf_counter()
+    mgr.commit({"params": params2, "opt": box2["opt"]}, step=6)
+    inline2_ms = 1e3 * (time.perf_counter() - t0)
+    b8 = fopt.LAUNCHES["flat_adamw"]
+    step(model2, params2, box2)
+    b8 = fopt.LAUNCHES["flat_adamw"] - b8
+    mgr.wait()
+    second_slabs = mgr.slab_allocations - slabs
+    writer2_ms = 1e3 * mgr.last_commit["seconds"]
+    post = _host(box2["opt"].master)
+    _meta, entries = hvd.ckpt.manifest.read_shard(
+        os.path.join(d, hvd.ckpt.manifest.shard_name(6, 0, 1)))
+    stored = {e["key"]: e["value"] for e in entries}
+    bad = [k for i, k in enumerate(sorted(pre_params))
+           if not torch.equal(stored[f"params/{i + 1}"], pre_params[k])]
+    bad += [f"{c}/{gi}" for c in pre_state
+            for gi, t in enumerate(pre_state[c])
+            if not torch.equal(stored[f"opt/0#{c}/{gi}"], t)]
+    moved = any(not torch.equal(a, b) for a, b in zip(post,
+                                                      pre_state["master"]))
+    log(f"11b in-place hazard: commit at step 6, then a step at once "
+        f"({b8} flat AdamW launch(es), no synchronize): the shard file holds "
+        f"the pre-step bytes; master moved by the step: {moved}; host slabs "
+        f"allocated at the second commit: {second_slabs}; inline "
+        f"{inline2_ms:.2f} ms, writer {writer2_ms:.1f} ms {where}")
+    check(not bad, f"11b: the shard file holds post-step bytes: {bad[:8]}")
+    check(moved, "11b: the step did not move master; the check saw nothing")
+    check(second_slabs == 0, f"11b: {second_slabs} slab(s) allocated at the "
+                             f"second commit")
+    del stored, entries, pre_params, pre_state, post
+    mgr.close()
+    launches = {**fa.LAUNCHES, **fopt.LAUNCHES}
+    steps = 2 + 3 + 3 + 1
+    if dev.type == "cuda":
+        want = dict.fromkeys(launches, 0)
+        want.update(dict.fromkeys(("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv"), n_layers * steps),
+                    flat_adamw=n_groups * steps)
+        check(launches == want, f"11: kernel launches {launches}, want "
+                                f"{want}")
+    log(f"  phase 11a-b kernel launches over {steps} steps: {launches}")
+    del model2, params2, box2
+    hvd.shutdown()
+    free_memory(device)
+    shutil.rmtree(d)
+
+
+def checkpoint_resnet(cfg, device, card, tmp) -> None:
+    """11c: phase 8's ResNet-50 through the rank-0 checkpoint: saved after
+    step 2 (parameters, batch-norm buffers, SGD momentum), restored into a
+    model from seed 1, the next step's loss bit-equal to the uninterrupted
+    run's; a copy with one byte flipped is refused, naming the leaf."""
+    where = f"({card})" if device.type == "cuda" else "(no device times)"
+    rn = cfg["resnet"]
+    rng = np.random.RandomState(0)  # bench.py:306-312, as phase 8
+    images = rng.uniform(-1, 1, (rn["batch"], rn["size"], rn["size"], 3)) \
+        .astype(np.float32)
+    labels = rng.randint(0, rn["classes"], (rn["batch"],)).astype(np.int32)
+    hvd.init(device=None if device.type == "cuda" else "cpu")
+    dev = hvd.device()
+    x, y = (torch.from_numpy(a).to(dev) for a in (images, labels))
+
+    def build(seed):
+        model = ResNet50(num_classes=rn["classes"], dtype=rn["dtype"],
+                         seed=seed)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01 * hvd.size(),
+                            momentum=0.9),
+            named_parameters=model.named_parameters())
+        return model, opt, make_train_step(model, opt)
+
+    def state_of(model, opt):
+        return {"model": model.state_dict(), "opt": opt.state_dict()}
+
+    def tensors(model, opt) -> dict:
+        out = {f"model/{k}": v for k, v in model.state_dict().items()}
+        out.update({f"opt/{i}": opt.state[p]["momentum_buffer"]
+                    for i, p in enumerate(model.parameters())})
+        return {k: v.detach().cpu().clone() for k, v in out.items()}
+
+    model, opt, step = build(0)
+    losses = [step(x, y).item() for _ in range(2)]
+    snap = tensors(model, opt)
+    payload = sum(v.numel() * v.element_size() for v in snap.values())
+    ckpt_space(tmp, 3 * payload + (64 << 20), "11c")
+    d = os.path.join(tmp, "resnet")
+    _sync(dev)
+    t0 = time.perf_counter()
+    path = hvd.checkpoint.save(d, state_of(model, opt), step=2)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    loss3 = step(x, y).item()
+    del model, opt, step
+    free_memory(device)
+
+    model2, opt2, step2 = build(1)
+    step2(x, y)  # its momentum buffers: the structure the restore fills
+    _sync(dev)
+    t0 = time.perf_counter()
+    got, s = hvd.checkpoint.restore_latest(d, state_of(model2, opt2))
+    _sync(dev)
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    check(s == 2, f"11c: restored step {s}, want 2")
+    model2.load_state_dict(got["model"])
+    opt2.load_state_dict(got["opt"])
+    del got
+    now = tensors(model2, opt2)
+    bad = [k for k in snap if not torch.equal(now[k], snap[k])]
+    check(not bad and now.keys() == snap.keys(),
+          f"11c: restored tensors not bit-equal: {bad[:8]}")
+    loss = step2(x, y).item()
+    log(f"11c rank-0 checkpoint (ResNet-50, {len(snap)} tensors: "
+        f"parameters, batch-norm buffers, SGD momentum): "
+        f"{os.path.getsize(path):,} bytes, save {save_ms:.1f} ms, "
+        f"restore_latest {restore_ms:.1f} ms {where}; restored bit-equal; "
+        f"step 3 loss {loss!r} resumed, {loss3!r} uninterrupted")
+    check(loss == loss3, f"11c: resumed loss {loss!r} != {loss3!r}")
+
+    bad_dir = os.path.join(tmp, "resnet-corrupt")
+    os.makedirs(bad_dir)
+    copy = os.path.join(bad_dir, os.path.basename(path))
+    shutil.copy(path + ".crc", copy + ".crc")
+    blob = bytearray(open(path, "rb").read())
+    _meta, records, off = hvd.ckpt.manifest.parse_header(blob)
+    rec = max(records, key=lambda r: int(r["nbytes"]))
+    blob[off + int(rec["offset"]) + int(rec["nbytes"]) // 2] ^= 0x40
+    with open(copy, "wb") as f:
+        f.write(blob)
+    try:
+        hvd.checkpoint.restore(copy, state_of(model2, opt2), broadcast=False)
+        named = None
+    except hvd.CheckpointCorruptError as exc:
+        named = exc.leaf
+    log(f"11c corrupt copy (one byte of {rec['key']} flipped): refused, "
+        f"CheckpointCorruptError names {named!r}")
+    check(named == rec["key"], f"11c: the corrupt copy named {named!r}, "
+                               f"want {rec['key']!r}")
+    del model2, opt2, step2, losses
+    hvd.shutdown()
+    free_memory(device)
+
+
+def checkpoint_phase(cfg, device, card) -> None:
+    """Phase 11: checkpoint and resume, in a temporary directory."""
+    with tempfile.TemporaryDirectory(prefix="hvd-ckpt-") as tmp:
+        checkpoint_p2(cfg, device, card, tmp)
+        checkpoint_resnet(cfg, device, card, tmp)
+
+
 GROUPS = (  # kernel-name fragments -> group, first match wins
     ("flash_", "attention kernels (port)"),
     ("sba_kernel", "BN + ReLU kernel B10 (port)"),
@@ -2946,6 +3263,7 @@ def main() -> int:
     resnet = train_resnet(cfg, device, card, args.profile)
     check_collectives(device)
     training_api(cfg, device, card, resnet["losses"])
+    checkpoint_phase(cfg, device, card)
     if dry:
         log("DRY RUN complete: control flow rehearsed; no result line")
         return 0

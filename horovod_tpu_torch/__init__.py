@@ -20,7 +20,10 @@ ranks, allreduces fused into one call a bin, on ``torch.distributed``
 registry's snapshot. ``hvd.training`` (``create_train_state``,
 ``make_train_step``, ``make_train_round``), ``hvd.callbacks``,
 ``hvd.profiler`` (the step profiler) and ``hvd.integrity`` (the step
-guard) are modules of the package.
+guard) are modules of the package, as are ``hvd.checkpoint`` (rank 0
+saves, every rank restores by a broadcast) and ``hvd.ckpt`` (the sharded
+two-phase checkpoint with neighbour replicas); a damaged checkpoint raises
+``hvd.CheckpointCorruptError``.
 
 Entry points run on the card unless the caller asks for the CPU
 (``hvd.init(device="cpu")``). Nothing here imports JAX or the JAX package.
@@ -35,6 +38,8 @@ from horovod_tpu_torch import profiler  # noqa: F401
 from horovod_tpu_torch import integrity  # noqa: F401
 from horovod_tpu_torch import training  # noqa: F401
 from horovod_tpu_torch import callbacks  # noqa: F401
+from horovod_tpu_torch import checkpoint  # noqa: F401
+from horovod_tpu_torch import ckpt  # noqa: F401
 
 from horovod_tpu_torch.core.basics import (  # noqa: F401
     init,
@@ -111,4 +116,5 @@ from horovod_tpu_torch.parallel.zero import (  # noqa: F401
     iter_param_buckets,
     ShardedAdamW,
 )
+from horovod_tpu_torch.exceptions import CheckpointCorruptError  # noqa: F401
 from horovod_tpu_torch.version import __version__  # noqa: F401

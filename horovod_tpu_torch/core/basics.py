@@ -12,7 +12,9 @@ CPU. A one-process world still gets a group (over an in-memory
 ``HashStore``), so the data-parallel path issues its collectives at size 1,
 as the JAX package runs them on a one-device mesh. A larger world meets at
 ``HOROVOD_COORDINATOR_ADDR``: ``host:port`` (TCP) or a ``tcp://`` or
-``file://`` URL.
+``file://`` URL. ``init()`` keeps the world's store (the ``HashStore``, or
+the URL's ``TCPStore`` or ``FileStore``): the checkpoint writer's commit
+barrier runs on it (``ckpt/writer.py``).
 
 ``init()`` also creates the enqueue runtime's two groups, in the same order
 on every rank: the control group (gloo, for negotiation) and the data group
@@ -101,14 +103,24 @@ def init(device: Union[str, torch.device, None] = None) -> None:
             raise ValueError(f"hvd.init(): unsupported device {device}")
 
         owns_group = not dist.is_initialized()
+        store = None
         if owns_group:
             method = _init_method(size)
             if method is None:
-                dist.init_process_group(backend, store=dist.HashStore(),
-                                        rank=0, world_size=1)
+                store = dist.HashStore()
+                dist.init_process_group(backend, store=store, rank=0,
+                                        world_size=1)
             else:
-                dist.init_process_group(backend, init_method=method,
-                                        rank=rank, world_size=size)
+                # what init_process_group(init_method=...) does, with the
+                # timeout it would pick for the backend, keeping the store
+                # for the checkpoint's commit barrier
+                timeout = dist.distributed_c10d._get_default_timeout(backend)
+                store, rank, size = next(dist.rendezvous(
+                    method, rank, size, timeout=timeout))
+                store.set_timeout(timeout)
+                dist.init_process_group(
+                    backend, store=dist.PrefixStore("default_pg", store),
+                    rank=rank, world_size=size)
         else:
             rank, size = dist.get_rank(), dist.get_world_size()
 
@@ -118,7 +130,7 @@ def init(device: Union[str, torch.device, None] = None) -> None:
                                      max(1, size // max(local_size, 1)))
         st.cross_rank = env._get_int(env.HOROVOD_CROSS_RANK,
                                      rank // max(local_size, 1))
-        st.device, st.owns_group = device, owns_group
+        st.device, st.owns_group, st.store = device, owns_group, store
         st.config = env.Config.from_env()
         st.control_group = dist.new_group(backend="gloo")
         st.data_group = dist.new_group(backend=backend)

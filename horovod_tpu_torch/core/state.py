@@ -2,7 +2,7 @@
 
 One singleton holds the topology, the device this process drives, whether
 ``init()`` created the ``torch.distributed`` process group (and so must
-destroy it at ``shutdown()``), the knobs ``init()`` parsed
+destroy it at ``shutdown()``) and its store, the knobs ``init()`` parsed
 (``utils.env.Config``), the enqueue runtime's two process groups and the
 runtime itself, started at the first enqueue."""
 
@@ -29,6 +29,9 @@ class GlobalState:
 
     device: Optional[torch.device] = None
     owns_group: bool = False
+    # the c10d store the world was made from (None when init() did not
+    # create the group): the checkpoint's commit barrier
+    store: Any = None
     # utils.env.Config, parsed once by init()
     config: Any = None
 

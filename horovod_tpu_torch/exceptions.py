@@ -36,3 +36,19 @@ class NumericalError(HorovodInternalError):
         self.tensor = tensor
         #: rank whose local payload was non-finite, when attributable
         self.suspect_rank = suspect_rank
+
+
+class CheckpointCorruptError(HorovodInternalError):
+    """A checkpoint failed its integrity check on restore: a truncated
+    shard, a CRC mismatch on a leaf, or an unparseable container. Carries
+    the offending file and (when the damage is attributable) the leaf
+    path, so the operator knows whether to distrust one tensor or the
+    whole file (``horovod_tpu/exceptions.py:48-60``)."""
+
+    def __init__(self, message: str, path: Optional[str] = None,
+                 leaf: Optional[str] = None) -> None:
+        super().__init__(message)
+        #: filesystem path of the damaged checkpoint file
+        self.path = path
+        #: leaf key whose bytes failed verification, when known
+        self.leaf = leaf

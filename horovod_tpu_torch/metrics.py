@@ -39,9 +39,13 @@ bytes and leases out, purpose ``fusion``), ``runtime/executor.py`` (op
 duration, bytes and errors by op, comm exposed seconds), ``stall.py``
 (warnings, shutdowns, straggler lag, negotiation skew) and ``timeline.py``
 (dropped events), ``profiler.py`` (step seconds, comm hidden fraction,
-MFU) and ``integrity/guards.py`` (skipped steps).
+MFU), ``integrity/guards.py`` (skipped steps), ``ckpt/stats.py`` (the
+checkpoint's commits, abandons, bytes, snapshot, commit and restore
+seconds, replica restores, integrity failures).
 
-Not ported: ``horovod_autotune_param`` and ``horovod_autotune_commits_
+Not ported: ``horovod_elastic_faults_injected_total`` waits for the
+elastic ``State`` that fires the faults it counts;
+``horovod_autotune_param`` and ``horovod_autotune_commits_
 total`` wait for the autotuner (ROADMAP A8);
 ``horovod_executor_program_compiles_total`` and ``_program_cache_hits_
 total`` count compiled XLA programs and ``horovod_executor_pad_bytes_total``
@@ -66,6 +70,11 @@ LATENCY_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
 COUNT_BUCKETS = (0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0)
 # Ratio buckets (utilization in [0, 1]; >1 spills to +Inf).
 RATIO_BUCKETS = (0.01, 0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0)
+# Durable-checkpoint commit buckets (seconds): serialization + disk +
+# the cross-rank barrier, so the tail stretches to minutes — a slow
+# shared filesystem can take that long without being an anomaly.
+CKPT_COMMIT_BUCKETS = (0.001, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+                       10.0, 30.0, 60.0, 120.0, 300.0)
 
 # Every route the HTTP endpoint serves, with a one-line description: the
 # payload of GET / and GET /debug/routes. The JAX package's other routes

@@ -50,12 +50,17 @@ from the second step on. Updates take and return dicts keyed like
 in place: the port's departure from the JAX package's pure functions,
 which saves a copy of the model.
 
+The checkpoint layer's view of a sharded state (``ckpt/``):
+:func:`is_sharded_state`, :func:`layout_of`, :func:`export_shard_arrays`
+and :func:`from_full_buffers`, which re-slices full flat buffers read from
+shard files under another world size, for all four kinds (the JAX
+package's ``zero.py:1595-1732``).
+
 Not ported: the traced (``shard_map``) and single-controller stacked
-lanes, which a one-process-a-GPU world has no counterpart of;
-``resync``, ``from_full_buffers``, ``export_shard_arrays``, ``layout_of``
-(ROADMAP A10); the metrics, memory-ledger, comms and flight-recorder
-hooks (A11). The stage-3 gather's stall and hidden seconds are plain
-counters here (:data:`GATHER_SECONDS`).
+lanes, which a one-process-a-GPU world has no counterpart of; ``resync``
+(with the elastic layer, ROADMAP A1/A10); the metrics, memory-ledger,
+comms and flight-recorder hooks (A11). The stage-3 gather's stall and
+hidden seconds are plain counters here (:data:`GATHER_SECONDS`).
 """
 
 from __future__ import annotations
@@ -710,3 +715,168 @@ def sharded_adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         return params, new_state
 
     return ShardedAdamW(init=init, apply=apply)
+
+
+# ---------------------------------------------------------------------------
+# The checkpoint layer's view: layout, export, re-slice
+# ---------------------------------------------------------------------------
+
+def is_sharded_state(x) -> bool:
+    """True for states that hold per-rank shards (optimizer states,
+    stage-3 parameter shards, stage-2 gradient shards): a checkpoint
+    stores each rank's own, and a restore re-slices them."""
+    return isinstance(x, (ShardedOptState, FlatAdamState, ShardedParams,
+                          ShardedGrads))
+
+
+def _kind_of(state) -> str:
+    if isinstance(state, FlatAdamState):
+        return "flat_adamw"
+    if isinstance(state, ShardedParams):
+        return "sharded_params"
+    if isinstance(state, ShardedGrads):
+        return "sharded_grads"
+    return "generic"
+
+
+def _inner_shards(state: ShardedOptState) -> list:
+    return list(state.inner.param_groups[0]["params"])
+
+
+def _state_keys(state: ShardedOptState) -> list:
+    """Per group, the names of the inner optimizer's state entries."""
+    return [sorted(state.inner.state.get(s, {}))
+            for s in _inner_shards(state)]
+
+
+def layout_of(state) -> dict:
+    """JSON-serializable shard layout of a sharded state, recorded in the
+    checkpoint manifest so a restore can re-slice into another world size
+    (:func:`from_full_buffers`). The generic kind adds ``state_keys``: the
+    inner ``torch.optim`` state's entry names a group, which the JAX
+    package's optax state carries in its tree instead."""
+    spec = state.spec
+    out = {
+        "kind": _kind_of(state),
+        "world": int(spec.world),
+        "groups": [[g.dtype, int(g.n), int(g.shard_elems), int(g.padded)]
+                   for g in spec.groups],
+    }
+    if isinstance(state, ShardedOptState):
+        out["state_keys"] = _state_keys(state)
+    return out
+
+
+def _host(t, to_host: bool):
+    if not isinstance(t, torch.Tensor):
+        t = torch.tensor(t)
+    return t.detach().to("cpu", copy=True) if to_host else t.detach()
+
+
+def export_shard_arrays(state, to_host: bool = True) -> dict:
+    """A sharded state's local arrays in a stable named layout: the unit
+    the checkpoint writer stores and the neighbour-replica ring ships.
+    ``to_host`` (default) copies each to the host; ``False`` gives the
+    state's own tensors, which the writer copies into its pinned slabs.
+
+    ``flat_adamw``: ``count`` (a 0-d int32, as the JAX package's) and
+    ``master``/``mu``/``nu`` a group; ``sharded_params`` and
+    ``sharded_grads``: ``leaves``, one shard a group; ``generic``:
+    ``leaves``, per group its shard tensor and then the inner optimizer's
+    state entries in :func:`layout_of`'s ``state_keys`` order."""
+    if isinstance(state, FlatAdamState):
+        return {"kind": "flat_adamw",
+                "count": torch.tensor(int(state.count), dtype=torch.int32),
+                "master": [_host(m, to_host) for m in state.master],
+                "mu": [_host(m, to_host) for m in state.mu],
+                "nu": [_host(m, to_host) for m in state.nu]}
+    if isinstance(state, (ShardedParams, ShardedGrads)):
+        return {"kind": _kind_of(state),
+                "leaves": [_host(s, to_host) for s in state.shards]}
+    leaves = []
+    for shard, keys in zip(_inner_shards(state), _state_keys(state)):
+        entries = state.inner.state.get(shard, {})
+        leaves.append(_host(shard, to_host))
+        leaves.extend(_host(entries[k], to_host) for k in keys)
+    return {"kind": "generic", "leaves": leaves}
+
+
+def _slice_new_shard(full_old: torch.Tensor, old_n: int, g_new: GroupSpec,
+                     new_rank: int, dtype: torch.dtype,
+                     device) -> torch.Tensor:
+    """This rank's shard under ``g_new`` of the real elements of a full old
+    flat buffer: the old pad dropped, the new pad zeros (the JAX package's
+    ``_reshard``, without building the whole new flat buffer)."""
+    if int(old_n) != g_new.n:
+        raise ValueError(
+            "checkpoint restore: parameter structure changed (a group "
+            f"holds {old_n} elements in the checkpoint, {g_new.n} now)")
+    real = torch.as_tensor(full_old).reshape(-1)[:g_new.n]
+    lo = new_rank * g_new.shard_elems
+    hi = lo + g_new.shard_elems
+    out = torch.zeros(g_new.shard_elems, dtype=dtype)
+    if lo < g_new.n:
+        out[:min(hi, g_new.n) - lo] = real[lo:min(hi, g_new.n)]
+    return out.to(device)
+
+
+def _device_of(tensors):
+    return next((t.device for t in tensors if isinstance(t, torch.Tensor)),
+                torch.device("cpu"))
+
+
+def from_full_buffers(target, full: dict, old_groups):
+    """Rebuild a sharded state from FULL old flat buffers (one a group),
+    slicing this rank's shard under ``target``'s layout: the restore of a
+    checkpoint into any world size.
+
+    ``target`` gives the new layout and the device (a state made afresh
+    in the new world); ``full`` is :func:`export_shard_arrays`' dict with
+    full ``(old_padded,)`` buffers (the generic kind also its
+    ``state_keys``); ``old_groups`` is the manifest's ``groups``. Returns
+    a new state; ``target`` is left as it was."""
+    spec = target.spec
+    if len(old_groups) != len(spec.groups):
+        raise ValueError(
+            "checkpoint restore: parameter structure changed (dtype "
+            "group count mismatch between manifest and target)")
+    old_n = [int(g[1]) for g in old_groups]
+    if isinstance(target, FlatAdamState):
+        dev = _device_of(target.master)
+        comps = {c: tuple(_slice_new_shard(full[c][gi], old_n[gi], g,
+                                           spec.rank, torch.float32, dev)
+                          for gi, g in enumerate(spec.groups))
+                 for c in ("master", "mu", "nu")}
+        count = int(torch.as_tensor(full["count"]).reshape(-1)[0])
+        return FlatAdamState(spec=spec, count=count, **comps)
+    if isinstance(target, (ShardedParams, ShardedGrads)):
+        dev = _device_of(target.shards)
+        shards = tuple(_slice_new_shard(full["leaves"][gi], old_n[gi], g,
+                                        spec.rank, group_dtype(g), dev)
+                       for gi, g in enumerate(spec.groups))
+        if isinstance(target, ShardedParams):
+            return ShardedParams(spec, target.names, shards)
+        return ShardedGrads(spec, shards)
+    keys = full.get("state_keys")
+    if keys is None or len(keys) != len(spec.groups):
+        raise ValueError("checkpoint restore of a generic sharded state "
+                         "needs its layout's state_keys, one list a group")
+    old = _inner_shards(target)
+    dev = _device_of(old)
+    stored = iter(full["leaves"])
+    shards, state = [], {}
+    for gi, g in enumerate(spec.groups):
+        shards.append(_slice_new_shard(next(stored), old_n[gi], g, spec.rank,
+                                       group_dtype(g), dev))
+        state[gi] = {}
+        for k in keys[gi]:
+            v = torch.as_tensor(next(stored))
+            state[gi][k] = v if v.ndim == 0 else _slice_new_shard(
+                v, old_n[gi], g, spec.rank, v.dtype, dev)
+    hyper = {k: v for k, v in target.inner.param_groups[0].items()
+             if k != "params"}
+    inner = type(target.inner)([{"params": shards, **hyper}])
+    sd = inner.state_dict()
+    inner.load_state_dict({"state": state,
+                           "param_groups": sd["param_groups"]})
+    return ShardedOptState(spec=spec, inner=inner)

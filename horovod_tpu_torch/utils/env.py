@@ -2,8 +2,9 @@
 the parsing helpers, the launcher's identity contract, the enqueue
 runtime's knobs and :class:`Config`, the fusion bucket quantum, the metrics
 endpoint and dump, the ZeRO stage and gradient release knobs, the step
-profiler's and the integrity guard's knobs, and the flash attention's
-``FLASH_FUSED_BWD`` switch).
+profiler's and the integrity guard's knobs, the checkpoint writer's, its
+restore's and its replica ring's knobs, and the
+flash attention's ``FLASH_FUSED_BWD`` switch).
 
 ``hvd.init()`` parses the runtime's knobs once into :class:`Config`
 (``horovod_tpu/utils/env.py:224-350``); the runtime reads that. The knobs
@@ -101,6 +102,19 @@ HOROVOD_GRAD_BUCKET_BYTES = "HOROVOD_GRAD_BUCKET_BYTES"
 DEFAULT_GRAD_BUCKET_BYTES = 4 * 1024 * 1024
 HOROVOD_GRAD_BUCKET_RELEASE = "HOROVOD_GRAD_BUCKET_RELEASE"
 
+# The sharded checkpoint (ckpt/; horovod_tpu/ckpt/writer.py:66-70,
+# restore.py:41, replica.py:38): async writes (default on), the cuts kept (default 2), the commit barrier's
+# timeout in seconds (default 30), the commit-phase fault
+# (``kill:rank=<r>:phase=<stage|barrier|publish>[:step=<s>][:code=<c>]``),
+# per-leaf CRC checks on restore (default on) and the neighbour-replica ring
+# (default on at world >= 2). Each is read where it is used.
+HOROVOD_CKPT_ASYNC = "HOROVOD_CKPT_ASYNC"
+HOROVOD_CKPT_KEEP = "HOROVOD_CKPT_KEEP"
+HOROVOD_CKPT_BARRIER_TIMEOUT_SECONDS = "HOROVOD_CKPT_BARRIER_TIMEOUT_SECONDS"
+HOROVOD_CKPT_FAULT = "HOROVOD_CKPT_FAULT"
+HOROVOD_CKPT_VERIFY = "HOROVOD_CKPT_VERIFY"
+HOROVOD_CKPT_REPLICATION = "HOROVOD_CKPT_REPLICATION"
+
 # Fused attention backward (reference: horovod_tpu/ops/pallas/
 # flash_attention.py:741-742): "1" sends a backward whose query and key
 # extents both fit one 1024 block to the one kernel that writes dq, dk and
@@ -143,8 +157,10 @@ def native_cycle() -> bool:
 # Knobs read where they are used rather than parsed into Config: the
 # launcher's identity and wiring (read by init() before a Config exists),
 # the ZeRO and release-plan knobs (read when a plan or a training step is
-# built), the attention backward's switch (read at each backward) and the
-# integrity knobs (read when a guard is made or a step is taken).
+# built), the attention backward's switch (read at each backward), the
+# integrity knobs (read when a guard is made or a step is taken) and the
+# checkpoint knobs (read when a manager is made or a commit or a restore
+# runs).
 ENV_DIRECT_KNOBS = (
     HOROVOD_RANK, HOROVOD_SIZE, HOROVOD_LOCAL_RANK, HOROVOD_LOCAL_SIZE,
     HOROVOD_CROSS_RANK, HOROVOD_CROSS_SIZE, HOROVOD_COORDINATOR_ADDR,
@@ -152,6 +168,9 @@ ENV_DIRECT_KNOBS = (
     HOROVOD_ZERO_PREFETCH_BUCKETS, HOROVOD_GRAD_BUCKET_BYTES,
     HOROVOD_GRAD_BUCKET_RELEASE, FLASH_FUSED_BWD, HOROVOD_INTEGRITY,
     HOROVOD_INTEGRITY_SPIKE_SIGMA, HOROVOD_INTEGRITY_SKIP_STEPS,
+    HOROVOD_CKPT_ASYNC, HOROVOD_CKPT_KEEP,
+    HOROVOD_CKPT_BARRIER_TIMEOUT_SECONDS, HOROVOD_CKPT_FAULT,
+    HOROVOD_CKPT_VERIFY, HOROVOD_CKPT_REPLICATION,
 )
 
 

@@ -26,7 +26,7 @@ from horovod_tpu_torch.tools import conv_bn_probe as tprobe
 from horovod_tpu_torch.tools import flash_vpu_probe as tvprobe
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "horovod_tpu")
 
 
 def _port_files():
@@ -163,6 +163,35 @@ def test_training_api_leaves_jax_out_and_starts_nothing(tmp_path):
                  "HOROVOD_TIMELINE", "HOROVOD_PROFILE", "HOROVOD_PROFILE_DIR",
                  "HOROVOD_PROFILE_JAX", "HOROVOD_INTEGRITY"):
         env.pop(knob, None)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=tmp_path, timeout=120)
+
+
+def test_checkpoint_layer_leaves_jax_out_and_starts_nothing(tmp_path):
+    """The checkpoint layer (``checkpoint``, ``ckpt``, ``elastic.
+    fault_inject``, ZeRO's export and re-slice) imports no JAX, flax or
+    msgpack; ``hvd.checkpoint`` and ``hvd.ckpt`` are modules; importing it
+    starts no thread, and a manager starts its writer thread only at its
+    first asynchronous commit."""
+    code = (
+        "import os, sys, threading, types\n"
+        "import horovod_tpu_torch as hvd\n"
+        "import horovod_tpu_torch.checkpoint, horovod_tpu_torch.ckpt\n"
+        "import horovod_tpu_torch.elastic.fault_inject\n"
+        "from horovod_tpu_torch.ckpt import (io, manifest, replica, restore,\n"
+        "                                    stats, tree, writer)\n"
+        "from horovod_tpu_torch.parallel import zero\n"
+        "for name in ('checkpoint', 'ckpt'):\n"
+        "    assert isinstance(getattr(hvd, name), types.ModuleType), name\n"
+        "assert issubclass(hvd.CheckpointCorruptError, RuntimeError)\n"
+        "for name in ('is_sharded_state', 'layout_of', 'export_shard_arrays',\n"
+        "             'from_full_buffers'):\n"
+        "    assert callable(getattr(zero, name)), name\n"
+        "mgr = hvd.ckpt.CheckpointManager('ck', async_write=True)\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n" % (FORBIDDEN,))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=tmp_path, timeout=120)
 
@@ -638,7 +667,9 @@ def test_chip_smoke_cpu_rehearsal_prints_no_result(no_card):
                   "collectives through the runtime at world 1",
                   "10a training API", "10b profiler cost",
                   "10c profiler on BERT-Large hooks", "10d integrity guard",
-                  "10d NaN step skipped", "10e example bert_large_sparse"):
+                  "10d NaN step skipped", "10e example bert_large_sparse",
+                  "11a P2 checkpoint", "11b in-place hazard",
+                  "11c rank-0 checkpoint", "11c corrupt copy"):
         assert phase in out.stdout, phase
     assert "BERT-Large MLM" in out.stdout
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout

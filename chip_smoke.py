@@ -197,6 +197,32 @@ Phases (any failure exits non-zero):
    every tensor bit-equal, the next step's loss bit-equal to the
    uninterrupted run's; a copy with one byte of its largest leaf flipped
    raises ``CheckpointCorruptError`` naming that leaf.
+12. Elastic training (no kernel of its own), in a temporary directory
+   whose free space is checked first: phase 5's P2 (BERT-Large, seed 0,
+   ``sharded_adamw`` through B8, B1-B6 in the forward and backward) for 6
+   steps under ``@hvd.elastic.run`` with ``hvd.elastic.ArrayState(model,
+   zero_state, ckpt_dir)`` committed every step (host snapshots in two
+   pinned slab sets used in turn, written by ``CheckpointManager(copy=
+   False)``). 12a: an uninterrupted run, then one beside an in-process
+   ``RendezvousServer`` and ``ElasticDriver`` whose discovery script's
+   output changes after steps 1 and 3: step 3's commit raises
+   ``HostsUpdatedInterrupt``, the runner re-forms at world 1 (a new store
+   at the assignment's coordinator, new NCCL and gloo groups, a new
+   runtime: ``hvd.reinit()``), syncs and goes on; the losses bit-equal to
+   the uninterrupted run's, no host slab allocated after the first
+   commit; the commits' ms, the slabs and the re-form's ms (shutdown,
+   rendezvous, reinit, sync) printed beside the card's name and power
+   limit. 12b: ``HOROVOD_INTEGRITY=1``, ``HOROVOD_INTEGRITY_INTERVAL=1``
+   and ``nan:0:after=<3 steps of reduce-scatters>``: step 4's poisoned
+   gradient is convicted by the digest (``NumericalError``),
+   ``rollback.handle_failure`` restores step 3's checkpoint cut in place
+   and the steps are replayed: one replay, the losses bit-equal to 12a's
+   uninterrupted run; the restore's ms, then 3 steps at
+   ``HOROVOD_INTEGRITY`` 1, 0, 0, 1 with the step ms and the cycle
+   thread's digest ms a checked dispatch, and the digest's non-finite
+   count timed alone over a gradient shard of P2's length beside its
+   bound. B1-B3 launched 24 times a pass and B8 once a group an update
+   over the phase.
 
 Between them: 2d. kernel B10 (fused BN + ReLU) bit-equal to its plain
 version at every distinct BN input of Inception-V3 at batch 32 (bf16),
@@ -357,7 +383,8 @@ FULL = dict(
     vprobe_case=vprobe.SHAPES["bert-large"][:4],
     gpt=dict(vocab_size=50257), gpt_batch=16, gpt_seq=1024,
     resnet=dict(batch=128, size=224, classes=1000, dtype=BF16),
-    round_steps=3, api_rounds=3)
+    round_steps=3, api_rounds=3,
+    elastic_model=dict(vocab_size=30522, max_seq=512))
 DRY = dict(
     cases={"a": (1, 2, 64, 64, False, 0, 0), "b": (1, 2, 96, 64, True, 0, 0),
            "d_masked": (1, 2, 64, 64, True, 8, 40),
@@ -377,7 +404,9 @@ DRY = dict(
     gpt=dict(vocab_size=512, d_model=128, num_layers=2, num_heads=2,
              d_ff=256, max_seq=64), gpt_batch=2, gpt_seq=64,
     resnet=dict(batch=2, size=32, classes=10, dtype=F32),
-    round_steps=1, api_rounds=2)
+    round_steps=1, api_rounds=2,
+    elastic_model=dict(vocab_size=1000, max_seq=64, num_layers=1,
+                       d_model=128, num_heads=2, d_ff=256))
 
 
 def check(ok: bool, what: str) -> None:
@@ -3121,6 +3150,308 @@ def checkpoint_phase(cfg, device, card) -> None:
         checkpoint_resnet(cfg, device, card, tmp)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: elastic training
+# ---------------------------------------------------------------------------
+
+ELASTIC_STEPS = 6
+
+
+def _p2_spec(cfg):
+    """P2's ZeRO layout at world 1, from the model's shapes alone."""
+    return build_spec(
+        [LeafMeta(tuple(p.shape), p.dtype) for p in BertLarge(
+            **cfg["model"], device="meta").parameters()],
+        1, 0, zero_mod._quantum_bytes())
+
+
+def _elastic_env(**values) -> dict:
+    """Set environment knobs, returning what to put back."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    return old
+
+
+def _restore_env(old: dict) -> None:
+    for k, v in old.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def elastic_run(cfg, device, ckpt_dir=None, on_step=None, stats=None):
+    """Phase 5's P2 (BERT-Large from seed 0, the bench's batch, ZeRO-1
+    ``sharded_adamw`` through B8) for ``ELASTIC_STEPS`` steps under
+    ``@hvd.elastic.run``, ``ArrayState(model, zero_state)`` committed
+    every step. ``on_step(state)`` runs after a step's update, before its
+    commit. Returns ``{step: loss}`` (a replayed step's loss replaces the
+    first attempt's) and fills ``stats``."""
+    stats = {} if stats is None else stats
+    tokens, positions, labels, _ = mlm_data(cfg)
+    hvd.init(device=None if device.type == "cuda" else "cpu")
+    dev = hvd.device()
+    toks, pos, lab = (torch.from_numpy(a).to(dev)
+                      for a in (tokens, positions, labels))
+    model = BertLarge(**cfg["elastic_model"], device=dev, seed=0)
+    tx = hvd.sharded_adamw(1e-4)
+    state = hvd.elastic.ArrayState(
+        model, tx.init(dict(model.named_parameters())), step=0,
+        ckpt_dir=ckpt_dir)
+    stats.update(slabs=[state.slab_allocations], commit_ms=[],
+                 store=[type(state_mod.global_state().store).__name__],
+                 groups=[state_mod.global_state().data_group])
+    losses = {}
+
+    @hvd.elastic.run
+    def train(state):
+        if "t_fail" in stats and "t_enter" not in stats:
+            stats["t_enter"] = time.perf_counter()
+        try:
+            while state.step < ELASTIC_STEPS:
+                params = dict(model.named_parameters())
+                model.zero_grad(set_to_none=True)
+                loss = masked_lm_loss_gathered(
+                    model(toks, output="hidden"), model.token_embed, pos,
+                    lab)
+                loss.backward()
+                _, state.optimizer = tx.apply(
+                    params, state.optimizer,
+                    {k: p.grad for k, p in params.items()})
+                losses[state.step + 1] = loss.item()
+                state.step += 1
+                if on_step is not None:
+                    on_step(state)
+                _sync(dev)
+                try:
+                    state.commit()
+                finally:
+                    stats["commit_ms"].append(
+                        1e3 * state.last_commit_seconds)
+                    stats["slabs"].append(state.slab_allocations)
+        except hvd.NumericalError:
+            stats["t_fail"] = time.perf_counter()
+            raise
+
+    train(state)
+    state.checkpoint_wait()
+    st = state_mod.global_state()
+    stats["store"].append(type(st.store).__name__)
+    stats["groups"].append(st.data_group)
+    stats["backend"] = torch.distributed.get_backend(st.data_group)
+    stats["step"] = state.step
+    stats["state"], stats["tx"], stats["model"] = state, tx, model
+    stats["batch"] = (toks, pos, lab)
+    return losses
+
+
+def _release(stats, device) -> None:
+    for k in ("state", "tx", "model", "batch", "groups"):
+        stats.pop(k, None)
+    hvd.shutdown()
+    free_memory(device)
+
+
+def elastic_reform(cfg, device, card, tmp) -> list:
+    """12a: the re-form without a rollback. An in-process rendezvous store
+    and elastic driver run a discovery script whose output changes after
+    step 1 (each worker's first notice is its baseline, as in the JAX
+    package) and after step 3: the commit of step 3 raises
+    ``HostsUpdatedInterrupt``, ``@elastic.run`` re-forms at world 1 (a new
+    store at the assignment's coordinator, new NCCL and gloo groups, a new
+    runtime) and syncs, and training goes on to step 6. The losses equal
+    an uninterrupted run's in this phase bit for bit."""
+    from horovod_tpu_torch.elastic import runner
+    from horovod_tpu_torch.elastic.driver import (ElasticDriver,
+                                                  HostDiscoveryScript)
+    from horovod_tpu_torch.run.rendezvous import RendezvousServer
+
+    where = f"({card})" if device.type == "cuda" else "(no device times)"
+    clean_stats = {}
+    clean = elastic_run(cfg, device, stats=clean_stats)
+    _release(clean_stats, device)
+
+    hosts = os.path.join(tmp, "hosts")
+    with open(hosts, "w") as f:
+        f.write("localhost:1\n")
+    server = RendezvousServer(host="127.0.0.1")
+    port = server.start()
+    driver = ElasticDriver(server, HostDiscoveryScript(f"cat {hosts}"),
+                           discovery_interval=3600)
+    driver.start()
+    old = _elastic_env(
+        HOROVOD_RENDEZVOUS_HTTP_ADDR="127.0.0.1",
+        HOROVOD_RENDEZVOUS_HTTP_PORT=port, HOROVOD_ELASTIC=1,
+        HOROVOD_ELASTIC_SETTLE_SECONDS=0.2, HOROVOD_CKPT_KEEP=1,
+        HOROVOD_COORDINATOR_ADDR=None, HOROVOD_RANK=None, HOROVOD_SIZE=None)
+
+    def change_hosts(state):
+        if runner.restarts() == 0 and state.step in (1, 3):
+            with open(hosts, "w") as f:
+                f.write("localhost:1\n" if state.step == 3
+                        else "localhost:1\nspare:1\n")
+            driver._poll_once()
+
+    stats = {}
+    try:
+        got = elastic_run(cfg, device, ckpt_dir=os.path.join(tmp, "a"),
+                          on_step=change_hosts, stats=stats)
+    finally:
+        runner.stop_heartbeat()
+        driver.stop()
+        server.stop()
+    reform = runner.last_reform()
+    new_group = stats["groups"][1] is not stats["groups"][0]
+    _release(stats, device)
+    _restore_env(old)
+    log(f"12a re-form (BERT-Large P2, ArrayState(model, zero_state, "
+        f"ckpt_dir), a commit a step, world 1): HostsUpdatedInterrupt at "
+        f"step 3's commit, generation {runner.restarts()}; store "
+        f"{stats['store'][0]} -> {stats['store'][1]}, new data group "
+        f"{new_group} ({stats['backend']})")
+    log(f"  re-form {1e3 * sum(reform.get(k, 0.0) for k in ('shutdown', 'rendezvous', 'reinit', 'sync')):.1f} ms: "
+        f"shutdown {1e3 * reform['shutdown']:.1f}, rendezvous "
+        f"{1e3 * reform['rendezvous']:.1f}, reinit "
+        f"{1e3 * reform['reinit']:.1f}, sync {1e3 * reform['sync']:.1f} ms "
+        f"{where}")
+    log("  commit ms: " + " ".join(f"{v:.2f}" for v in stats["commit_ms"])
+        + f" {where}; host slabs after the construction, then each commit: "
+        f"{stats['slabs']}")
+    log("  losses: " + " ".join(f"{got[s]:.6f}" for s in sorted(got))
+        + "; uninterrupted: " + " ".join(f"{clean[s]:.6f}"
+                                          for s in sorted(clean)))
+    check(runner.restarts() == 1 and stats["step"] == ELASTIC_STEPS,
+          f"12a: generation {runner.restarts()}, step {stats['step']}")
+    check(new_group and stats["store"][1] != stats["store"][0],
+          f"12a: no new group or store after the re-form: {stats['store']}")
+    check(device.type != "cuda" or stats["backend"] == "nccl",
+          f"12a: the data group is {stats['backend']}, not nccl")
+    check(got == clean, f"12a: losses {got} != the uninterrupted {clean}")
+    first = stats["slabs"][1]
+    check(all(v == first for v in stats["slabs"][1:]),
+          f"12a: a commit after the first allocated: {stats['slabs']}")
+    return [clean[s] for s in sorted(clean)]
+
+
+def elastic_rollback(cfg, device, card, tmp, clean: list) -> None:
+    """12b: the rollback in place. ``HOROVOD_INTEGRITY=1``,
+    ``HOROVOD_INTEGRITY_INTERVAL=1`` and a ``nan`` clause that poisons
+    step 4's gradient reduce-scatter: the digest raises ``NumericalError``,
+    ``rollback.handle_failure`` restores step 3's checkpoint cut and the
+    steps are replayed; then the digest's cost a dispatch, on and off in
+    turns."""
+    from horovod_tpu_torch.integrity import digest, inject, rollback
+
+    where = f"({card})" if device.type == "cuda" else "(no device times)"
+    # the P2 step runs one reduce-scatter a group: steps 1-3 pass
+    n_groups = len(_p2_spec(cfg).groups)
+    old = _elastic_env(HOROVOD_INTEGRITY=1, HOROVOD_INTEGRITY_INTERVAL=1,
+                       HOROVOD_FAULT_INJECT=f"nan:0:after={3 * n_groups}",
+                       HOROVOD_CKPT_KEEP=1)
+    inject.reset()
+    digest.reset()
+    rollback.reset()
+    stats = {}
+    try:
+        got = elastic_run(cfg, device, ckpt_dir=os.path.join(tmp, "b"),
+                          stats=stats)
+        state, tx, model = stats["state"], stats["tx"], stats["model"]
+        toks, pos, lab = stats["batch"]
+        ex = state_mod.global_state().runtime.executor
+        restore_ms = 1e3 * (stats["t_enter"] - stats["t_fail"])
+        os.environ.pop("HOROVOD_FAULT_INJECT")
+        inject.reset()
+
+        def step():
+            params = dict(model.named_parameters())
+            model.zero_grad(set_to_none=True)
+            loss = masked_lm_loss_gathered(model(toks, output="hidden"),
+                                           model.token_embed, pos, lab)
+            loss.backward()
+            _, state.optimizer = tx.apply(
+                params, state.optimizer,
+                {k: p.grad for k, p in params.items()})
+            return loss.item()
+
+        runs = []
+        for on in (True, False, False, True):
+            os.environ["HOROVOD_INTEGRITY"] = "1" if on else "0"
+            checks, secs = ex.digest_checks, ex.digest_seconds
+            step()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                step()
+            ms = 1e3 * (time.perf_counter() - t0) / 2
+            runs.append((on, ms, ex.digest_checks - checks,
+                         ex.digest_seconds - secs))
+        # the digest's own device work a dispatch: the non-finite count
+        # over a gradient shard of P2's length
+        grad = torch.randn_like(state.optimizer.master[0])
+        count_ms = time_ms(lambda: digest.nonfinite_count_tensor(grad),
+                           cfg["iters"], grad.device)
+        numel = grad.numel()
+        count_bound = 1e3 * numel * grad.element_size() / PEAK_BYTES
+        del grad
+    finally:
+        _restore_env(old)
+    _release(stats, device)
+    inject.reset()
+    log(f"12b rollback in place (nan on step 4's reduce-scatter input, "
+        f"HOROVOD_INTEGRITY_INTERVAL=1): replays {rollback.replays()}, "
+        f"restored step 3's cut in {restore_ms:.1f} ms {where}")
+    log("  losses: " + " ".join(f"{got[s]:.6f}" for s in sorted(got))
+        + "; clean: " + " ".join(f"{v:.6f}" for v in clean))
+    on = [r for r in runs if r[0]]
+    per = sum(r[3] for r in on) / max(1, sum(r[2] for r in on))
+    log("  digest on/off in turns, ms a step: " + ", ".join(
+        f"{'on' if o else 'off'} {ms:.2f}" for o, ms, _, _ in runs)
+        + f"; the cycle thread's digest {1e3 * per:.3f} ms a checked "
+        f"dispatch ({sum(r[2] for r in on)} checks) {where}")
+    log(f"  the digest's non-finite count over the {numel:,}-element f32 "
+        f"gradient shard: {count_ms:.4f} ms (bound {count_bound:.4f} ms, "
+        f"bytes) {where}")
+    check(rollback.replays() == 1, f"12b: {rollback.replays()} replays")
+    check([got[s] for s in sorted(got)] == clean,
+          f"12b: replayed losses {got} != the clean {clean}")
+    check(all(r[2] == 0 for r in runs if not r[0])
+          and all(r[2] > 0 for r in on), f"12b: digest checks {runs}")
+
+
+def elastic_phase(cfg, device, card) -> None:
+    """Phase 12: elastic training, in a temporary directory whose free
+    space is checked first. Every kernel of the path launches in it."""
+    counts = (fa.LAUNCHES, fopt.LAUNCHES)
+    spec = _p2_spec(cfg)
+    n_layers = len(BertLarge(**cfg["elastic_model"], device="meta").layers)
+    with tempfile.TemporaryDirectory(prefix="hvd-elastic-") as tmp:
+        # a cut a rank: f32 parameters, then master, mu and nu padded
+        payload = 4 * sum(g.n for g in spec.groups) \
+            + 12 * sum(g.padded for g in spec.groups)
+        ckpt_space(tmp, 2 * payload + (1 << 30), "12")
+        for c in counts:
+            c.update(dict.fromkeys(c, 0))
+        clean = elastic_reform(cfg, device, card, tmp)
+        shutil.rmtree(os.path.join(tmp, "a"), ignore_errors=True)
+        elastic_rollback(cfg, device, card, tmp, clean)
+    launches = {**fa.LAUNCHES, **fopt.LAUNCHES}
+    # forward and backward passes: 12a 6 + 6, 12b 7 (step 4's first try
+    # stops at the reduce-scatter), the turns 4 x 3; B8 a completed step
+    passes, updates = 6 + 6 + 7 + 12, 6 + 6 + 6 + 12
+    log(f"  phase 12 kernel launches over {passes} passes and {updates} "
+        f"updates: {launches}")
+    if device.type == "cuda":
+        want = dict.fromkeys(launches, 0)
+        want.update(dict.fromkeys(("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv"), n_layers * passes),
+                    flat_adamw=len(spec.groups) * updates)
+        check(launches == want, f"12: kernel launches {launches}, want "
+                                f"{want}")
+
+
 GROUPS = (  # kernel-name fragments -> group, first match wins
     ("flash_", "attention kernels (port)"),
     ("sba_kernel", "BN + ReLU kernel B10 (port)"),
@@ -3264,6 +3595,7 @@ def main() -> int:
     check_collectives(device)
     training_api(cfg, device, card, resnet["losses"])
     checkpoint_phase(cfg, device, card)
+    elastic_phase(cfg, device, card)
     if dry:
         log("DRY RUN complete: control flow rehearsed; no result line")
         return 0

@@ -23,7 +23,10 @@ registry's snapshot. ``hvd.training`` (``create_train_state``,
 guard) are modules of the package, as are ``hvd.checkpoint`` (rank 0
 saves, every rank restores by a broadcast) and ``hvd.ckpt`` (the sharded
 two-phase checkpoint with neighbour replicas); a damaged checkpoint raises
-``hvd.CheckpointCorruptError``.
+``hvd.CheckpointCorruptError``. ``hvd.elastic`` (``run``, ``State``,
+``ObjectState``, ``ArrayState``, ``restarts``) re-forms a world that lost a
+worker through the rendezvous store (``horovod_tpu_torch.run``) and
+``hvd.reinit()``, and rolls back in place after an integrity verdict.
 
 Entry points run on the card unless the caller asks for the CPU
 (``hvd.init(device="cpu")``). Nothing here imports JAX or the JAX package.
@@ -40,9 +43,11 @@ from horovod_tpu_torch import training  # noqa: F401
 from horovod_tpu_torch import callbacks  # noqa: F401
 from horovod_tpu_torch import checkpoint  # noqa: F401
 from horovod_tpu_torch import ckpt  # noqa: F401
+from horovod_tpu_torch import elastic  # noqa: F401
 
 from horovod_tpu_torch.core.basics import (  # noqa: F401
     init,
+    reinit,
     shutdown,
     is_initialized,
     rank,
@@ -116,5 +121,14 @@ from horovod_tpu_torch.parallel.zero import (  # noqa: F401
     iter_param_buckets,
     ShardedAdamW,
 )
-from horovod_tpu_torch.exceptions import CheckpointCorruptError  # noqa: F401
+from horovod_tpu_torch.exceptions import (  # noqa: F401
+    CheckpointCorruptError,
+    CollectiveIntegrityError,
+    HorovodInternalError,
+    HostsUpdatedInterrupt,
+    NumericalError,
+    WorkerLostError,
+    WorkersDownError,
+    WorkerStallError,
+)
 from horovod_tpu_torch.version import __version__  # noqa: F401

@@ -268,6 +268,7 @@ class _Pending(NamedTuple):
     leases: List[Any]
     ready: Any        # the snapshot copies' CUDA event, or None
     versions: list    # (tensor, version) of copy=False tensors
+    on_done: Any      # called once the commit is written or abandoned
 
 
 class CheckpointManager:
@@ -319,7 +320,7 @@ class CheckpointManager:
                generation: Optional[int] = None,
                rank: Optional[int] = None,
                world: Optional[int] = None,
-               copy: bool = True) -> None:
+               copy: bool = True, ready=None, on_done=None) -> None:
         """Snapshot ``trees`` (a dict of state trees: dicts, lists and
         tuples of tensors, numpy arrays, plain values and sharded ZeRO
         states) and hand them to the writer. Inline run only the snapshot's
@@ -329,7 +330,10 @@ class CheckpointManager:
         ``copy=False`` skips the snapshot: only for host tensors that the
         caller never mutates afterwards. A tensor on another device raises
         ``ValueError``; a commit whose tensor changed before the writer
-        wrote it is abandoned (warning, counter)."""
+        wrote it is abandoned (warning, counter). ``ready``: a CUDA event
+        the writer waits for before it reads them (the caller's own copies
+        to the host); ``on_done()`` runs on the writer's side once the
+        commit is written or abandoned, when the caller may reuse them."""
         t0 = time.monotonic()
         if rank is None or world is None:
             st = basics._ensure_init()
@@ -338,7 +342,7 @@ class CheckpointManager:
         if generation is None:
             generation = self._generation_fn()
         items, layout, _exchange = build_rank_payload(trees, rank, world)
-        ready, versions, leases = None, [], []
+        versions, leases = [], []
         if self._async:
             self._ensure_thread()
             self._inflight.acquire()  # blocks while two are in flight
@@ -350,6 +354,8 @@ class CheckpointManager:
         except BaseException:
             if self._async:
                 self._inflight.release()
+            if on_done is not None:
+                on_done()
             raise
         rep = replica_mod.export_store()
         if rep is not None and rep[1] == int(step):
@@ -357,7 +363,7 @@ class CheckpointManager:
         pending = _Pending(step=int(step), generation=int(generation),
                            rank=int(rank), world=int(world), items=items,
                            layout=layout, leases=leases, ready=ready,
-                           versions=versions)
+                           versions=versions, on_done=on_done)
         if self._async:
             self._queue.put(pending)  # blocks when the slot is full
         else:
@@ -544,6 +550,8 @@ class CheckpointManager:
         finally:
             for lease in p.leases:
                 self._slabs.release(lease)
+            if p.on_done is not None:
+                p.on_done()
 
     # -- protocol helpers --------------------------------------------------
 

@@ -17,11 +17,23 @@ the URL's ``TCPStore`` or ``FileStore``): the checkpoint writer's commit
 barrier runs on it (``ckpt/writer.py``).
 
 ``init()`` also creates the enqueue runtime's two groups, in the same order
-on every rank: the control group (gloo, for negotiation) and the data group
-(the collectives: NCCL on the card, gloo on the CPU). Its own groups keep
-the runtime's calls apart from any a user makes on the default group. The
-runtime itself starts at the first enqueue; ``shutdown()`` stops it before
-it destroys the groups.
+on every rank: the control group (gloo, for negotiation, with
+``HOROVOD_GLOO_TIMEOUT_SECONDS`` as its timeout, so a dead peer surfaces as
+a typed error within it) and the data group (the collectives: NCCL on the
+card, gloo on the CPU). Its own groups keep the runtime's calls apart from
+any a user makes on the default group. The runtime itself starts at the
+first enqueue; ``shutdown()`` stops it before it destroys the groups.
+
+``shutdown()`` survives a dead peer: after the runtime went down for a
+failure, a collective the dead peer never joins may sit on the card's comm
+stream, and destroying an NCCL group with work in flight can hang, so on
+the card every group is aborted (``distributed_c10d._abort_process_group``:
+``ncclCommAbort`` on each communicator) instead of destroyed; a failed
+abort raises. ``reinit()`` is ``shutdown()`` then ``init()`` on the same
+device from the environment as it stands: the elastic re-form rewrites
+``HOROVOD_RANK``, ``HOROVOD_SIZE`` and ``HOROVOD_COORDINATOR_ADDR`` first,
+so the new generation gets a new default group, store (hosted by its rank
+0), control and data groups, and runtime, in the same process.
 
 ``init()`` parses the runtime's knobs once (``utils.env.Config``) and, when
 ``HOROVOD_METRICS_PORT`` is set, serves the metrics registry over HTTP;
@@ -38,6 +50,7 @@ records nothing and writes nothing.
 from __future__ import annotations
 
 import atexit
+import datetime
 import os
 from typing import Optional, Union
 
@@ -132,7 +145,9 @@ def init(device: Union[str, torch.device, None] = None) -> None:
                                      rank // max(local_size, 1))
         st.device, st.owns_group, st.store = device, owns_group, store
         st.config = env.Config.from_env()
-        st.control_group = dist.new_group(backend="gloo")
+        st.control_group = dist.new_group(
+            backend="gloo", timeout=datetime.timedelta(
+                seconds=env.gloo_timeout_seconds()))
         st.data_group = dist.new_group(backend=backend)
         runtime_types.COUNTS["groups"] += 2
         st.initialized = True
@@ -150,8 +165,11 @@ def shutdown() -> None:
     with st.lock:
         if not st.initialized:
             return
+        failed = False
         if st.runtime is not None:
             st.runtime.stop()
+            failed = (st.runtime.failure is not None
+                      or st.runtime.executor.failure is not None)
         profiler.finalize()
         reg = metrics_registry()
         reg.stop_server()
@@ -161,12 +179,47 @@ def shutdown() -> None:
             except OSError as exc:
                 log.warning("could not write metrics dump: %s", exc)
         if dist.is_initialized():
-            if st.owns_group:
+            if failed and st.device.type == "cuda":
+                _abort_groups(st)
+            elif st.owns_group:
                 dist.destroy_process_group()
             else:
                 for group in (st.data_group, st.control_group):
                     dist.destroy_process_group(group)
     state_mod.reset()
+
+
+def _abort_groups(st) -> None:
+    """Abort the groups of a world that lost a peer, on the card: every
+    group when ``init()`` made the world, else the runtime's two. Then wait
+    for the device, whose comm-stream work the abort ended."""
+    abort = getattr(dist.distributed_c10d, "_abort_process_group", None)
+    if abort is None:
+        raise RuntimeError(
+            "hvd.shutdown() after a lost peer: this torch has no "
+            "torch.distributed.distributed_c10d._abort_process_group, and "
+            "destroying an NCCL group with work in flight can hang")
+    if st.owns_group:
+        abort(None)
+    else:
+        for group in (st.data_group, st.control_group):
+            abort(group)
+    torch.cuda.synchronize(st.device)
+    log.warning("shutdown after a lost peer: aborted the process groups")
+
+
+def reinit(device: Union[str, torch.device, None] = None) -> None:
+    """Leave the world and join it again from the current environment (the
+    elastic runner calls it after rewriting ``HOROVOD_RANK``,
+    ``HOROVOD_SIZE`` and ``HOROVOD_COORDINATOR_ADDR`` for the new
+    generation; a plain ``init()`` while initialized is a no-op). The
+    process keeps its device unless ``device`` names another: a process
+    drives one card for life, whatever rank it gets."""
+    st = state_mod.global_state()
+    if device is None and st.initialized:
+        device = st.device
+    shutdown()
+    init(device=device)
 
 
 atexit.register(shutdown)  # reference: horovod/common/basics.py:40

@@ -70,6 +70,10 @@ LATENCY_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
 COUNT_BUCKETS = (0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0)
 # Ratio buckets (utilization in [0, 1]; >1 spills to +Inf).
 RATIO_BUCKETS = (0.01, 0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0)
+# Elastic State.commit() buckets (seconds): a snapshot of the full state,
+# 1 ms .. 60 s.
+COMMIT_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+                  10.0, 30.0, 60.0)
 # Durable-checkpoint commit buckets (seconds): serialization + disk +
 # the cross-rank barrier, so the tail stretches to minutes — a slow
 # shared filesystem can take that long without being an anomaly.

@@ -880,3 +880,210 @@ def from_full_buffers(target, full: dict, old_groups):
     inner.load_state_dict({"state": state,
                            "param_groups": sd["param_groups"]})
     return ShardedOptState(spec=spec, inner=inner)
+
+
+# ---------------------------------------------------------------------------
+# Elastic re-shard
+# ---------------------------------------------------------------------------
+
+def _gather_old_segments(local: torch.Tensor, old_rank: int, old_world: int,
+                         old_shard: int, fill: torch.Tensor, name: str,
+                         replica_rank: int = -1, replica_local=None):
+    """Rebuild a full old flat buffer from the surviving shards
+    (``horovod_tpu/parallel/zero.py:1736-1790``): allgather every current
+    rank's (length, old rank, shard), place each surviving old rank's
+    segment, and leave ``fill`` where the owner died; the first claim
+    wins, so a fresh joiner never shadows a survivor. A second round
+    offers the neighbour replicas (``ckpt.replica``): a survivor holding a
+    dead rank's shard bytes restores that segment to its last commit's
+    values. Every rank joins both rounds, one without a replica with a
+    one-element stand-in tagged rank -1. Returns ``(full,
+    replica_restored_old_ranks)``."""
+    full = fill.clone()
+    claimed: set = set()
+
+    def place(seg_local, seg_rank, tag, restored):
+        dev = seg_local.device
+        lens = collectives.allgather(
+            torch.tensor([seg_local.numel()], dtype=torch.int64, device=dev),
+            name=f"{name}.{tag}.len").cpu()
+        ranks = collectives.allgather(
+            torch.tensor([seg_rank], dtype=torch.int64, device=dev),
+            name=f"{name}.{tag}.rank").cpu()
+        cat = collectives.allgather(seg_local.contiguous(),
+                                    name=f"{name}.{tag}.cat")
+        off = 0
+        for ln, r in zip(lens.tolist(), ranks.tolist()):
+            seg = cat[off:off + ln]
+            off += ln
+            if 0 <= r < old_world and ln == old_shard and r not in claimed:
+                full[r * old_shard:(r + 1) * old_shard] = seg
+                claimed.add(r)
+                if restored is not None:
+                    restored.add(r)
+
+    place(local.reshape(-1), old_rank, "own", None)
+    rep = (local.new_zeros(1) if replica_local is None
+           else torch.as_tensor(replica_local).reshape(-1).to(
+               device=local.device, dtype=local.dtype))
+    from_replica: set = set()
+    place(rep, replica_rank if replica_local is not None else -1, "replica",
+          from_replica)
+    return full, from_replica
+
+
+def _resync_needed(spec: ZeroSpec, st) -> bool:
+    """A decision every rank takes alike: a layout that no longer matches
+    on any rank re-shards on all (a survivor that kept its rank still joins
+    a renumbered peer's gathers)."""
+    local = int(spec.world != st.size or spec.rank != st.rank)
+    if st.size <= 1:
+        return bool(local)
+    total = collectives.allreduce(
+        torch.tensor([local], dtype=torch.int32, device=st.device),
+        op=collectives.Sum, name="zero.resync.needed")
+    return int(total.reshape(-1)[0]) > 0
+
+
+def _meta_leaves_from_spec(spec: ZeroSpec) -> list:
+    """Shape and dtype stand-ins of every leaf of ``spec``: stage-2 and -3
+    shards lay themselves out again with no full tree anywhere."""
+    metas = [None] * spec.num_leaves
+    for g in spec.groups:
+        for i, shape in zip(g.indices, g.shapes):
+            metas[i] = LeafMeta(shape=tuple(shape), dtype=group_dtype(g))
+    return metas
+
+
+def resync(state, params=None, root_rank: int = 0, replica=None):
+    """Re-shard a sharded state after an elastic re-form (port of
+    ``horovod_tpu/parallel/zero.py:1827-1850``): allgather the surviving
+    old shards into full flat buffers, the dead ranks' segments taking the
+    neutral fill (zeros for moments and gradient or parameter shards, the
+    synced parameters for the f32 master and a generic state's shard)
+    unless a neighbour replica offers their bytes, then slice the new
+    world's shard with :func:`from_full_buffers`.
+
+    ``replica``: ``(src_old_rank, exported_arrays)`` from
+    ``ckpt.replica.lookup`` when this rank holds a neighbour's copy, else
+    None (the rank still joins the replica round). ``params`` must be
+    synced already (``ArrayState.sync`` does params first): a dict or list
+    of full tensors, or :class:`ShardedParams` (stage 3, gathered for the
+    fill); None for :class:`ShardedParams` and :class:`ShardedGrads`
+    states, which carry their own layout. Covers all four kinds; a no-op
+    when the layout still matches on every rank. Collective."""
+    st = basics._ensure_init()
+    spec = state.spec
+    if not _resync_needed(spec, st):
+        return state
+    part = [list(g.indices) for g in spec.groups]
+    if isinstance(state, (ShardedParams, ShardedGrads)):
+        pleaves = _meta_leaves_from_spec(spec)
+    elif isinstance(params, ShardedParams):
+        gathered = gather_params(params)
+        pleaves = (list(gathered.values()) if isinstance(gathered, dict)
+                   else list(gathered))
+    else:
+        _, pleaves = _leaves_of(params)
+    new_spec = build_spec(pleaves, st.size, st.rank, _quantum_bytes(),
+                          partition=part)
+    # the survivors share the old layout; the root's is authoritative
+    old_world, old_groups, count = collectives.broadcast_object(
+        (int(spec.world),
+         [[g.dtype, int(g.n), int(g.shard_elems), int(g.padded)]
+          for g in spec.groups],
+         int(state.count) if isinstance(state, FlatAdamState) else 0),
+        root_rank)
+    if len(old_groups) != len(new_spec.groups):
+        raise ValueError(
+            "elastic resync: parameter structure changed across the "
+            "re-form (dtype group count mismatch)")
+    rep_rank, rep_entries = -1, None
+    if replica is not None:
+        rep_rank, rep_entries = replica
+        if not isinstance(rep_entries, dict) \
+                or rep_entries.get("kind") != _kind_of(state):
+            rep_rank, rep_entries = -1, None
+    restored: set = set()
+
+    def rep(component, idx):
+        try:
+            return rep_entries[component][idx]
+        except (KeyError, IndexError, TypeError):
+            return None
+
+    def regroup(local, gi, fill, rep_arr, tag):
+        _, _, old_shard, _ = old_groups[gi]
+        full, got = _gather_old_segments(
+            local, spec.rank, old_world, old_shard, fill,
+            f"zero.resync.{tag}",
+            replica_rank=rep_rank if rep_arr is not None else -1,
+            replica_local=rep_arr)
+        restored.update((tag, r) for r in got)
+        return full
+
+    def zeros(gi, dtype, device):
+        return torch.zeros(old_groups[gi][3], dtype=dtype, device=device)
+
+    def param_fill(gi, dtype, device):
+        _, old_n, old_shard, old_padded = old_groups[gi]
+        g = new_spec.groups[gi]
+        return _pack_group(pleaves, g._replace(
+            n=old_n, shard_elems=old_shard, padded=old_padded)).to(
+                device=device, dtype=dtype)
+
+    if isinstance(state, (ShardedParams, ShardedGrads)):
+        tag0 = "param" if isinstance(state, ShardedParams) else "grad"
+        full = {"kind": _kind_of(state), "leaves": [
+            regroup(s, gi, zeros(gi, s.dtype, s.device), rep("leaves", gi),
+                    f"{tag0}.{gi}")
+            for gi, s in enumerate(state.shards)]}
+        target = (ShardedParams(new_spec, state.names, state.shards)
+                  if isinstance(state, ShardedParams)
+                  else ShardedGrads(new_spec, state.shards))
+    elif isinstance(state, FlatAdamState):
+        full = {"kind": "flat_adamw", "count": torch.tensor(count),
+                "master": [], "mu": [], "nu": []}
+        for gi, m in enumerate(state.master):
+            full["master"].append(regroup(
+                m, gi, param_fill(gi, m.dtype, m.device), rep("master", gi),
+                f"master.{gi}"))
+            for c in ("mu", "nu"):
+                t = getattr(state, c)[gi]
+                full[c].append(regroup(t, gi, zeros(gi, t.dtype, t.device),
+                                       rep(c, gi), f"{c}.{gi}"))
+        target = state._replace(spec=new_spec)
+    else:
+        keys = _state_keys(state)
+        leaves = []
+        li = 0
+        for gi, (shard, gkeys) in enumerate(zip(_inner_shards(state), keys)):
+            entries = state.inner.state.get(shard, {})
+            leaves.append(regroup(
+                shard, gi, param_fill(gi, shard.dtype, shard.device),
+                rep("leaves", li), f"shard.{gi}"))
+            li += 1
+            for k in gkeys:
+                v = entries[k]
+                if v.ndim == 0:  # a step count: the root's
+                    leaves.append(torch.as_tensor(collectives.broadcast_object(
+                        v.item(), root_rank), dtype=v.dtype))
+                else:
+                    leaves.append(regroup(v, gi, zeros(gi, v.dtype, v.device),
+                                          rep("leaves", li), f"{k}.{gi}"))
+                li += 1
+        full = {"kind": "generic", "leaves": leaves, "state_keys": keys}
+        target = ShardedOptState(new_spec, state.inner)
+    new_state = from_full_buffers(target, full, old_groups)
+    if isinstance(state, ShardedOptState) and isinstance(params, ShardedParams):
+        # the inner optimizer steps the stage-3 shards themselves
+        inner = new_state.inner
+        old = inner.param_groups[0]["params"]
+        for new, p in zip(params.shards, old):
+            inner.state[new] = inner.state.pop(p, {})
+        inner.param_groups[0]["params"] = list(params.shards)
+    if restored:
+        from horovod_tpu_torch.ckpt import stats as ckpt_stats
+
+        ckpt_stats.REPLICA_RESTORES.inc(len(restored))
+    return new_state

@@ -17,11 +17,15 @@ The transport verbs are abstract (reference: controller.h:34-124):
   design.
 
 The coordinator's stall inspector and straggler tracker (``stall.py``)
-read the message table's arrival times. The response cache and the
-bin-packing run on the engine ``HOROVOD_NATIVE_CYCLE`` picks (the C++ one
-by default). Not ported yet: the JAX package's collective deadline
-(``_check_collective_deadline``, ROADMAP A10) and its flight-recorder
-events (A11).
+read the message table's arrival times. So does the collective deadline
+(``HOROVOD_COLLECTIVE_TIMEOUT``): a round announced by some ranks and
+older than it ends the job with a generation-stamped ``WorkerStallError``
+naming the ranks that never announced, kept on :attr:`Controller.failure`
+(the runtime lifts it into every waiting handle) while the shutdown bit
+takes every peer out of its loop in the same cycle. The stall inspector's
+elastic verdict lands there too. The response cache and the bin-packing
+run on the engine ``HOROVOD_NATIVE_CYCLE`` picks (the C++ one by default).
+Not ported: the flight-recorder events (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -35,7 +39,10 @@ from horovod_tpu_torch.runtime import types
 from horovod_tpu_torch.runtime.response_cache import (CacheCoordinator,
                                                       CacheState,
                                                       make_response_cache)
+from horovod_tpu_torch.exceptions import WorkerStallError
 from horovod_tpu_torch.utils import env
+from horovod_tpu_torch.utils import logging as log
+from horovod_tpu_torch.utils import resilience
 
 
 class MessageTable:
@@ -218,6 +225,12 @@ class Controller:
         # the coordinator's straggler attribution (stall.StragglerTracker),
         # attached by the runtime; None on workers
         self.straggler = None
+        # the typed verdict of a shutdown this controller provoked (a
+        # WorkerStallError of the stall inspector or the deadline), which
+        # the runtime lifts into the handles
+        self.failure: Optional[Exception] = None
+        # the deadline on negotiation rounds in flight (0: none)
+        self.collective_timeout = resilience.collective_timeout()
 
     # -- transport verbs (reference: controller.h:98-124) ------------------
     def sync_bitvectors(self, bits: int) -> Tuple[int, int]:
@@ -243,6 +256,11 @@ class Controller:
     def bcast_blob(self, blob: Optional[bytes]) -> bytes:
         """The coordinator broadcasts an opaque blob; workers receive it
         (reference: SynchronizeParameters, controller.cc:32-46)."""
+        raise NotImplementedError
+
+    def allgather_blob(self, blob: bytes) -> List[bytes]:
+        """Every rank's ``blob`` (all of one length), in rank order, on
+        every rank: the integrity digests' record exchange."""
         raise NotImplementedError
 
     @property
@@ -310,9 +328,23 @@ class Controller:
         # fast path (reference: controller.cc:98-107)
         if self.is_coordinator and stall_inspector is not None \
                 and len(self.message_table):
-            if stall_inspector.check(self.message_table, world=self.world,
-                                     straggler=self.straggler):
+            try:
+                if stall_inspector.check(self.message_table,
+                                         world=self.world,
+                                         straggler=self.straggler):
+                    self.request_shutdown()
+            except WorkerStallError as stall_exc:
+                # keep the typed reason, and still send the shutdown bit,
+                # so every peer leaves its loop in the same cycle
+                if self.failure is None:
+                    self.failure = stall_exc
                 self.request_shutdown()
+
+        # the deadline on negotiation rounds: catches a rank that stopped
+        # announcing (a hang, a partition) and names it
+        if (self.is_coordinator and self.collective_timeout > 0
+                and self.failure is None and len(self.message_table)):
+            self._check_collective_deadline(now)
 
         common_bits = sorted(CacheCoordinator.common_hits(anded))
         cached_responses: List[msg.Response] = []
@@ -399,6 +431,34 @@ class Controller:
                 self._deferred_first_seen.pop(name, None)
         return fused, shut_down
 
+    def _check_collective_deadline(self, now: float) -> None:
+        """Any tensor whose first announcement is older than
+        ``HOROVOD_COLLECTIVE_TIMEOUT`` ends the cycle: a
+        generation-stamped :class:`WorkerStallError` naming the ranks that
+        never announced goes on :attr:`failure`, and the shutdown bit goes
+        out (``horovod_tpu/runtime/controller.py:446-480``)."""
+        overdue: List[str] = []
+        missing: set = set()
+        for name, reqs in self.message_table.pending().items():
+            first = self.message_table.first_request_time(name)
+            if first is None or now - first < self.collective_timeout:
+                continue
+            overdue.append(name)
+            missing.update(set(range(self.world)) - {r.rank for r in reqs})
+        if not overdue:
+            return
+        gen = resilience.current_generation()
+        ranks = sorted(missing)
+        exc = WorkerStallError(
+            f"collective timeout: {len(overdue)} negotiate round(s) "
+            f"(first: {overdue[0]!r}) exceeded "
+            f"HOROVOD_COLLECTIVE_TIMEOUT={self.collective_timeout:g}s in "
+            f"generation {gen}; ranks never announced: {ranks}",
+            ranks=ranks)
+        log.error("%s", exc)
+        self.failure = exc
+        self.request_shutdown()
+
     def take_deferred(self) -> List[msg.Request]:
         """Requests still unresolved on this worker that must be announced
         again this cycle: cache hits waiting for the other workers (not the
@@ -422,6 +482,9 @@ class LocalController(Controller):
 
     def bcast_blob(self, blob):
         return blob
+
+    def allgather_blob(self, blob):
+        return [blob]
 
     def barrier(self) -> None:
         pass

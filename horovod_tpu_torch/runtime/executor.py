@@ -39,8 +39,23 @@ errors and the part of its time not hidden behind later dispatches are
 metrics (``horovod_executor_op_*`` by op, ``horovod_comm_exposed_seconds_
 total``) and the comm clock the step profiler diffs (:func:`comm_totals`);
 on the card these are the host's times of queueing the work, not the
-device's. Not ported yet: the hierarchy, integrity digests, the comms
-plane's bandwidth tracker and the flight recorder (ROADMAP A8, A10, A11).
+device's.
+
+The integrity digests (``integrity/digest.py``, under ``HOROVOD_INTEGRITY``)
+ride every ``HOROVOD_INTEGRITY_INTERVAL``-th eligible dispatch, counted
+alike on every rank since the dispatch order is negotiated: an allreduce
+counts its packed input's non-finite elements on the comm stream before
+the collective and, at the drain, takes CRC-32 of the reduced bytes; a
+reduce-scatter counts its inputs' (its shards differ by rank: no CRC). The
+drain, on the cycle thread, gathers one 12-byte record a rank on the gloo
+control group and raises the vote's verdict before anything is unpacked:
+a ``NumericalError`` goes to :attr:`Executor.integrity_failure`, which the
+waiting handle lifts. The ``nan`` and ``bitflip`` faults of
+``integrity/inject.py`` fire here. A collective that fails because a peer
+went away records a ``WorkerLostError`` on :attr:`Executor.failure`.
+
+Not ported yet: the hierarchy, the comms plane's bandwidth tracker and
+the flight recorder (ROADMAP A8, A11).
 """
 
 from __future__ import annotations
@@ -54,10 +69,15 @@ from typing import Callable, List, NamedTuple, Optional
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch import exceptions
+from horovod_tpu_torch import integrity
 from horovod_tpu_torch import timeline as timeline_mod
+from horovod_tpu_torch.integrity import digest as integ_digest
+from horovod_tpu_torch.integrity import inject as integ_inject
 from horovod_tpu_torch.metrics import registry as _metrics
 from horovod_tpu_torch.runtime import types
 from horovod_tpu_torch.runtime.fusion_buffer import FusionBufferManager
+from horovod_tpu_torch.runtime.gloo_controller import lost_worker
 
 _OP_LATENCY = _metrics().histogram(
     "horovod_executor_op_duration_seconds",
@@ -211,6 +231,18 @@ class _PendingOp:
         if self.timeline is not None:
             self.timeline.end(self.name0)
 
+    def fail_exc(self, exc: Exception) -> None:
+        """Fail every entry for ``exc``, keeping its typed reason on the
+        executor first: an integrity verdict (which the runtime survives)
+        or the loss of a peer (which takes it down)."""
+        ex = self.executor
+        if isinstance(exc, exceptions.NumericalError):
+            if ex.integrity_failure is None:
+                ex.integrity_failure = exc
+        elif ex.world > 1 and ex.failure is None:
+            ex.failure = lost_worker(exc)
+        self.fail(types.Status.UnknownError(f"{type(exc).__name__}: {exc}"))
+
     def fail(self, status: types.Status) -> None:
         """Complete every entry with an error (reference: ErrorOp,
         collective_operations.cc:202-205). Idempotent."""
@@ -232,8 +264,7 @@ class _PendingOp:
             if self.finish is not None:
                 self.finish()
         except Exception as exc:  # a failure becomes the entries' status
-            self.fail(types.Status.UnknownError(
-                f"{type(exc).__name__}: {exc}"))
+            self.fail_exc(exc)
             return
         _OP_BYTES.labels(op=self.op).inc(self.nbytes)
         ok = types.Status.OK()
@@ -259,6 +290,40 @@ class Executor:
             quantum_bytes, fusion_threshold, depth)
         self._held: "collections.deque" = collections.deque()
         self.latest: Optional["Done"] = None
+        # a data-plane loss (WorkerLostError); the runtime lifts it
+        self.failure: Optional[Exception] = None
+        # the digests' verdict (NumericalError); the waiting handle lifts
+        # and clears it, so the runtime survives the rollback
+        self.integrity_failure: Optional[Exception] = None
+        # eligible dispatches seen: the digest cadence (the same on every
+        # rank, since the dispatch order is negotiated)
+        self._integrity_dispatches = 0
+        #: digest checks run and the cycle thread's seconds in them
+        self.digest_checks = 0
+        self.digest_seconds = 0.0
+
+    def _integrity_due(self) -> bool:
+        """Advance the digest cadence by one eligible dispatch; True on the
+        first and every ``HOROVOD_INTEGRITY_INTERVAL``-th."""
+        if not integrity.enabled():
+            return False
+        iv = integrity.interval()
+        if iv <= 0:
+            return False
+        n = self._integrity_dispatches
+        self._integrity_dispatches = n + 1
+        return n % iv == 0
+
+    def _verify(self, controller, nf_dev, crc: int, bucket: str,
+                tensor: str, t0: float) -> None:
+        """Gather the records on the control group and raise the verdict
+        (on the cycle thread, at the drain)."""
+        try:
+            records = integ_digest.exchange(controller, int(nf_dev), crc)
+            integ_digest.verify(records, bucket=bucket, tensor=tensor)
+        finally:
+            self.digest_checks += 1
+            self.digest_seconds += time.perf_counter() - t0
 
     def _order_after_inputs(self, entries) -> None:
         """The comm stream waits for each producer stream of the bin: for
@@ -289,14 +354,20 @@ class Executor:
         while self._held and self._held[0][0].query():
             self._held.popleft()
 
-    def close(self) -> None:
-        """Wait for the comm stream's work, then drop the held tensors."""
+    def close(self, wait: bool = True) -> None:
+        """Wait for the comm stream's work, then drop the held tensors.
+        ``wait=False`` (after a failure: a collective a dead peer never
+        joins may sit on the stream) keeps them held: the group's abort at
+        shutdown ends that collective, and the executor's last reference
+        goes with the runtime."""
+        if not wait:
+            return
         if self.stream is not None:
             self.stream.synchronize()
         self._held.clear()
 
     def dispatch(self, response, entries: List[types.TensorTableEntry],
-                 timeline=None) -> _PendingOp:
+                 timeline=None, controller=None) -> _PendingOp:
         """Launch one (fused) response and return its pending token
         (reference: PerformOperation, operations.cc:211-279: statuses go
         through the entries' callbacks, an ERROR response fails them all)."""
@@ -312,22 +383,21 @@ class Executor:
             self._order_after_inputs(entries)
             if kind == types.ALLREDUCE:
                 pend.finish = self._dispatch_allreduce(entries, timeline,
-                                                       pend)
+                                                       pend, controller)
             elif kind in (types.BROADCAST, types.ALLGATHER,
                           types.REDUCESCATTER, types.ALLTOALL):
                 pend.finish = self._dispatch_each(
                     kind, entries, timeline, pend.name0,
-                    response.tensor_sizes)
+                    response.tensor_sizes, controller)
             else:
                 raise ValueError(f"response type {kind} is not ported")
         except Exception as exc:
-            pend.fail(types.Status.UnknownError(
-                f"{type(exc).__name__}: {exc}"))
+            pend.fail_exc(exc)
         if pend.t_disp_end is None:
             pend.t_disp_end = time.perf_counter()
         return pend
 
-    def _dispatch_allreduce(self, entries, timeline, pend):
+    def _dispatch_allreduce(self, entries, timeline, pend, controller=None):
         """Pack the bin into a leased slab, one collective over
         ``slab[:total]``; the returned tail averages and unpacks into each
         entry's own tensor (never a view of the slab, which the next bin
@@ -345,6 +415,14 @@ class Executor:
         # flat views of the (contiguous) inputs: packed from, unpacked into
         flats = [e.tensor.view(-1) for e in entries]
         torch.cat(flats, out=buf)
+        plan = integ_inject.plan_dispatch()
+        if plan == "nan" and buf.is_floating_point():
+            integ_inject.corrupt_nan(buf)  # this rank's input, pre-reduce
+        nf_dev = None
+        if self._integrity_due():
+            t0 = time.perf_counter()
+            nf_dev = integ_digest.nonfinite_count_tensor(buf)
+            self.digest_seconds += time.perf_counter() - t0
         if timeline is not None:
             timeline.activity_end(name0)
             timeline.activity_start(name0, f"{self.backend}_ALLREDUCE")
@@ -356,6 +434,14 @@ class Executor:
             work.wait()
             if reduce_op == types.REDUCE_AVERAGE:
                 _average_(buf, self.world)
+            if plan == "bitflip":
+                # silent corruption of this rank's copy of the result: only
+                # the checksum vote sees it
+                integ_inject.corrupt_bitflip(buf)
+            if nf_dev is not None:
+                t0 = time.perf_counter()
+                self._verify(controller, nf_dev, integ_digest.checksum(buf),
+                             f"fused[{total}]", name0, t0)
             if timeline is not None:
                 timeline.activity_end(name0)
                 timeline.activity_start(
@@ -370,15 +456,30 @@ class Executor:
 
         return finish
 
-    def _dispatch_each(self, kind, entries, timeline, name0, sizes=()):
+    def _dispatch_each(self, kind, entries, timeline, name0, sizes=(),
+                       controller=None):
         """One collective an entry: broadcast in place; allgather (ragged
         by the negotiated ``sizes``), alltoall and reduce-scatter into the
-        outputs the enqueue allocated."""
+        outputs the enqueue allocated. A reduce-scatter is a digest's
+        eligible dispatch: its inputs' non-finite count, no CRC."""
         if timeline is not None:
             timeline.activity_start(name0, f"{self.backend}_{kind}")
+        nf_dev = None
+        inputs = [e.tensor for e in entries]
+        if kind == types.REDUCESCATTER:
+            # no replicated result here to flip: a nan lane only
+            plan = integ_inject.plan_dispatch(kinds=("nan",))
+            if plan == "nan" and inputs[0].is_floating_point():
+                # a poisoned gradient: a copy of this rank's input
+                inputs[0] = inputs[0].clone()
+                integ_inject.corrupt_nan(inputs[0])
+            if self._integrity_due():
+                t0 = time.perf_counter()
+                nf_dev = sum(integ_digest.nonfinite_count_tensor(x)
+                             for x in inputs)
+                self.digest_seconds += time.perf_counter() - t0
         works, tails = [], []
-        for e in entries:
-            x = e.tensor
+        for e, x in zip(entries, inputs):
             if kind == types.BROADCAST:
                 e.output = x
                 works.append(dist.broadcast(x, src=e.root_rank,
@@ -401,6 +502,10 @@ class Executor:
         def finish():
             for w in works:
                 w.wait()
+            if nf_dev is not None:
+                t0 = time.perf_counter()
+                self._verify(controller, nf_dev, 0, f"rs[{len(entries)}]",
+                             name0, t0)
             for tail in tails:
                 tail()
             for e in entries:

@@ -9,22 +9,72 @@ bitvectors are reduced with bitwise AND and OR, which NCCL does not have,
 and the verbs move small host-side blobs. Only the runtime's cycle thread
 issues collectives on it, so no caller's call interleaves with a cycle's.
 
-Not ported yet: the socket controller's reconnect and generation fencing
-(ROADMAP A10), and the native TCP host ring (``native.py``,
-``cpp/net.cc``): the gloo group is also the CPU data plane.
+``init()`` makes the group with ``HOROVOD_GLOO_TIMEOUT_SECONDS`` (default
+30) as its timeout. A verb that fails because a peer went away (the
+connection closed by the peer or reset, or the timeout ran out) raises
+:class:`~horovod_tpu_torch.exceptions.WorkerLostError`, which the runtime
+lifts into every waiting handle and ``@hvd.elastic.run`` answers with a
+re-form (:func:`lost_worker`). Every verb passes the chaos seam
+(``resilience.inject("ctrl", verb)``) first.
+
+Not ported: the socket controller's reconnect, and the native TCP host ring
+(``native.py``, ``cpp/net.cc``): the gloo group is also the CPU data plane.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.exceptions import WorkerLostError, WorkersDownError
 from horovod_tpu_torch.runtime import message as msg
 from horovod_tpu_torch.runtime.controller import Controller
 from horovod_tpu_torch.runtime.response_cache import CacheCoordinator
+from horovod_tpu_torch.utils import resilience
+
+# what gloo and NCCL say when a peer went away: its process exited (the
+# socket closed or reset), or it stopped answering (a timeout)
+_LOST_MARKERS = ("closed by peer", "connection reset", "reset by peer",
+                 "broken pipe", "connection refused", "timed out",
+                 "timeout", "socket closed", "remote process exited",
+                 "nccl communicator was aborted")
+
+
+def lost_worker(exc: BaseException) -> Optional[WorkerLostError]:
+    """The typed verdict of a transport error that means a peer went
+    away, or None when ``exc`` says something else."""
+    if isinstance(exc, WorkersDownError):
+        return exc if isinstance(exc, WorkerLostError) else None
+    text = str(exc).lower()
+    if isinstance(exc, (ConnectionError, TimeoutError)) \
+            or any(m in text for m in _LOST_MARKERS):
+        return WorkerLostError(
+            f"control-plane peer lost in generation "
+            f"{resilience.current_generation()}: "
+            f"{type(exc).__name__}: {exc}")
+    return None
+
+
+def _verb(fn):
+    """A negotiation verb: the chaos seam first, and a lost peer's error
+    raised as :class:`WorkerLostError`."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        try:
+            resilience.inject("ctrl", fn.__name__)
+            return fn(self, *args, **kwargs)
+        except Exception as exc:
+            lost = lost_worker(exc)
+            if lost is None or lost is exc:
+                raise
+            raise lost from exc
+
+    return wrapper
 
 _WORD_BITS = 63  # bits per int64 word of the bitvector: every word >= 0
 
@@ -49,6 +99,7 @@ class GlooController(Controller):
                                  + CacheCoordinator.NUM_STATUS_BITS)
                                // _WORD_BITS))
 
+    @_verb
     def sync_bitvectors(self, bits: int) -> Tuple[int, int]:
         if bits >> (_WORD_BITS * self._words):
             raise ValueError(f"cache bitvector wider than {self._words} "
@@ -82,6 +133,7 @@ class GlooController(Controller):
             return None
         return [b[:n].numpy().tobytes() for b, n in zip(bufs, sizes)]
 
+    @_verb
     def bcast_blob(self, blob: Optional[bytes]) -> bytes:
         size = torch.tensor([len(blob) if self.is_coordinator else 0],
                             dtype=torch.int64)
@@ -94,16 +146,26 @@ class GlooController(Controller):
         dist.broadcast(buf, src=0, group=self.group)
         return buf.numpy().tobytes()
 
+    @_verb
+    def allgather_blob(self, blob: bytes) -> List[bytes]:
+        mine = _as_tensor(blob, len(blob))
+        bufs = [torch.empty(len(blob), dtype=torch.uint8)
+                for _ in range(self.world)]
+        dist.all_gather(bufs, mine, group=self.group)
+        return [b.numpy().tobytes() for b in bufs]
+
+    @_verb
     def send_ready_tensors(self, requests):
         blobs = self._gather(msg.pack_request_list(requests))
         if blobs is None:
             return None
         return [msg.unpack_request_list(b) for b in blobs]
 
-    def bcast_responses(self, responses):
+    def bcast_responses(self, responses):  # a verb through bcast_blob
         blob = (msg.pack_response_list(responses) if self.is_coordinator
                 else None)
         return msg.unpack_response_list(self.bcast_blob(blob))
 
+    @_verb
     def barrier(self) -> None:
         dist.barrier(group=self.group)

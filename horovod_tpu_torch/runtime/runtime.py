@@ -27,9 +27,21 @@ step's ``exposed_comm`` phase: on the card, host time until the
 collective is queued, not the device's). The coordinator's stall
 inspector carries a straggler tracker.
 
-Not ported yet: autotune (ROADMAP A8), the elastic and resilience hooks
-and typed worker-loss errors (A10), tracing, the flight recorder and the
-lane-hazard watchdog (A11).
+A multi-process runtime that goes down for a failure keeps its typed
+reason in :attr:`Runtime.failure`: the gloo controller's
+:class:`~horovod_tpu_torch.exceptions.WorkerLostError` for a peer that
+went away (any other cycle failure in a lockstep world reads as one too),
+the controller's ``WorkerStallError`` (the collective deadline, the
+elastic stall verdict), the executor's data-plane loss, or, under
+``HOROVOD_ELASTIC``, a ``WorkersDownError`` for a shutdown bit no local
+cause explains (a peer evicted someone). Every waiting handle raises it,
+and so does every enqueue after it: ``@hvd.elastic.run`` catches it. An
+integrity verdict of the digests (``NumericalError``) reaches the waiting
+handle without taking the runtime down: the first handle to see it raises
+it and clears it, and the runtime goes on for the rollback's replay.
+
+Not ported yet: autotune (ROADMAP A8), tracing, the flight recorder and
+the lane-hazard watchdog (A11).
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ from typing import Any, List, Optional
 
 import torch
 
+from horovod_tpu_torch import exceptions
 from horovod_tpu_torch.core import state as state_mod
 from horovod_tpu_torch.exceptions import NotInitializedError
 from horovod_tpu_torch.metrics import COUNT_BUCKETS, registry as _metrics
@@ -51,7 +64,8 @@ from horovod_tpu_torch.runtime import tensor_queue as queue_mod
 from horovod_tpu_torch.runtime import types
 from horovod_tpu_torch.runtime.controller import Controller, LocalController
 from horovod_tpu_torch.runtime.executor import Executor
-from horovod_tpu_torch.runtime.gloo_controller import GlooController
+from horovod_tpu_torch.runtime.gloo_controller import (GlooController,
+                                                       lost_worker)
 from horovod_tpu_torch.runtime.tensor_queue import TensorQueue
 from horovod_tpu_torch.stall import StallInspector, StragglerTracker
 from horovod_tpu_torch.timeline import Timeline
@@ -91,10 +105,11 @@ class RuntimeHandle:
     where a ``threading.Event`` makes several, on every gradient of every
     step."""
 
-    __slots__ = ("name", "_lock", "_status", "_output", "_done")
+    __slots__ = ("name", "_lock", "_status", "_output", "_done", "_runtime")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, runtime: "Optional[Runtime]" = None):
         self.name = name
+        self._runtime = runtime
         self._lock = threading.Lock()
         self._lock.acquire()
         self._status: Optional[types.Status] = None
@@ -116,8 +131,9 @@ class RuntimeHandle:
     def wait(self, timeout: Optional[float] = None):
         """Block until the runtime has queued the collective, then order
         the caller's current stream after it (no host wait on the device).
-        A failed collective raises: ValueError for an invalid argument,
-        RuntimeError otherwise."""
+        A failed collective raises: ValueError for an invalid argument, the
+        digests' ``NumericalError``, the runtime's typed
+        ``WorkersDownError``, RuntimeError otherwise."""
         if self._status is None:
             t0 = time.monotonic()
             got = self._lock.acquire(timeout=-1 if timeout is None
@@ -130,11 +146,15 @@ class RuntimeHandle:
         else:
             _HANDLE_WAIT.observe(0.0)
         if not self._status.ok():
-            exc = (ValueError
-                   if self._status.type == types.StatusType.INVALID_ARGUMENT
-                   else RuntimeError)
-            raise exc(f"collective '{self.name}' failed: "
-                      f"{self._status.reason}")
+            if self._status.type == types.StatusType.INVALID_ARGUMENT:
+                raise ValueError(f"collective '{self.name}' failed: "
+                                 f"{self._status.reason}")
+            rt = self._runtime
+            if rt is not None:
+                rt.raise_typed(f"collective '{self.name}' failed: "
+                               f"{self._status.reason}")
+            raise RuntimeError(f"collective '{self.name}' failed: "
+                               f"{self._status.reason}")
         out = self._output
         done = self._done
         if done is not None:
@@ -199,7 +219,11 @@ class Runtime:
         self.stall_inspector = StallInspector(
             warning_time_seconds=cfg.stall_check_time_seconds,
             shutdown_time_seconds=cfg.stall_shutdown_time_seconds,
-            enabled=not cfg.stall_check_disable)
+            enabled=not cfg.stall_check_disable, elastic=cfg.elastic)
+        # the typed reason this runtime went down (a WorkersDownError),
+        # when a failure path could tell; a deliberate stop() leaves None
+        self.failure: Optional[Exception] = None
+        self._deliberate_stop = False
         if controller.is_coordinator:
             controller.straggler = StragglerTracker(
                 world=controller.world,
@@ -216,7 +240,40 @@ class Runtime:
     # -- enqueue APIs (reference: operations.cc:736-843) -------------------
     def _check_running(self) -> None:
         if self._stop.is_set():
+            if isinstance(self.failure, exceptions.WorkersDownError):
+                raise type(self.failure)(
+                    f"{types.SHUT_DOWN_ERROR} (cause: {self.failure})",
+                    ranks=self.failure.ranks) from self.failure
             raise RuntimeError(types.SHUT_DOWN_ERROR)
+
+    def raise_typed(self, message: str) -> None:
+        """Raise the typed reason of a failed collective, if there is one:
+        the executor's integrity verdict (lifted and cleared: the runtime
+        survives the rollback), else the runtime's (or the executor's)
+        ``WorkersDownError``. Returns when there is none."""
+        integ = self.executor.integrity_failure
+        if integ is not None:
+            self.executor.integrity_failure = None
+            raise type(integ)(
+                f"{message}: integrity check: {integ}", bucket=integ.bucket,
+                tensor=integ.tensor,
+                suspect_rank=integ.suspect_rank) from integ
+        # the executor records a data-plane loss before it completes the
+        # entries; the runtime lifts it only at the cycle's end
+        failure = self.failure or self.executor.failure
+        if isinstance(failure, exceptions.WorkersDownError):
+            raise type(failure)(f"{message} (cause: {failure})",
+                                ranks=failure.ranks) from failure
+
+    def _record_failure(self, exc: Exception) -> None:
+        """Keep the typed reason the runtime goes down for (the first one
+        wins). A one-process runtime survives a failed cycle: nothing."""
+        if not self.controller.lockstep or self.failure is not None:
+            return
+        self.failure = (
+            exc if isinstance(exc, exceptions.WorkersDownError)
+            else lost_worker(exc) or exceptions.WorkerLostError(
+                f"control-plane failure: {type(exc).__name__}: {exc}"))
 
     def _entry(self, request_type: str, name: str, tensor, root_rank=0,
                reduce_op=types.REDUCE_AVERAGE, priority=0):
@@ -236,7 +293,7 @@ class Runtime:
                              f"runtime runs on {self.device}")
         if reduce_op not in types.REDUCE_OPS:
             raise ValueError(f"unknown reduce_op {reduce_op!r}")
-        handle = RuntimeHandle(name)
+        handle = RuntimeHandle(name, self)
         entry = types.TensorTableEntry(
             name=name, tensor=tensor, request_type=request_type,
             root_rank=root_rank, reduce_op=reduce_op,
@@ -356,11 +413,12 @@ class Runtime:
             last_start = time.monotonic()
             try:
                 keep_going = self.run_cycle()
-            except Exception:
+            except Exception as exc:
                 log.get_logger().exception("background cycle failed")
                 # in a lockstep world a failed cycle leaves the peers'
                 # collectives unmatched: the runtime goes down
                 keep_going = not self.controller.lockstep
+                self._record_failure(exc)  # no-op if run_cycle did it
             if not keep_going:
                 break
         # every exit gates future enqueues, so none queues into a dead loop
@@ -383,7 +441,9 @@ class Runtime:
         types.bump("cycles", _CYCLES)
         try:
             return self._run_cycle_body(requests)
-        except Exception:
+        except Exception as exc:
+            # the typed reason first: a handle reads it as it wakes
+            self._record_failure(exc)
             # the popped entries would otherwise stay in the table with
             # their handles never completing: fail them loudly
             status = types.Status.Aborted(
@@ -403,6 +463,17 @@ class Runtime:
         responses, shut_down = self.controller.compute_response_list(
             requests, self.fusion_threshold, timeline=self.timeline,
             stall_inspector=self.stall_inspector)
+        # the coordinator's stall or deadline verdict rides on the
+        # controller while the shutdown bit goes out: lift it
+        if self.controller.failure is not None and self.failure is None:
+            self.failure = self.controller.failure
+        if shut_down and self.failure is None and not self._deliberate_stop \
+                and self.controller.lockstep and self.config.elastic:
+            # a shutdown bit with no local cause: a peer evicted someone
+            # or is going down, and the survivors re-form
+            self.failure = exceptions.WorkersDownError(
+                "peer requested shutdown (remote stall eviction or "
+                "failure)")
         _CYCLE_TENSORS.observe(sum(len(r.tensor_names) for r in responses))
         pending: "collections.deque" = collections.deque()
         cycle_entries = []
@@ -416,12 +487,17 @@ class Runtime:
                 cycle_entries.append(entries)
                 COUNTS["responses"] += 1
                 pending.append(self.executor.dispatch(
-                    response, entries, timeline=self.timeline))
+                    response, entries, timeline=self.timeline,
+                    controller=self.controller))
                 _PIPELINE_DEPTH.set(len(pending))
                 while len(pending) >= self.depth:
                     self._drain_one(pending)
             while pending:
                 self._drain_one(pending)
+            # a data-plane loss fails its entries by status and records
+            # itself on the executor
+            if self.executor.failure is not None and self.failure is None:
+                self.failure = self.executor.failure
         except Exception:
             status = types.Status.UnknownError(
                 "background cycle failed; see runtime log")
@@ -455,7 +531,9 @@ class Runtime:
 
     def _finalize(self) -> None:
         self.queue.finalize(types.Status.Aborted(types.SHUT_DOWN_ERROR))
-        self.executor.close()
+        # after a failure the comm stream may hold a collective a dead peer
+        # never joins: no wait for it here (shutdown aborts the group)
+        self.executor.close(wait=self.failure is None)
         if self.timeline is not None:
             self.timeline.close()
             self.timeline = None
@@ -465,6 +543,7 @@ class Runtime:
         SHUT_DOWN_ERROR (operations.cc:480-486). In a lockstep world the
         shutdown goes out as the SHOULD_SHUT_DOWN bit, so every worker
         leaves its loop in the same cycle (response_cache.h:128-132)."""
+        self._deliberate_stop = True
         if self.controller.lockstep and self._thread.is_alive():
             self.controller.request_shutdown()
             self._woken.set()

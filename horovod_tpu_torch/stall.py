@@ -16,10 +16,15 @@ Knobs (reference: common.h:78-80), read into ``utils.env.Config`` at
 ``HOROVOD_STRAGGLER_REPORT_SECONDS`` (the tracker's report interval,
 default 60; 0: no report).
 
-Not ported yet: the flight-recorder events (``stall_warning``,
-``stall_shutdown``, ``straggler_report``; ROADMAP A11), the goodput
-ledger's straggler span (A11), and the elastic verdict, a
-``WorkerStallError`` raised in place of the shutdown (A10).
+Under ``HOROVOD_ELASTIC`` (``Config.elastic``) a stall past the shutdown
+time raises :class:`~horovod_tpu_torch.exceptions.WorkerStallError`
+naming the missing ranks, in place of the shutdown's True: the controller
+keeps it as its typed verdict and still sends the shutdown bit, and
+``@hvd.elastic.run`` re-forms without the stalled ranks.
+
+Not ported: the flight-recorder events (``stall_warning``,
+``stall_shutdown``, ``straggler_report``; ROADMAP A11) and the goodput
+ledger's straggler span (A11).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional, Tuple
 
+from horovod_tpu_torch.exceptions import WorkerStallError
 from horovod_tpu_torch.metrics import registry as _metrics
 from horovod_tpu_torch.utils import logging as log
 
@@ -117,10 +123,13 @@ class StragglerTracker:
 
 class StallInspector:
     def __init__(self, warning_time_seconds: float = 60.0,
-                 shutdown_time_seconds: float = 0.0, enabled: bool = True):
+                 shutdown_time_seconds: float = 0.0, enabled: bool = True,
+                 elastic: bool = False):
         self.warning_time = warning_time_seconds
         self.shutdown_time = shutdown_time_seconds
         self.enabled = enabled
+        # a stall past the shutdown time raises WorkerStallError instead
+        self.elastic = elastic
         self._last_check = time.monotonic()
         # fallback age baseline for tables that carry no arrival stamp
         self._first_seen: Dict[str, float] = {}
@@ -138,6 +147,7 @@ class StallInspector:
         self._last_check = now
 
         stalled, shutdown, warn_missing = [], False, set()
+        missing_ranks: set = set()
         arrival_time = getattr(message_table, "first_request_time", None)
         pending = message_table.pending()
         for name, requests in pending.items():
@@ -156,6 +166,7 @@ class StallInspector:
             warn_missing.update(missing)
             if self.shutdown_time > 0 and age > self.shutdown_time:
                 shutdown = True
+                missing_ranks.update(missing)
         self._first_seen = {k: v for k, v in self._first_seen.items()
                             if k in pending}
         if stalled:
@@ -180,4 +191,9 @@ class StallInspector:
                 "Stalled tensors exceeded "
                 "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS (%.0fs); "
                 "shutting down.", self.shutdown_time)
+            if self.elastic:
+                raise WorkerStallError(
+                    f"stalled ranks exceeded the shutdown threshold "
+                    f"({self.shutdown_time:.0f}s): {'; '.join(stalled)}",
+                    ranks=sorted(missing_ranks))
         return shutdown

@@ -2,8 +2,9 @@
 the parsing helpers, the launcher's identity contract, the enqueue
 runtime's knobs and :class:`Config`, the fusion bucket quantum, the metrics
 endpoint and dump, the ZeRO stage and gradient release knobs, the step
-profiler's and the integrity guard's knobs, the checkpoint writer's, its
-restore's and its replica ring's knobs, and the
+profiler's and the integrity plane's knobs, the checkpoint writer's, its
+restore's and its replica ring's knobs, the elastic layer's, the
+rendezvous store's and the control plane's resilience knobs, and the
 flash attention's ``FLASH_FUSED_BWD`` switch).
 
 ``hvd.init()`` parses the runtime's knobs once into :class:`Config`
@@ -76,11 +77,62 @@ HOROVOD_PROFILE_HISTORY = "HOROVOD_PROFILE_HISTORY"
 HOROVOD_PROFILE_JAX = "HOROVOD_PROFILE_JAX"
 DEFAULT_PROFILE_HISTORY = 64
 
-# The integrity step guard (integrity/): armed, its spike threshold in
-# EWMA standard deviations, and the consecutive skips before it raises.
+# The integrity plane (integrity/): armed, the step guard's spike
+# threshold in EWMA standard deviations and the consecutive skips before
+# it raises, the collective digests' cadence in eligible dispatches (0: no
+# digest), whether a rank the digest vote names exits (quarantine), and
+# the in-place rollbacks a process may take (horovod_tpu/utils/env.py:
+# 112-114, horovod_tpu/integrity/).
 HOROVOD_INTEGRITY = "HOROVOD_INTEGRITY"
 HOROVOD_INTEGRITY_SPIKE_SIGMA = "HOROVOD_INTEGRITY_SPIKE_SIGMA"
 HOROVOD_INTEGRITY_SKIP_STEPS = "HOROVOD_INTEGRITY_SKIP_STEPS"
+HOROVOD_INTEGRITY_INTERVAL = "HOROVOD_INTEGRITY_INTERVAL"
+HOROVOD_INTEGRITY_QUARANTINE = "HOROVOD_INTEGRITY_QUARANTINE"
+HOROVOD_ROLLBACK_BUDGET = "HOROVOD_ROLLBACK_BUDGET"
+
+# The elastic layer (elastic/; horovod_tpu/utils/env.py:97-106): on
+# (Config.elastic: a stall past the shutdown time and a peer's shutdown bit
+# raise WorkersDownError), the least workers a re-form accepts, its
+# retries and their backoff, the seconds a membership scan must stay
+# unchanged, the re-form's deadline, the heartbeat's period, the driver's
+# discovery period, the State's disk spill, and the sharded checkpoint
+# directory a State commits to and rolls back from.
+HOROVOD_ELASTIC = "HOROVOD_ELASTIC"
+HOROVOD_ELASTIC_MIN_WORKERS = "HOROVOD_ELASTIC_MIN_WORKERS"
+HOROVOD_ELASTIC_MAX_RETRIES = "HOROVOD_ELASTIC_MAX_RETRIES"
+HOROVOD_ELASTIC_BACKOFF_BASE_SECONDS = "HOROVOD_ELASTIC_BACKOFF_BASE_SECONDS"
+HOROVOD_ELASTIC_BACKOFF_MAX_SECONDS = "HOROVOD_ELASTIC_BACKOFF_MAX_SECONDS"
+HOROVOD_ELASTIC_SETTLE_SECONDS = "HOROVOD_ELASTIC_SETTLE_SECONDS"
+HOROVOD_ELASTIC_REJOIN_TIMEOUT_SECONDS = \
+    "HOROVOD_ELASTIC_REJOIN_TIMEOUT_SECONDS"
+HOROVOD_ELASTIC_HEARTBEAT_SECONDS = "HOROVOD_ELASTIC_HEARTBEAT_SECONDS"
+HOROVOD_ELASTIC_DISCOVERY_INTERVAL_SECONDS = \
+    "HOROVOD_ELASTIC_DISCOVERY_INTERVAL_SECONDS"
+HOROVOD_ELASTIC_SPILL_DIR = "HOROVOD_ELASTIC_SPILL_DIR"
+HOROVOD_ELASTIC_SPILL_SYNC = "HOROVOD_ELASTIC_SPILL_SYNC"
+HOROVOD_CKPT_DIR = "HOROVOD_CKPT_DIR"
+
+# The launcher's rendezvous store (run/rendezvous.py): its address and
+# port, the heartbeat scope's TTL and the long-poll window of a get; the
+# gloo control group's timeout in seconds, which bounds how long a dead
+# peer can hold a survivor (default 30).
+HOROVOD_RENDEZVOUS_HTTP_ADDR = "HOROVOD_RENDEZVOUS_HTTP_ADDR"
+HOROVOD_RENDEZVOUS_HTTP_PORT = "HOROVOD_RENDEZVOUS_HTTP_PORT"
+HOROVOD_RENDEZVOUS_HEARTBEAT_TTL = "HOROVOD_RENDEZVOUS_HEARTBEAT_TTL"
+HOROVOD_RENDEZVOUS_LONG_POLL_SECONDS = "HOROVOD_RENDEZVOUS_LONG_POLL_SECONDS"
+HOROVOD_GLOO_TIMEOUT_SECONDS = "HOROVOD_GLOO_TIMEOUT_SECONDS"
+DEFAULT_GLOO_TIMEOUT_SECONDS = 30.0
+
+# Control-plane resilience (utils/resilience.py): the retry policy of the
+# store's client, the deadline of a negotiation round (0: none), and the
+# fault harness's clauses (process, network and data-corruption faults).
+HOROVOD_NET_MAX_RETRIES = "HOROVOD_NET_MAX_RETRIES"
+HOROVOD_NET_BACKOFF_BASE_SECONDS = "HOROVOD_NET_BACKOFF_BASE_SECONDS"
+HOROVOD_NET_BACKOFF_MAX_SECONDS = "HOROVOD_NET_BACKOFF_MAX_SECONDS"
+HOROVOD_NET_DEADLINE_SECONDS = "HOROVOD_NET_DEADLINE_SECONDS"
+HOROVOD_NET_ATTEMPT_TIMEOUT_SECONDS = "HOROVOD_NET_ATTEMPT_TIMEOUT_SECONDS"
+HOROVOD_COLLECTIVE_TIMEOUT = "HOROVOD_COLLECTIVE_TIMEOUT"
+HOROVOD_FAULT_INJECT = "HOROVOD_FAULT_INJECT"
 
 # Size-bucket quantum of flat fused payloads, in bytes (reference:
 # horovod_tpu/utils/env.py:55,156); ZeRO pads each per-rank shard to it.
@@ -160,7 +212,8 @@ def native_cycle() -> bool:
 # built), the attention backward's switch (read at each backward), the
 # integrity knobs (read when a guard is made or a step is taken) and the
 # checkpoint knobs (read when a manager is made or a commit or a restore
-# runs).
+# runs), and the elastic, rendezvous and resilience knobs (read when a
+# re-form, a commit, a store client or a transport needs them).
 ENV_DIRECT_KNOBS = (
     HOROVOD_RANK, HOROVOD_SIZE, HOROVOD_LOCAL_RANK, HOROVOD_LOCAL_SIZE,
     HOROVOD_CROSS_RANK, HOROVOD_CROSS_SIZE, HOROVOD_COORDINATOR_ADDR,
@@ -171,6 +224,20 @@ ENV_DIRECT_KNOBS = (
     HOROVOD_CKPT_ASYNC, HOROVOD_CKPT_KEEP,
     HOROVOD_CKPT_BARRIER_TIMEOUT_SECONDS, HOROVOD_CKPT_FAULT,
     HOROVOD_CKPT_VERIFY, HOROVOD_CKPT_REPLICATION,
+    HOROVOD_INTEGRITY_INTERVAL, HOROVOD_INTEGRITY_QUARANTINE,
+    HOROVOD_ROLLBACK_BUDGET, HOROVOD_ELASTIC_MIN_WORKERS,
+    HOROVOD_ELASTIC_MAX_RETRIES, HOROVOD_ELASTIC_BACKOFF_BASE_SECONDS,
+    HOROVOD_ELASTIC_BACKOFF_MAX_SECONDS, HOROVOD_ELASTIC_SETTLE_SECONDS,
+    HOROVOD_ELASTIC_REJOIN_TIMEOUT_SECONDS,
+    HOROVOD_ELASTIC_HEARTBEAT_SECONDS,
+    HOROVOD_ELASTIC_DISCOVERY_INTERVAL_SECONDS, HOROVOD_ELASTIC_SPILL_DIR,
+    HOROVOD_ELASTIC_SPILL_SYNC, HOROVOD_CKPT_DIR,
+    HOROVOD_RENDEZVOUS_HTTP_ADDR, HOROVOD_RENDEZVOUS_HTTP_PORT,
+    HOROVOD_RENDEZVOUS_HEARTBEAT_TTL, HOROVOD_RENDEZVOUS_LONG_POLL_SECONDS,
+    HOROVOD_GLOO_TIMEOUT_SECONDS, HOROVOD_NET_MAX_RETRIES,
+    HOROVOD_NET_BACKOFF_BASE_SECONDS, HOROVOD_NET_BACKOFF_MAX_SECONDS,
+    HOROVOD_NET_DEADLINE_SECONDS, HOROVOD_NET_ATTEMPT_TIMEOUT_SECONDS,
+    HOROVOD_COLLECTIVE_TIMEOUT, HOROVOD_FAULT_INJECT,
 )
 
 
@@ -202,6 +269,9 @@ class Config:
     profile_history: int = DEFAULT_PROFILE_HISTORY
     # also capture a torch.profiler trace of the device into the dir
     profile_jax: bool = False
+    # elastic mode: a stall past the shutdown time and a peer's shutdown
+    # bit raise WorkersDownError, which @elastic.run answers with a re-form
+    elastic: bool = False
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -239,7 +309,14 @@ class Config:
             profile_history=_get_int(HOROVOD_PROFILE_HISTORY,
                                      DEFAULT_PROFILE_HISTORY),
             profile_jax=_get_bool(HOROVOD_PROFILE_JAX),
+            elastic=_get_bool(HOROVOD_ELASTIC),
         )
+
+
+def gloo_timeout_seconds() -> float:
+    """``HOROVOD_GLOO_TIMEOUT_SECONDS``: the control group's timeout."""
+    return _get_float(HOROVOD_GLOO_TIMEOUT_SECONDS,
+                      DEFAULT_GLOO_TIMEOUT_SECONDS)
 
 
 def flash_fused_bwd() -> bool:

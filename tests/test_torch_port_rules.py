@@ -196,6 +196,46 @@ def test_checkpoint_layer_leaves_jax_out_and_starts_nothing(tmp_path):
                    cwd=tmp_path, timeout=120)
 
 
+def test_elastic_layer_leaves_jax_out_and_starts_nothing(tmp_path):
+    """The elastic layer (``elastic``, ``run.rendezvous``,
+    ``utils.resilience``, ``integrity``) imports no JAX; ``hvd.elastic`` is
+    a module; importing it, building a state and parsing the faults starts
+    no thread and opens no socket: the store, the heartbeat and the driver
+    exist only when a caller starts them."""
+    code = (
+        "import os, sys, threading, types\n"
+        "import torch\n"
+        "import horovod_tpu_torch as hvd\n"
+        "from horovod_tpu_torch.elastic import driver, runner, state\n"
+        "from horovod_tpu_torch.run import rendezvous\n"
+        "from horovod_tpu_torch.utils import resilience\n"
+        "from horovod_tpu_torch.integrity import digest, inject, rollback\n"
+        "assert isinstance(hvd.elastic, types.ModuleType)\n"
+        "st = hvd.elastic.ArrayState({'w': torch.ones(2)}, None)\n"
+        "st.commit()\n"
+        "resilience.parse_net_faults('flaky:0.5;kv_outage:3')\n"
+        "hvd.elastic.fault_inject.specs_from_env()\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "socks = []\n"
+        "for fd in os.listdir('/proc/self/fd'):\n"
+        "    try:\n"
+        "        link = os.readlink('/proc/self/fd/' + fd)\n"
+        "    except OSError:\n"
+        "        continue\n"
+        "    if link.startswith('socket:'):\n"
+        "        socks.append(link)\n"
+        "assert not socks, socks\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n" % (FORBIDDEN,))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    for knob in ("HOROVOD_RENDEZVOUS_HTTP_ADDR", "HOROVOD_RENDEZVOUS_HTTP_PORT",
+                 "HOROVOD_FAULT_INJECT", "HOROVOD_CKPT_DIR",
+                 "HOROVOD_ELASTIC_SPILL_DIR"):
+        env.pop(knob, None)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=tmp_path, timeout=120)
+
+
 def _exported(path: Path) -> set:
     import re
 
@@ -669,7 +709,9 @@ def test_chip_smoke_cpu_rehearsal_prints_no_result(no_card):
                   "10c profiler on BERT-Large hooks", "10d integrity guard",
                   "10d NaN step skipped", "10e example bert_large_sparse",
                   "11a P2 checkpoint", "11b in-place hazard",
-                  "11c rank-0 checkpoint", "11c corrupt copy"):
+                  "11c rank-0 checkpoint", "11c corrupt copy",
+                  "12a re-form", "12b rollback in place",
+                  "digest on/off in turns", "phase 12 kernel launches"):
         assert phase in out.stdout, phase
     assert "BERT-Large MLM" in out.stdout
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout

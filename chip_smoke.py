@@ -222,7 +222,32 @@ Phases (any failure exits non-zero):
    thread's digest ms a checked dispatch, and the digest's non-finite
    count timed alone over a gradient shard of P2's length beside its
    bound. B1-B3 launched 24 times a pass and B8 once a group an update
-   over the phase.
+   over the phase. The goodput ledger holds one ``elastic_reform``
+   incident for 12a, whose seconds are within 5 % of the re-form's parts
+   (``runner.last_reform()``), and one ``rollback`` incident for 12b, whose
+   flight-recorder failure dump (``integrity_violation``) holds the
+   ``rollback`` event naming the ``NumericalError``.
+13. The observability planes (no kernel of their own), in a temporary
+   directory: phase 5's P2 with ``HOROVOD_FLIGHT_RECORDER_DIR`` and
+   ``HOROVOD_METRICS_PORT=0``, 4 steps a turn with all four planes (flight
+   recorder, memory ledger, comms observatory, goodput ledger) on, off,
+   off, on, the step ms of each printed beside the card's name and power
+   limit; ``hvd.dump_debug_state`` read back by ``load_dumps``; ``GET
+   /debug``, ``/memory``, ``/comms`` and ``/goodput`` answer JSON; the
+   ledger's device bytes and peak equal ``torch.cuda.memory_allocated``
+   and ``max_memory_allocated`` at one instant and ``optimizer_shards``
+   P2's master, mu and nu to the byte; each ``zero``-lane record carries a
+   group's exact padded bytes, with an algbw above 0 and below the copy
+   bound (a read and a write a byte at 3.35 TB/s) from the device's CUDA
+   event seconds; every collective the executor ran is a ``device``-lane
+   record once the runtime stops; a real ``torch.cuda.OutOfMemoryError``
+   (an allocation 1 GiB past the card's total bytes, so past
+   ``mem_get_info``'s free bytes and the allocator's cache) through
+   ``memory.maybe_record_oom`` names the allocator's figures and the
+   largest live tensors, and a step runs after it. Then P4 (stage 2, 145
+   groups) 3 steps a turn on, off, off, on: the host ms a dispatch the
+   planes cost. B1-B3 launched 24 times a pass and B8 once a group a step
+   over P2's steps.
 
 Between them: 2d. kernel B10 (fused BN + ReLU) bit-equal to its plain
 version at every distinct BN input of Inception-V3 at batch 32 (bf16),
@@ -282,6 +307,7 @@ import numpy as np
 import torch
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch import comms, flight_recorder, goodput, memory
 from horovod_tpu_torch.core import state as state_mod
 from horovod_tpu_torch.metrics import flatten_snapshot
 from horovod_tpu_torch.metrics import registry as metrics_registry
@@ -384,7 +410,8 @@ FULL = dict(
     gpt=dict(vocab_size=50257), gpt_batch=16, gpt_seq=1024,
     resnet=dict(batch=128, size=224, classes=1000, dtype=BF16),
     round_steps=3, api_rounds=3,
-    elastic_model=dict(vocab_size=30522, max_seq=512))
+    elastic_model=dict(vocab_size=30522, max_seq=512),
+    obs_steps=4, obs_p4_steps=3)
 DRY = dict(
     cases={"a": (1, 2, 64, 64, False, 0, 0), "b": (1, 2, 96, 64, True, 0, 0),
            "d_masked": (1, 2, 64, 64, True, 8, 40),
@@ -406,7 +433,8 @@ DRY = dict(
     resnet=dict(batch=2, size=32, classes=10, dtype=F32),
     round_steps=1, api_rounds=2,
     elastic_model=dict(vocab_size=1000, max_seq=64, num_layers=1,
-                       d_model=128, num_heads=2, d_ff=256))
+                       d_model=128, num_heads=2, d_ff=256),
+    obs_steps=1, obs_p4_steps=1)
 
 
 def check(ok: bool, what: str) -> None:
@@ -2696,7 +2724,12 @@ def training_api(cfg, device, card, phase8_losses: list) -> None:
         t0 = time.perf_counter()
         guards.global_norm(grads)
         norm_ms.append(1e3 * (time.perf_counter() - t0))
-    with knobs(**{env.HOROVOD_INTEGRITY: 1}):
+    # the step guard alone: with the executor's digests on too, whether
+    # the NaN's bin is a digested dispatch depends on how the cycles bin
+    # the gradients (timing), and a digest convicts it first (phase 12b
+    # checks the digests)
+    with knobs(**{env.HOROVOD_INTEGRITY: 1,
+                  env.HOROVOD_INTEGRITY_INTERVAL: 0}):
         before = [p.detach().clone() for p in model.parameters()]
         momentum = [opt.state[p]["momentum_buffer"].clone()
                     for p in model.parameters()]
@@ -3297,6 +3330,7 @@ def elastic_reform(cfg, device, card, tmp) -> list:
             driver._poll_once()
 
     stats = {}
+    goodput.tracker().reset()
     try:
         got = elastic_run(cfg, device, ckpt_dir=os.path.join(tmp, "a"),
                           on_step=change_hosts, stats=stats)
@@ -3305,9 +3339,13 @@ def elastic_reform(cfg, device, card, tmp) -> list:
         driver.stop()
         server.stop()
     reform = runner.last_reform()
+    incidents = [i for i in goodput.tracker().incidents()
+                 if i["cause"] == "elastic_reform"]
+    reform_s = sum(v for k, v in reform.items() if k != "generation")
     new_group = stats["groups"][1] is not stats["groups"][0]
-    _release(stats, device)
+    # the store is gone: no final flight dump is shipped to it
     _restore_env(old)
+    _release(stats, device)
     log(f"12a re-form (BERT-Large P2, ArrayState(model, zero_state, "
         f"ckpt_dir), a commit a step, world 1): HostsUpdatedInterrupt at "
         f"step 3's commit, generation {runner.restarts()}; store "
@@ -3324,6 +3362,15 @@ def elastic_reform(cfg, device, card, tmp) -> list:
     log("  losses: " + " ".join(f"{got[s]:.6f}" for s in sorted(got))
         + "; uninterrupted: " + " ".join(f"{clean[s]:.6f}"
                                           for s in sorted(clean)))
+    log(f"  goodput: {len(incidents)} elastic_reform incident(s), "
+        + ", ".join(f"{1e3 * i['duration_s']:.1f} ms (generation "
+                    f"{i['generation']}, {i['steps_replayed']} replayed)"
+                    for i in incidents)
+        + f"; the re-form's parts sum to {1e3 * reform_s:.1f} ms {where}")
+    check(len(incidents) == 1 and abs(incidents[0]["duration_s"] - reform_s)
+          <= 0.05 * reform_s,
+          f"12a: elastic_reform incidents {incidents} against the re-form's "
+          f"{reform_s:.4f} s")
     check(runner.restarts() == 1 and stats["step"] == ELASTIC_STEPS,
           f"12a: generation {runner.restarts()}, step {stats['step']}")
     check(new_group and stats["store"][1] != stats["store"][0],
@@ -3349,12 +3396,16 @@ def elastic_rollback(cfg, device, card, tmp, clean: list) -> None:
     where = f"({card})" if device.type == "cuda" else "(no device times)"
     # the P2 step runs one reduce-scatter a group: steps 1-3 pass
     n_groups = len(_p2_spec(cfg).groups)
+    flight = os.path.join(tmp, "flight")
     old = _elastic_env(HOROVOD_INTEGRITY=1, HOROVOD_INTEGRITY_INTERVAL=1,
                        HOROVOD_FAULT_INJECT=f"nan:0:after={3 * n_groups}",
-                       HOROVOD_CKPT_KEEP=1)
+                       HOROVOD_CKPT_KEEP=1,
+                       HOROVOD_FLIGHT_RECORDER_DIR=flight)
     inject.reset()
     digest.reset()
     rollback.reset()
+    goodput.tracker().reset()
+    flight_recorder.recorder()._last_failure_dump = 0.0
     stats = {}
     try:
         got = elastic_run(cfg, device, ckpt_dir=os.path.join(tmp, "b"),
@@ -3400,6 +3451,22 @@ def elastic_rollback(cfg, device, card, tmp, clean: list) -> None:
         _restore_env(old)
     _release(stats, device)
     inject.reset()
+    incidents = [i for i in goodput.tracker().incidents()
+                 if i["cause"] == "rollback"]
+    dump = flight_recorder.load_dumps(flight)
+    reasons = [h["reason"] for d in dump for h in d["dump_history"]]
+    named = [e["error"] for d in dump for e in d["events"]
+             if e["kind"] == "rollback"]
+    flight_recorder.configure()  # the directory is gone with the phase
+    log(f"12b goodput: {len(incidents)} rollback incident(s) "
+        + ", ".join(f"{1e3 * i['duration_s']:.1f} ms, {i['steps_replayed']} "
+                    f"step(s) replayed" for i in incidents)
+        + f"; failure dumps {reasons}; rollback events {named}")
+    check(len(incidents) == 1, f"12b: rollback incidents {incidents}")
+    check("integrity_violation" in reasons and len(named) == 1
+          and named[0].startswith("NumericalError"),
+          f"12b: no failure dump naming the NumericalError: {reasons} "
+          f"{named}")
     log(f"12b rollback in place (nan on step 4's reduce-scatter input, "
         f"HOROVOD_INTEGRITY_INTERVAL=1): replays {rollback.replays()}, "
         f"restored step 3's cut in {restore_ms:.1f} ms {where}")
@@ -3450,6 +3517,259 @@ def elastic_phase(cfg, device, card) -> None:
                     flat_adamw=len(spec.groups) * updates)
         check(launches == want, f"12: kernel launches {launches}, want "
                                 f"{want}")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the observability planes
+# ---------------------------------------------------------------------------
+
+PLANE_KNOBS = (env.HOROVOD_FLIGHT_RECORDER, env.HOROVOD_MEMORY,
+               env.HOROVOD_COMMS, env.HOROVOD_GOODPUT)
+
+
+def planes(on: bool, device) -> None:
+    """All four planes on or off, in the running process (each plane's
+    ``configure`` reads its knob, as ``init()`` does)."""
+    for k in PLANE_KNOBS:
+        os.environ[k] = "1" if on else "0"
+    flight_recorder.configure()
+    memory.configure(device=device)
+    comms.configure()
+    goodput.configure()
+
+
+def _get_json(route: str):
+    port = metrics_registry().http_port
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                timeout=30) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def _turns(step, n: int, set_on, order=(True, False, False, True)) -> dict:
+    """``n`` steps a turn in ``order`` (planes on/off); each turn's step
+    ms (host clock around ``step().item()``, which waits for the step's
+    last kernel) and the runtime's dispatches a step."""
+    out = {True: [], False: []}
+    for on in order:
+        set_on(on)
+        before = sum(hrt.COUNTS[k] for k in ("allreduce", "reducescatter",
+                                             "allgather"))
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            step().item()
+            times.append(1e3 * (time.perf_counter() - t0))
+        sent = sum(hrt.COUNTS[k] for k in ("allreduce", "reducescatter",
+                                           "allgather")) - before
+        out[on].append((statistics.median(times), sent / n))
+    return out
+
+
+def observability_phase(cfg, device, card) -> None:
+    """Phase 13: phase 5's P2 (BERT-Large, seed 0, ZeRO-1 ``sharded_adamw``
+    through B8, B1-B6 in the forward and backward) with the four planes on
+    and off in turns, then every plane's surface checked; then P4's
+    host-bound step with the planes on and off in turns (the comms plane's
+    CUDA event pairs cost the cycle thread host time a dispatch)."""
+    on_card = device.type == "cuda"
+    where = f"({card})" if on_card else "(no device times)"
+    spec = _p2_spec(cfg)
+    n_layers = len(BertLarge(**cfg["model"], device="meta").layers)
+    tokens, positions, labels, _ = mlm_data(cfg)
+    with tempfile.TemporaryDirectory(prefix="hvd-planes-") as tmp:
+        flight = os.path.join(tmp, "flight")
+        old = _elastic_env(HOROVOD_FLIGHT_RECORDER_DIR=flight,
+                           HOROVOD_METRICS_PORT=0,
+                           HOROVOD_MEMORY_SAMPLE_SECONDS=1,
+                           HOROVOD_PROFILE=1)
+        try:
+            _planes_p2(cfg, device, where, spec, n_layers, flight,
+                       (tokens, positions, labels))
+            os.environ.pop("HOROVOD_PROFILE")
+            _planes_p4(cfg, device, where, (tokens, positions, labels))
+        finally:
+            _restore_env(old)
+            for k in PLANE_KNOBS:
+                os.environ.pop(k, None)
+
+
+def _planes_p2(cfg, device, where, spec, n_layers, flight, data) -> None:
+    on_card = device.type == "cuda"
+    steps = cfg["obs_steps"]
+    for c in (fa.LAUNCHES, fopt.LAUNCHES):
+        c.update(dict.fromkeys(c, 0))
+    hvd.init(device=None if on_card else "cpu")
+    dev = hvd.device()
+    model = BertLarge(**cfg["model"], device=dev, seed=0)
+    params = dict(model.named_parameters())
+    batch = tuple(torch.from_numpy(a).to(dev) for a in data)
+    p2_step, _ = make_step("zero", model, params, dev, batch)
+
+    def step():  # a profiled step: the goodput ledger's step source
+        with hvd.profiler.step():
+            return p2_step()
+
+    planes(True, dev)
+    comms.tracker().reset()
+    goodput.tracker().reset()
+    goodput.tracker().start_epoch()
+    step().item()  # warm-up: the cache and the allocator settle
+    turns = _turns(step, steps, lambda on: planes(on, dev))
+    planes(True, dev)
+    _sync(dev)
+    comms.tracker().sweep()
+    # -- the dump and the routes ----------------------------------------
+    path = os.path.join(flight, "flight-rank-0.json")
+    hvd.dump_debug_state(path)
+    dumps = flight_recorder.load_dumps(flight)
+    check(len(dumps) == 1 and dumps[0]["schema"] == flight_recorder.SCHEMA
+          and {"memory", "comms", "goodput", "runtime"}
+          <= set(dumps[0]["state"]),
+          f"13: the dump read back: {[d.get('schema') for d in dumps]}")
+    served = {r: _get_json(r) for r in ("/debug", "/memory", "/comms",
+                                        "/goodput")}
+    log("13 routes: " + ", ".join(
+        f"GET {r} {st} ({len(json.dumps(doc))} bytes)"
+        for r, (st, doc) in served.items()))
+    check(all(st == 200 and isinstance(doc, dict)
+              for st, doc in served.values()), "13: a route failed")
+    # -- the memory ledger against the allocator, at one instant ---------
+    _sync(dev)
+    led = memory.tracker().ledger()
+    alloc = torch.cuda.memory_allocated(dev) if on_card else 0
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    shard = 12 * sum(g.shard_elems for g in spec.groups)
+    got_shard = led["subsystems"]["optimizer_shards"]["bytes"]
+    log(f"13 memory: device {led['device']['bytes_in_use']:,} B in use "
+        f"(allocator {alloc:,}), peak {led['device']['peak_bytes_in_use']:,}"
+        f" ({peak:,}), limit {led['device']['bytes_limit']:,}, reserved "
+        f"{led['device']['bytes_reserved']:,}; optimizer_shards "
+        f"{got_shard:,} B (P2's master, mu, nu: {shard:,}); drift "
+        f"{led['reconcile_drift_ratio']}; samples "
+        f"{len(memory.tracker().samples())} {where}")
+    check(got_shard == shard, f"13: optimizer_shards {got_shard} != {shard}")
+    if on_card:
+        check(led["device"]["bytes_in_use"] == alloc
+              and led["device"]["peak_bytes_in_use"] == peak,
+              "13: the ledger's device bytes are not the allocator's")
+    # -- the zero lane: exact bytes, device seconds under the copy bound --
+    windows = {k: list(w) for k, w in comms.tracker()._windows.items()}
+    want = {4 * g.padded for g in spec.groups}
+    zero = [(k, r) for k, w in windows.items() if k[1] == "zero" for r in w]
+    bound_gbs = PEAK_BYTES / 2 / 1e9  # one read and one write a byte
+    algbw = [r[1] / r[2] / 1e9 for _, r in zero]
+    log(f"13 comms: {len(zero)} zero-lane records, bytes "
+        f"{sorted({r[1] for _, r in zero})} (want {sorted(want)}); algbw "
+        f"GB/s min {min(algbw):.2f} median {statistics.median(algbw):.2f} "
+        f"max {max(algbw):.2f} (copy bound {bound_gbs:.0f}) {where}")
+    check(zero and all(r[1] in want for _, r in zero),
+          f"13: zero-lane bytes {[r[1] for _, r in zero]} not in {want}")
+    check(all(0 < a < bound_gbs for a in algbw) if on_card
+          else all(a > 0 for a in algbw),
+          f"13: a zero-lane algbw outside (0, {bound_gbs}) GB/s: {algbw}")
+    # -- the OOM record ----------------------------------------------------
+    _planes_oom(dev, where)
+    step().item()  # the phase goes on after the OOM
+    gp = goodput.tracker().ledger()
+    log(f"13 goodput: {gp['steps_productive']} productive steps (the "
+        f"profiled steps with the planes on), goodput "
+        f"{gp['goodput_fraction']:.3f}, badput "
+        f"{ {k: round(v, 3) for k, v in gp['badput_seconds'].items()} }")
+    check(gp["steps_productive"] == 1 + 2 * steps + 1,
+          f"13: {gp['steps_productive']} productive steps, want "
+          f"{2 + 2 * steps}")
+    launches = {**fa.LAUNCHES, **fopt.LAUNCHES}
+    n_steps = 1 + 4 * steps + 1
+    hvd.shutdown()
+    del model, params, step, p2_step, batch
+    free_memory(device)
+    # after the runtime stopped: every dispatched collective was recorded
+    # once, with the device's seconds
+    dev_ops = sum(len(w) for k, w in comms.tracker()._windows.items()
+                  if k[1] == "device")
+    on_turns = sum(sent * steps for _, sent in turns[True])
+    log(f"13 device-lane records {dev_ops}; collectives in the on turns, "
+        f"the warm-up and the last steps {on_turns} + ...")
+    check(comms.tracker().pending_spans() == 0, "13: event pairs pending")
+    check(dev_ops >= on_turns, f"13: {dev_ops} device-lane records for "
+                               f"{on_turns} collectives")
+    on_ms = [ms for ms, _ in turns[True]]
+    off_ms = [ms for ms, _ in turns[False]]
+    log(f"13 observability planes on BERT-Large P2, {steps} steps a turn "
+        f"(on, off, off, on), step ms medians: on {on_ms[0]:.2f}, off "
+        f"{off_ms[0]:.2f}, off {off_ms[1]:.2f}, on {on_ms[1]:.2f} {where}")
+    log(f"  phase 13 kernel launches over {n_steps} steps: {launches}")
+    if on_card:
+        want_l = dict.fromkeys(launches, 0)
+        want_l.update(dict.fromkeys(("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv"), n_layers * n_steps),
+                      flat_adamw=len(spec.groups) * n_steps)
+        check(launches == want_l, f"13: kernel launches {launches}, want "
+                                  f"{want_l}")
+
+
+def _planes_oom(dev, where) -> None:
+    """A real ``torch.cuda.OutOfMemoryError`` (an allocation past the
+    card's free bytes) through ``memory.maybe_record_oom``; on the CPU a
+    built one."""
+    exc = None
+    if dev.type == "cuda":
+        # past the card's free bytes and the allocator's cache: its total
+        free, total = torch.cuda.mem_get_info(dev)
+        try:
+            torch.empty(total + (1 << 30), dtype=torch.uint8, device=dev)
+        except torch.cuda.OutOfMemoryError as e:
+            exc = e
+    else:
+        exc = torch.cuda.OutOfMemoryError("CUDA out of memory (rehearsal)")
+    check(exc is not None, "13: the oversized allocation did not fail")
+    recorded = memory.maybe_record_oom(exc, where="chip_smoke")
+    del exc
+    oom = memory.tracker().last_oom() or {}
+    top = oom.get("top_live_arrays") or []
+    figures = oom.get("device") or {}
+    log(f"13 OOM record: recorded {recorded}, dominant "
+        f"{oom.get('dominant_subsystem')}, allocator in use "
+        f"{figures.get('bytes_in_use', 0):,} of "
+        f"{figures.get('bytes_limit', 0):,} B; largest live: "
+        + ", ".join(f"{r['bytes']:,} B {r['shape']} {r['owner']}"
+                    for r in top[:3]) + f" {where}")
+    check(recorded and top and (dev.type != "cuda" or (
+        figures.get("bytes_in_use", 0) > 0
+        and figures.get("bytes_limit", 0) > 0)),
+          "13: the OOM record lacks the allocator's figures or the live "
+          "tensors")
+    free_memory(dev)
+
+
+def _planes_p4(cfg, device, where, data) -> None:
+    """P4 (stage 2 through ``make_train_step``, 145 groups on BERT-Large):
+    the planes on and off in turns, and the host ms a dispatch they cost."""
+    steps = cfg["obs_p4_steps"]
+    hvd.init(device=None if device.type == "cuda" else "cpu")
+    dev = hvd.device()
+    model = BertLarge(**cfg["model"], device=dev, seed=0)
+    params = dict(model.named_parameters())
+    batch = tuple(torch.from_numpy(a).to(dev) for a in data)
+    step, _ = make_step("zero2", model, params, dev, batch)
+    planes(True, dev)
+    step().item()
+    turns = _turns(step, steps, lambda on: planes(on, dev))
+    hvd.shutdown()
+    del model, params, step, batch
+    free_memory(device)
+    on = statistics.mean(ms for ms, _ in turns[True])
+    off = statistics.mean(ms for ms, _ in turns[False])
+    sent = statistics.mean(n for _, n in turns[True] + turns[False])
+    log(f"13 P4 (stage 2, release plan), {steps} steps a turn (on, off, off,"
+        f" on), step ms medians: " + ", ".join(
+            f"{'on' if o else 'off'} {ms:.2f}" for o, (ms, _) in zip(
+                (True, False, False, True),
+                (turns[True][0], turns[False][0], turns[False][1],
+                 turns[True][1])))
+        + f"; {sent:.0f} dispatches a step; on - off {on - off:+.2f} ms a "
+        f"step, {1e3 * (on - off) / max(sent, 1):+.2f} us a dispatch "
+        f"{where}")
 
 
 GROUPS = (  # kernel-name fragments -> group, first match wins
@@ -3596,6 +3916,7 @@ def main() -> int:
     training_api(cfg, device, card, resnet["losses"])
     checkpoint_phase(cfg, device, card)
     elastic_phase(cfg, device, card)
+    observability_phase(cfg, device, card)
     if dry:
         log("DRY RUN complete: control flow rehearsed; no result line")
         return 0

@@ -26,7 +26,12 @@ two-phase checkpoint with neighbour replicas); a damaged checkpoint raises
 ``hvd.CheckpointCorruptError``. ``hvd.elastic`` (``run``, ``State``,
 ``ObjectState``, ``ArrayState``, ``restarts``) re-forms a world that lost a
 worker through the rendezvous store (``horovod_tpu_torch.run``) and
-``hvd.reinit()``, and rolls back in place after an integrity verdict.
+``hvd.reinit()``, and rolls back in place after an integrity verdict. The
+observability planes are modules too: ``hvd.flight_recorder`` (the event
+ring and its dumps, ``hvd.dump_debug_state()``), ``hvd.memory`` (the byte
+ledger against the CUDA allocator), ``hvd.comms`` (each collective's
+bandwidth, timed by CUDA events on the card) and ``hvd.goodput`` (the
+productive share of the wall-clock and its incidents).
 
 Entry points run on the card unless the caller asks for the CPU
 (``hvd.init(device="cpu")``). Nothing here imports JAX or the JAX package.
@@ -44,6 +49,10 @@ from horovod_tpu_torch import callbacks  # noqa: F401
 from horovod_tpu_torch import checkpoint  # noqa: F401
 from horovod_tpu_torch import ckpt  # noqa: F401
 from horovod_tpu_torch import elastic  # noqa: F401
+from horovod_tpu_torch import flight_recorder  # noqa: F401
+from horovod_tpu_torch import memory  # noqa: F401
+from horovod_tpu_torch import comms  # noqa: F401
+from horovod_tpu_torch import goodput  # noqa: F401
 
 from horovod_tpu_torch.core.basics import (  # noqa: F401
     init,
@@ -60,6 +69,8 @@ from horovod_tpu_torch.core.basics import (  # noqa: F401
     mpi_built,
     gloo_built,
     nccl_built,
+    ddl_built,
+    mlsl_built,
     xla_built,
     mpi_enabled,
     mpi_threads_supported,
@@ -101,8 +112,12 @@ from horovod_tpu_torch.ops.collectives import (  # noqa: F401
     Handle,
     SparseHandle,
     grouped_allreduce,
+    grouped_allreduce_async,
 )
-from horovod_tpu_torch.parallel.dp import allreduce_gradients  # noqa: F401
+from horovod_tpu_torch.parallel.dp import (  # noqa: F401
+    allreduce_gradients,
+    DistributedGradientTape,
+)
 from horovod_tpu_torch.ops.flash_attention import (  # noqa: F401
     flash_attention,
     flash_attention_partial,
@@ -131,4 +146,5 @@ from horovod_tpu_torch.exceptions import (  # noqa: F401
     WorkersDownError,
     WorkerStallError,
 )
+from horovod_tpu_torch.flight_recorder import dump_debug_state  # noqa: F401
 from horovod_tpu_torch.version import __version__  # noqa: F401

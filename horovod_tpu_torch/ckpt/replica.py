@@ -14,6 +14,8 @@ The exchange is collective (two allgathers on the port's runtime, named
 the response cache answers them from the second commit), so it runs on the
 training thread, before ``CheckpointManager.commit`` of the same step. The
 store's reads are local. ``HOROVOD_CKPT_REPLICATION=0`` turns it off.
+Clearing a store that held a copy, with a reason, is a
+``ckpt_replica_clear`` flight event.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from horovod_tpu_torch import flight_recorder
 from horovod_tpu_torch.core import basics
 from horovod_tpu_torch.core import state as state_mod
 from horovod_tpu_torch.ops import collectives
@@ -129,3 +132,4 @@ def clear(reason: str = "") -> None:
         _entries, _src_rank, _step = {}, -1, -1
     if had and reason:
         log.debug("ckpt replica store cleared: %s", reason)
+        flight_recorder.emit("ckpt_replica_clear", reason=reason)

@@ -18,6 +18,9 @@ first one whose files check out, rebuilds the full state:
   tried: a torn commit never shadows an intact one. If every cut is
   damaged the last error is raised.
 
+A restore is a ``ckpt_restore`` flight event, and a shard recovered from
+its neighbour's replica ``ckpt_restore_replica``.
+
 The restored trees take the targets' structure and devices: a tensor leaf
 comes back as a tensor on its target's device, a numpy leaf as a numpy
 array, a Python scalar as a Python scalar, a sharded state as a new state
@@ -35,6 +38,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from horovod_tpu_torch import flight_recorder
 from horovod_tpu_torch.ckpt import manifest as mf
 from horovod_tpu_torch.ckpt import stats
 from horovod_tpu_torch.ckpt import tree as tree_mod
@@ -88,6 +92,8 @@ def _read_rank_entries(directory: str, manifest: dict, verify: bool
                     "(%s); recovered from rank %d's replica section", r, exc,
                     left)
         stats.REPLICA_RESTORES.inc()
+        flight_recorder.emit("ckpt_restore_replica", rank=r, source=left,
+                             step=int(manifest["step"]))
         by_rank[r] = rep
     return by_rank
 
@@ -255,5 +261,7 @@ def restore_latest(directory: str, target_trees: Dict[str, Any],
                         "falling back to the previous cut", step, exc)
             continue
         stats.RESTORE_SECONDS.observe(time.monotonic() - t0)
+        flight_recorder.emit("ckpt_restore", step=got, directory=directory,
+                             seconds=round(time.monotonic() - t0, 6))
         return trees, got
     raise last_error  # type: ignore[misc]

@@ -52,6 +52,13 @@ snapshots hold slabs (one being written, one queued) and a third reuses
 the slabs the first gave back.
 ``HOROVOD_CKPT_FAULT=kill:rank=<r>:phase=<stage|barrier|publish>`` kills
 the matching rank at that protocol point.
+
+The observability planes: the inline seconds of ``commit()`` (the
+snapshot's enqueue and the handoff, any wait for the slot included, not
+the write) are the goodput ledger's ``ckpt_stall``; a published commit is
+a ``ckpt_commit`` flight event, an abandoned one ``ckpt_commit_abandoned``,
+and an injected kill ``ckpt_fault_kill`` with a failure dump first; the
+host slabs are the memory ledger's ``ckpt_staging``.
 """
 
 from __future__ import annotations
@@ -63,12 +70,16 @@ import queue
 import sys
 import threading
 import time
+import weakref
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch import flight_recorder
+from horovod_tpu_torch import goodput
+from horovod_tpu_torch import memory
 from horovod_tpu_torch.ckpt import io as ckpt_io
 from horovod_tpu_torch.ckpt import manifest as mf
 from horovod_tpu_torch.ckpt import replica as replica_mod
@@ -217,6 +228,17 @@ def _replica_items(src_rank: int, entries: Dict[str, Any]) -> List[_Item]:
 # Host slabs of the snapshot
 # ---------------------------------------------------------------------------
 
+# every live manager's slabs (weak: a closed manager's slabs just go away)
+_slab_sets: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def staging_bytes() -> int:
+    """Bytes of every live manager's host slabs: the memory ledger's
+    ``ckpt_staging`` (reference: the ``ckpt_staging`` purpose of
+    ``horovod_tpu/runtime/fusion_buffer.py:63-76``)."""
+    return sum(s.bytes for s in list(_slab_sets))
+
+
 class _HostSlabs:
     """Reusable host slabs, one per (size bucket, dtype, pinned) key, as
     ``runtime/fusion_buffer.py`` keys its slabs. A commit leases one slab
@@ -227,6 +249,8 @@ class _HostSlabs:
         self._free: Dict[tuple, List[torch.Tensor]] = {}  # guarded-by: _lock
         self.allocations = 0  # guarded-by: _lock
         self.bytes = 0        # guarded-by: _lock
+        _slab_sets.add(self)
+        memory.tracker().register("ckpt_staging", staging_bytes)
 
     def acquire(self, n: int, dtype: torch.dtype, pinned: bool):
         cap = bucket_elems(n, dtype.itemsize, zero._quantum_bytes())
@@ -369,6 +393,8 @@ class CheckpointManager:
         else:
             self._write_commit(pending)
         stats.SNAPSHOT_SECONDS.observe(time.monotonic() - t0)
+        # only the training thread's inline seconds are checkpoint badput
+        goodput.record_span("ckpt_stall", time.monotonic() - t0)
 
     @staticmethod
     def _check_host(items: List[_Item]) -> list:
@@ -479,6 +505,9 @@ class CheckpointManager:
             return
         log.error("ckpt fault injection: killing rank %d at commit phase %r "
                   "(step %d)", spec.rank, phase, step)
+        flight_recorder.emit("ckpt_fault_kill", phase=phase, step=step,
+                             rank=spec.rank)
+        flight_recorder.dump_on_failure("ckpt_fault_kill")
         sys.stdout.flush()
         sys.stderr.flush()
         os._exit(spec.code)
@@ -539,6 +568,9 @@ class CheckpointManager:
             stats.COMMIT_SECONDS.observe(seconds)
             self.last_commit = {"step": p.step, "bytes": nbytes,
                                 "seconds": seconds}
+            flight_recorder.emit(
+                "ckpt_commit", step=p.step, generation=p.generation,
+                rank=p.rank, bytes=nbytes, seconds=round(seconds, 6))
             return True
         except Exception:
             if tmp is not None:
@@ -611,6 +643,9 @@ class CheckpointManager:
                     "(timeout %.1fs, generation %d); previous manifest stays "
                     "authoritative", p.step, phase, self._barrier_timeout,
                     p.generation)
+        flight_recorder.emit("ckpt_commit_abandoned", step=p.step,
+                             generation=p.generation, rank=p.rank,
+                             phase=phase)
 
     def _publish_manifest(self, store, p: _Pending, own_record) -> bool:
         """Leader side of the publish phase: collect every rank's published

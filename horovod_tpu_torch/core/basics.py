@@ -45,6 +45,15 @@ any time. Without those knobs no thread and no socket exist for metrics.
 and device; ``shutdown()`` closes its open step and writes its dump
 (``HOROVOD_PROFILE_DIR``). Without ``HOROVOD_PROFILE`` or a profile dir it
 records nothing and writes nothing.
+
+``init()`` also configures the four observability planes: the flight
+recorder (its rank, an ``init`` event, and SIGTERM and SIGUSR1 handlers
+from the main thread, chained to the ones before), the memory ledger (this
+device's allocator; its sampler thread runs for a card only), the comms
+observatory and the goodput ledger (whose epoch is the first ``init()``'s
+and stays across ``reinit()``). ``shutdown()`` stops the sampler, emits
+``shutdown``, writes the final dump when ``HOROVOD_FLIGHT_RECORDER_DIR`` or
+a rendezvous store is set, and puts the earlier signal handlers back.
 """
 
 from __future__ import annotations
@@ -57,6 +66,10 @@ from typing import Optional, Union
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch import comms
+from horovod_tpu_torch import flight_recorder
+from horovod_tpu_torch import goodput
+from horovod_tpu_torch import memory
 from horovod_tpu_torch import profiler
 from horovod_tpu_torch.core import state as state_mod
 from horovod_tpu_torch.exceptions import NotInitializedError
@@ -156,7 +169,18 @@ def init(device: Union[str, torch.device, None] = None) -> None:
         if st.config.metrics_port is not None:
             port = metrics_registry().serve(st.config.metrics_port)
             log.debug("metrics endpoint serving on port %d", port)
+        # the flight recorder takes the (possibly re-formed) rank and
+        # hooks SIGTERM and SIGUSR1, so a killed worker leaves a dump
+        flight_recorder.configure(rank=rank)
+        flight_recorder.install_signal_handlers()
+        flight_recorder.emit("init", rank=rank, size=size)
         profiler.configure(rank=rank, device=device, config=st.config)
+        # the memory ledger reads this device's allocator (its sampler
+        # runs for a card), comms and goodput take the rank and world;
+        # goodput's epoch is the first init's, kept across reinit()
+        memory.configure(rank=rank, device=device)
+        comms.configure(rank=rank, world=size)
+        goodput.configure(rank=rank, world=size)
 
 
 def shutdown() -> None:
@@ -178,6 +202,15 @@ def shutdown() -> None:
                 reg.dump(st.config.metrics_dump, rank=st.rank)
             except OSError as exc:
                 log.warning("could not write metrics dump: %s", exc)
+        memory.tracker().stop()
+        flight_recorder.emit("shutdown", rank=st.rank)
+        # a final dump (and its copy to the launcher's store) covers clean
+        # exits too, when a destination is configured
+        rec = flight_recorder.recorder()
+        if rec.enabled and (rec.dir or flight_recorder._rendezvous_addr()
+                            is not None):
+            rec.dump("shutdown")
+        flight_recorder.uninstall_signal_handlers()
         if dist.is_initialized():
             if failed and st.device.type == "cuda":
                 _abort_groups(st)
@@ -289,6 +322,14 @@ def gloo_built() -> bool:
 
 def nccl_built() -> bool:
     return dist.is_nccl_available()
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def mlsl_built() -> bool:
+    return False
 
 
 def xla_built() -> bool:

@@ -13,7 +13,8 @@ driver.py): a thread beside the rendezvous server that
   with a re-form.
 
 It never kills or starts a worker: the workers' re-form owns membership,
-so the job survives losing the driver. The launcher flag that starts it is
+so the job survives losing the driver. Each notice it publishes is an
+``elastic_notice`` flight event in the launcher's ring. The launcher flag that starts it is
 ROADMAP A13's.
 """
 
@@ -26,6 +27,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from horovod_tpu_torch import flight_recorder
 from horovod_tpu_torch.metrics import registry as _metrics
 from horovod_tpu_torch.utils import logging as log
 from horovod_tpu_torch.utils.env import (
@@ -176,6 +178,8 @@ class ElasticDriver:
 
     def _publish_notice(self, notice: str) -> None:
         self._notice_seq += 1
+        flight_recorder.emit("elastic_notice", seq=self._notice_seq,
+                             notice=notice[:200])
         self._rendezvous.put(
             "elastic.notice", "update",
             json.dumps({"seq": self._notice_seq, "notice": notice,

@@ -23,8 +23,8 @@ Process-fault grammar::
 
 :func:`maybe_inject` is the hook; ``elastic.State.commit()`` calls it
 every step. The checkpoint writer's ``HOROVOD_CKPT_FAULT`` names the rank
-it kills by :func:`initial_rank` too. Not ported: the flight recorder's
-events and its dump before a kill (ROADMAP A11).
+it kills by :func:`initial_rank` too. Each fault that fires is a
+``fault_inject`` flight event, and a kill makes a failure dump first.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import sys
 import time
 from typing import Optional
 
+from horovod_tpu_torch import flight_recorder
 from horovod_tpu_torch.metrics import registry as _metrics
 from horovod_tpu_torch.utils import logging as log
 from horovod_tpu_torch.utils.env import HOROVOD_FAULT_INJECT, HOROVOD_RANK
@@ -148,6 +149,8 @@ def _fire(spec: FaultSpec, step: int, rank: int, generation: int) -> None:
             _slow_announced = True
             log.error("fault injection: slowing rank %d by %.3fs per step "
                       "from step %d on", rank, spec.seconds, spec.step)
+        flight_recorder.emit("fault_inject", action="slow", rank=rank,
+                             step=step, seconds=spec.seconds)
         time.sleep(spec.seconds)
         return
     if step != spec.step:
@@ -156,9 +159,16 @@ def _fire(spec: FaultSpec, step: int, rank: int, generation: int) -> None:
     if spec.action == "kill":
         log.error("fault injection: killing rank %d at step %d "
                   "(exit code %d)", rank, step, spec.code)
+        # os._exit skips atexit and the signal handlers: the recorder
+        # dumps here, or the postmortem loses the culprit
+        flight_recorder.emit("fault_inject", action="kill", rank=rank,
+                             step=step, code=spec.code)
+        flight_recorder.dump_on_failure("fault_inject_kill")
         sys.stdout.flush()
         sys.stderr.flush()
         os._exit(spec.code)
     log.error("fault injection: hanging rank %d at step %d for %.0fs",
               rank, step, spec.seconds)
+    flight_recorder.emit("fault_inject", action="hang", rank=rank,
+                         step=step, seconds=spec.seconds)
     time.sleep(spec.seconds)

@@ -37,9 +37,17 @@ function runs again.
 The port's world always forms at ``HOROVOD_COORDINATOR_ADDR``
 (``core/basics.py``), so a re-form always writes the assignment's
 coordinator there (the JAX package writes it only where it was set). The
-JAX package's ``jax.distributed`` teardown has no counterpart. Not ported:
-the flight-recorder events, the goodput incidents and the memory ledger's
-OOM record (ROADMAP A11).
+JAX package's ``jax.distributed`` teardown has no counterpart.
+
+The observability planes: a re-form is an ``elastic_reform`` flight event
+(with the old size and the members, so a postmortem names the rank that
+did not come back) and a goodput incident of cause ``elastic_reform``
+whose seconds run from the quiesce to the end of the sync, with the rank
+that did not rejoin as its culprit and the steps rolled back to the last
+commit as its replay; a lost worker is a ``workers_down`` event and a
+failure dump, a host notice ``hosts_updated``, an integrity verdict a
+failure dump after the rollback, and an OOM in the training function the
+memory ledger's record before it propagates.
 """
 
 from __future__ import annotations
@@ -52,6 +60,9 @@ import threading
 import time
 from typing import Iterator, List, Optional
 
+from horovod_tpu_torch import flight_recorder
+from horovod_tpu_torch import goodput
+from horovod_tpu_torch import memory
 from horovod_tpu_torch import exceptions
 from horovod_tpu_torch.core import basics
 from horovod_tpu_torch.elastic import fault_inject
@@ -363,6 +374,9 @@ def _reform(min_workers: int, backoff: Backoff) -> List[int]:
         _WORKERS_REMOVED.inc(old_size - new_size)
     log.warning("elastic: re-formed generation %d: old rank %d -> new rank "
                 "%d of %d", gen, old_rank, new_rank, new_size)
+    flight_recorder.emit("elastic_reform", generation=gen,
+                         old_rank=old_rank, new_rank=new_rank,
+                         size=new_size, members=members, old_size=old_size)
     basics.reinit(device=device)
     _last_reform.clear()
     _last_reform.update(generation=gen, shutdown=t_shutdown - t0,
@@ -384,7 +398,11 @@ def run(func):
         rollback = False
         while True:
             if rollback is not False:
-                _reform(min_workers, Backoff.from_env())
+                # everything from the quiesce to the end of the sync is
+                # re-form badput; steps rolled back will run again
+                t_reform = time.monotonic()
+                step_before = getattr(state, "step", None)
+                missing = _reform(min_workers, Backoff.from_env())
                 t0 = time.monotonic()
                 if rollback:  # a failure: back to the last commit
                     state.on_reset()
@@ -400,12 +418,24 @@ def run(func):
                 _ckpt_replica.clear("reform")
                 if rollback:
                     _RESTARTS_TOTAL.inc()
+                step_after = getattr(state, "step", None)
+                replay = 0
+                if isinstance(step_before, int) \
+                        and isinstance(step_after, int):
+                    replay = max(0, step_before - step_after)
+                goodput.note_incident(
+                    "elastic_reform", time.monotonic() - t_reform,
+                    generation=_generation,
+                    culprit_rank=missing[0] if missing else None,
+                    replay_steps=replay,
+                    linked_events=["elastic_reform", "workers_down"])
                 rollback = False
             try:
                 return func(state, *args, **kwargs)
             except exceptions.HostsUpdatedInterrupt as exc:
                 log.warning("elastic: %s; re-forming to fold in the new "
                             "host set", exc)
+                flight_recorder.emit("hosts_updated", notice=str(exc)[:200])
                 rollback = None  # re-form without a rollback
             except exceptions.NumericalError as exc:
                 # no worker is down: every rank raised the same verdict
@@ -415,10 +445,29 @@ def run(func):
                 from horovod_tpu_torch.integrity import rollback as _rb
 
                 _rb.handle_failure(state, exc)
+                # after the rollback, so the dump holds its event, which
+                # names the verdict (a quarantine or a spent budget dumps
+                # on its own path)
+                flight_recorder.dump_on_failure("integrity_violation")
                 continue
             except exceptions.WorkersDownError as exc:
                 log.warning("elastic: workers down (%s); attempting "
                             "recovery", exc)
+                flight_recorder.emit(
+                    "workers_down",
+                    ranks=sorted(getattr(exc, "ranks", None) or []),
+                    error=str(exc)[:200])
+                # the runtime has aborted its groups by now: the dump
+                # issues no collective
+                flight_recorder.dump_on_failure(
+                    "worker_stall"
+                    if isinstance(exc, exceptions.WorkerStallError)
+                    else "worker_lost")
                 rollback = True
+            except Exception as exc:
+                # an OOM raised by the training function itself (not
+                # through the executor) still leaves its record
+                memory.maybe_record_oom(exc, where="elastic")
+                raise
 
     return wrapper

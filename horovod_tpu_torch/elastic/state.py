@@ -29,8 +29,13 @@ the current stream; the current stream then waits for the copies, and the
 writer (and a restore) for their event. After the first two snapshots (the
 constructor's and the first commit's) no commit allocates.
 
-Not ported: the flight-recorder events, the goodput ledger and the
-lock witness (ROADMAP A11).
+A commit is a ``state_commit`` flight event and the goodput ledger's
+committed-step boundary (``goodput.record_step``: the gap since the last
+accounted step, less the badput spans inside it, is productive; the
+ledger's frontier keeps a profiled step from counting twice); a restore is
+``state_restore`` and a checkpoint load ``ckpt_state_loaded``.
+
+Not ported: the lock witness (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from horovod_tpu_torch import flight_recorder
+from horovod_tpu_torch import goodput
 from horovod_tpu_torch.ckpt import tree as tree_mod
 from horovod_tpu_torch.core import basics
 from horovod_tpu_torch.elastic import fault_inject
@@ -126,6 +133,10 @@ class State:
         t0 = time.monotonic()
         self._exchange_replicas(step)
         self.save()
+        flight_recorder.emit("state_commit", step=step,
+                             seconds=round(time.monotonic() - t0, 6))
+        # the committed-step boundary of the goodput ledger
+        goodput.record_step(step=step)
         if self._ckpt_dir:
             self._ckpt_commit(step, _runner.restarts())
         elif self._spill_dir:
@@ -163,6 +174,8 @@ class State:
 
     def restore(self) -> None:
         self.restore_snapshot()
+        flight_recorder.emit("state_restore",
+                             step=int(getattr(self, "step", 0)))
 
     def register_reset_callbacks(self, callbacks) -> None:
         """Callables run after a re-form (reference: horovod/common/
@@ -603,4 +616,6 @@ class ArrayState(State):
                 self._write_back(name, tree)
         self.step = int(step)
         self.save()
+        flight_recorder.emit("ckpt_state_loaded", step=int(step),
+                             directory=directory)
         return int(step)

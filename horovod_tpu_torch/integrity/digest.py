@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from horovod_tpu_torch import flight_recorder
 from horovod_tpu_torch import exceptions
 from horovod_tpu_torch.metrics import registry as _metrics
 
@@ -131,6 +132,13 @@ def vote(crcs: Sequence[int]) -> Tuple[bool, Optional[int]]:
     return True, minority[0]
 
 
+def _emit_violation(kind: str, bucket: str, tensor: Optional[str],
+                    suspect: Optional[int], detail: str) -> None:
+    flight_recorder.emit("integrity_violation", violation=kind,
+                         bucket=bucket, tensor=tensor, suspect=suspect,
+                         detail=detail)
+
+
 def verify(records: Sequence[Tuple[int, int]], bucket: str,
            tensor: Optional[str] = None) -> None:
     """The gathered records' verdict. Non-finite inputs outrank checksum
@@ -141,6 +149,8 @@ def verify(records: Sequence[Tuple[int, int]], bucket: str,
     if bad:
         _VIOLATIONS.labels(kind="nonfinite").inc()
         suspect, count = bad[0]
+        _emit_violation("nonfinite", bucket, tensor, suspect,
+                        f"rank {suspect}: {count} NaN/Inf")
         raise exceptions.NumericalError(
             f"non-finite payload entered collective bucket {bucket!r}: "
             f"rank {suspect} contributed {count} NaN/Inf element(s)",
@@ -148,6 +158,8 @@ def verify(records: Sequence[Tuple[int, int]], bucket: str,
     diverged, suspect = vote([crc for _, crc in records])
     if diverged:
         _VIOLATIONS.labels(kind="divergence").inc()
+        _emit_violation("divergence", bucket, tensor, suspect,
+                        "checksums " + ",".join(hex(c) for _, c in records))
         raise exceptions.CollectiveIntegrityError(
             f"collective result diverged across ranks in bucket "
             f"{bucket!r} (checksums {[hex(c) for _, c in records]}); "
@@ -163,6 +175,8 @@ def verify_local(nf_count: int, bucket: str, tensor: Optional[str] = None,
     if nf_count <= 0:
         return
     _VIOLATIONS.labels(kind="nonfinite").inc()
+    _emit_violation("nonfinite", bucket, tensor, suspect_rank,
+                    f"{nf_count} NaN/Inf")
     raise exceptions.NumericalError(
         f"non-finite payload in collective bucket {bucket!r}"
         + (f" from rank {suspect_rank}" if suspect_rank is not None else "")

@@ -15,8 +15,8 @@ same step, with no agreement traffic.
 On the card :func:`guard_gradients` reduces the norm on the gradients'
 device, in float64 as the JAX package accumulates it, and reads it with one
 ``.item()`` a step: one wait for the device a step, only while
-``HOROVOD_INTEGRITY`` is on. The JAX package's flight-recorder spike event
-comes with the flight recorder (ROADMAP A11).
+``HOROVOD_INTEGRITY`` is on. Each spike is an ``integrity_spike`` flight
+event.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from horovod_tpu_torch import exceptions
+from horovod_tpu_torch import flight_recorder
 from horovod_tpu_torch.metrics import registry as _metrics
 from horovod_tpu_torch.utils import logging as log
 from horovod_tpu_torch.utils.env import (HOROVOD_INTEGRITY_SKIP_STEPS,
@@ -83,6 +84,10 @@ class StepGuard:
         if self._is_spike(v):
             self.consecutive_skips += 1
             _SKIPPED.inc()
+            flight_recorder.emit(
+                "integrity_spike", stat=self.name, value=repr(v),
+                mean=self.mean, std=math.sqrt(max(self.var, 0.0)),
+                consecutive=self.consecutive_skips, budget=self.skip_budget)
             log.warning(
                 "integrity guard: %s spike (%r vs mean %.6g std %.3g), "
                 "skipping step (%d/%d consecutive)", self.name, v,

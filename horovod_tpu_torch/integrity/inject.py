@@ -28,6 +28,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from horovod_tpu_torch import flight_recorder
 from horovod_tpu_torch.utils import logging as log
 from horovod_tpu_torch.utils.env import HOROVOD_FAULT_INJECT
 
@@ -161,3 +162,4 @@ def _announce(action: str, rank: int) -> None:
     log.error("fault injection: %s corruption armed for rank %d fires now",
               action, rank)
     fault_inject._FAULTS_INJECTED.inc()
+    flight_recorder.emit("fault_inject", action=action, rank=rank)

@@ -13,16 +13,23 @@ calls the training function again to replay the lost steps.
   corruption's source, exit instead of replaying, so the survivors re-form
   without it (off by default: one flipped bit is usually transient).
 
-Not ported: the flight-recorder events and the goodput incident (ROADMAP
-A11).
+A rollback is a ``rollback`` flight event (its error names the verdict;
+``@elastic.run`` makes a failure dump after it) and a goodput incident of cause ``rollback``
+whose seconds are the restore's and whose replay countdown charges the
+re-run steps (those between the restored step and the failed one, and the
+failed one) to it. A quarantine and a spent budget are flight events with
+a failure dump.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import time
 from typing import Optional
 
+from horovod_tpu_torch import flight_recorder
+from horovod_tpu_torch import goodput
 from horovod_tpu_torch.metrics import registry as _metrics
 from horovod_tpu_torch.utils import logging as log
 from horovod_tpu_torch.utils.env import (HOROVOD_INTEGRITY_QUARANTINE,
@@ -65,6 +72,10 @@ def quarantine_self(exc: Exception) -> None:
     log.error("integrity quarantine: this rank (%s) was voted the "
               "corruption source; exiting so the job re-forms without "
               "it (%s)", getattr(exc, "suspect_rank", "?"), exc)
+    flight_recorder.emit("integrity_quarantine",
+                         suspect=getattr(exc, "suspect_rank", None),
+                         error=str(exc)[:200])
+    flight_recorder.dump_on_failure("integrity_quarantine")
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(1)
@@ -84,9 +95,14 @@ def handle_failure(state, exc: Exception) -> Optional[int]:
     if _replays >= budget:
         log.error("integrity rollback budget exhausted (%d/%d); "
                   "escalating to a supervised restart", _replays, budget)
+        flight_recorder.emit("rollback_budget_exhausted", replays=_replays,
+                             budget=budget, error=str(exc)[:200])
+        flight_recorder.dump_on_failure("rollback_budget_exhausted")
         raise exc
     _replays += 1
     _ROLLBACKS.inc()
+    failing_step = getattr(state, "step", None)
+    t_restore = time.monotonic()
     restored_step = None
     if getattr(state, "_ckpt_dir", None):
         wait = getattr(state, "checkpoint_wait", None)
@@ -98,4 +114,18 @@ def handle_failure(state, exc: Exception) -> Optional[int]:
         restored_step = getattr(state, "step", None)
     log.warning("integrity rollback %d/%d: restored step %s after %s: %s",
                 _replays, budget, restored_step, type(exc).__name__, exc)
+    suspect = getattr(exc, "suspect_rank", None)
+    flight_recorder.emit("rollback", replay=_replays, budget=budget,
+                         restored_step=restored_step, suspect=suspect,
+                         error="%s: %s" % (type(exc).__name__,
+                                           str(exc)[:200]))
+    # the step in flight at the failure runs again too: its first attempt
+    # is lost work even when the restore lands on the last commit
+    replay_steps = 1
+    if isinstance(failing_step, int) and isinstance(restored_step, int):
+        replay_steps = max(0, failing_step - restored_step) + 1
+    goodput.note_incident(
+        "rollback", time.monotonic() - t_restore, culprit_rank=suspect,
+        replay_steps=replay_steps,
+        linked_events=["rollback", "integrity_violation"])
     return restored_step

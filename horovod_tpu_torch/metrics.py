@@ -23,7 +23,8 @@ Consumers (wired in ``core/basics.py`` and ``runtime/runtime.py``):
 * ``hvd.metrics()``: the snapshot, a JSON-serializable nested dict;
 * ``HOROVOD_METRICS_PORT``: Prometheus text over the standard library's
   ``http.server`` on a daemon thread, ``GET /metrics`` (and ``/``,
-  ``/debug/routes``, ``/profile``, ``/healthz``);
+  ``/debug/routes``, ``/debug``, ``/profile``, ``/memory``, ``/comms``,
+  ``/goodput``, ``/healthz``);
 * the timeline's ``"C"`` counter events, one set each cycle;
 * ``HOROVOD_METRICS_DUMP``: this rank's snapshot as JSON at
   ``hvd.shutdown()``; :func:`summarize_dumps` and :func:`format_summary`
@@ -50,9 +51,10 @@ total`` wait for the autotuner (ROADMAP A8);
 ``horovod_executor_program_compiles_total`` and ``_program_cache_hits_
 total`` count compiled XLA programs and ``horovod_executor_pad_bytes_total``
 their bucket padding, none of which the port has (NCCL compiles nothing
-and the port sends no pad). The families of the flight recorder, tracing,
-comms, memory, goodput, serving and elastic planes come with those planes
-(A10-A12).
+and the port sends no pad). The flight recorder's, memory's, comms' and
+goodput's families are in their modules (``flight_recorder.py``,
+``memory.py``, ``comms.py``, ``goodput.py``); the tracing and serving
+planes' come with those planes (A12).
 """
 
 from __future__ import annotations
@@ -81,13 +83,16 @@ CKPT_COMMIT_BUCKETS = (0.001, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
                        10.0, 30.0, 60.0, 120.0, 300.0)
 
 # Every route the HTTP endpoint serves, with a one-line description: the
-# payload of GET / and GET /debug/routes. The JAX package's other routes
-# (/debug, /serve, /memory, /comms, /slo, /goodput) come with the planes
-# that back them.
+# payload of GET / and GET /debug/routes. The JAX package's /serve and /slo
+# come with the planes that back them.
 HTTP_ROUTES: Dict[str, str] = {
     "/metrics": "Prometheus text exposition of every registered family",
+    "/debug": "flight-recorder ring events, in-flight ops, metrics",
     "/debug/routes": "this route index",
     "/profile": "step-profiler phase breakdowns and summary",
+    "/memory": "memory-plane ledger: live bytes, watermarks, drift",
+    "/comms": "collective-transport busbw vs roofline per lane",
+    "/goodput": "goodput ledger: productive vs badput, incidents",
     "/healthz": "readiness gate (200 once init ran)",
 }
 
@@ -311,49 +316,32 @@ class MetricsRegistry:
         reg = self
 
         class Handler(http.server.BaseHTTPRequestHandler):
+            def _send(self, status, kind, body):
+                self.send_response(status)
+                self.send_header("Content-Type", kind)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
             def do_GET(self):  # noqa: N802 (stdlib API)
                 route = self.path.split("?")[0].rstrip("/")
                 if route == "/metrics":
-                    body = reg.prometheus_text().encode()
-                    self.send_response(200)
-                    self.send_header(
-                        "Content-Type",
-                        "text/plain; version=0.0.4; charset=utf-8")
-                    self.send_header("Content-Length", str(len(body)))
-                    self.end_headers()
-                    self.wfile.write(body)
-                elif route in ("", "/debug/routes"):
-                    # route index: which surfaces this endpoint serves,
-                    # so tooling discovers them instead of probing 404s
-                    body = json.dumps(route_index(), default=repr).encode()
-                    self.send_response(200)
-                    self.send_header("Content-Type", "application/json")
-                    self.send_header("Content-Length", str(len(body)))
-                    self.end_headers()
-                    self.wfile.write(body)
-                elif route == "/profile":
-                    # step-profiler state: the last N breakdowns and the
-                    # summary (a rate-limited snapshot, see
-                    # profiler.profile_state)
-                    from horovod_tpu_torch import profiler
-
-                    body = json.dumps(profiler.profile_state(),
-                                      default=repr).encode()
-                    self.send_response(200)
-                    self.send_header("Content-Type", "application/json")
-                    self.send_header("Content-Length", str(len(body)))
-                    self.end_headers()
-                    self.wfile.write(body)
+                    self._send(200,
+                               "text/plain; version=0.0.4; charset=utf-8",
+                               reg.prometheus_text().encode())
                 elif route == "/healthz":
                     # readiness gate for external load balancers: 200
                     # only once hvd.init() ran
                     state = healthz_state()
-                    body = json.dumps(state).encode()
-                    self.send_response(200 if state["ready"] else 503)
-                    self.send_header("Content-Type", "application/json")
-                    self.send_header("Content-Length", str(len(body)))
-                    self.end_headers()
-                    self.wfile.write(body)
+                    self._send(200 if state["ready"] else 503,
+                               "application/json", json.dumps(state).encode())
+                elif route in _JSON_ROUTES:
+                    # the route index, and each plane's document: the
+                    # flight recorder's ring and in-flight ops (/debug),
+                    # the step profiler's breakdowns (/profile), and the
+                    # memory, comms and goodput ledgers
+                    body = json.dumps(_JSON_ROUTES[route](), default=repr)
+                    self._send(200, "application/json", body.encode())
                 else:
                     self.send_error(404)
 
@@ -432,6 +420,29 @@ def _fmt_value(v) -> str:
         return str(v)
     return format(float(v), ".10g")
 
+
+def _plane(module: str, fn: str):
+    """A route's document: ``horovod_tpu_torch.<module>.<fn>()``, imported
+    at the request (the planes import this module)."""
+    def get():
+        import importlib
+
+        return getattr(importlib.import_module(
+            "horovod_tpu_torch." + module), fn)()
+    return get
+
+
+# GET routes answered with a JSON document (the payloads of
+# horovod_tpu/metrics.py:319-414)
+_JSON_ROUTES = {
+    "": route_index,
+    "/debug/routes": route_index,
+    "/debug": _plane("flight_recorder", "debug_state"),
+    "/profile": _plane("profiler", "profile_state"),
+    "/memory": _plane("memory", "memory_state"),
+    "/comms": _plane("comms", "comms_state"),
+    "/goodput": _plane("goodput", "goodput_state"),
+}
 
 _registry = MetricsRegistry()
 

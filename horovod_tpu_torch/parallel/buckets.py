@@ -41,12 +41,21 @@ default, rounded up to the fusion quantum) and
 ``HOROVOD_GRAD_BUCKET_RELEASE`` (``training.make_train_step`` builds a plan
 of its own). Not ported: ``HOROVOD_GRAD_BUCKET_WIRE`` and the traced
 lanes, which exist for the JAX package's single-controller mesh and its
-``jit``/``shard_map`` programs; the comms ledger's records (A11).
+``jit``/``shard_map`` programs; the comms ledger's ``bucket_wire`` lane,
+which belongs to that wire (the collectives are the ``device`` lane's
+records, in the executor).
+
+Each released bucket is an ``op_dispatch`` flight event (phase
+``bucket_release`` or, reduce-scattered, ``grad_release``, with the
+bucket's index and bytes) and each gather an ``op_complete`` with its
+buckets and host seconds; a reduce-scatter plan's shards are the memory
+ledger's ``grad_shards``.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 import weakref
 from contextlib import contextmanager
 from typing import Dict, List, Optional
@@ -54,6 +63,8 @@ from typing import Dict, List, Optional
 import torch
 from torch.utils.weak import WeakTensorKeyDictionary
 
+from horovod_tpu_torch import flight_recorder
+from horovod_tpu_torch import memory
 from horovod_tpu_torch.core import basics
 from horovod_tpu_torch.ops import collectives
 from horovod_tpu_torch.parallel import zero
@@ -287,6 +298,11 @@ class GradReleasePlan:
         with self._wire_lock:
             self._wire_released += len(handles)
         self._released.append((bucket.index, list(zip(leaves, handles))))
+        flight_recorder.emit(
+            "op_dispatch", op="allreduce", phase="bucket_release",
+            bucket=bucket.index, tensors=len(leaves),
+            bytes=sum(values[i].numel() * values[i].element_size()
+                      for i in leaves))
 
     def _release_reduce_scatter(self, bucket: _Bucket, values) -> None:
         """Pack each of the bucket's groups (a leaf with no gradient packs
@@ -294,9 +310,10 @@ class GradReleasePlan:
         the bucket's full gradients."""
         spec = self._ensure_zspec()
         op = collectives.Average if self.average else collectives.Sum
-        pairs = []
+        pairs, nbytes = [], 0
         for gi in self._groups_of_bucket.get(bucket.index, []):
             g = spec.groups[gi]
+            nbytes += g.padded * zero.group_dtype(g).itemsize
             vals = {i: values[i] if i in values else torch.zeros(
                         shape, dtype=zero.group_dtype(g),
                         device=self._params[i].device)
@@ -310,6 +327,9 @@ class GradReleasePlan:
         with self._wire_lock:
             self._wire_released += len(pairs)
         self._rs_released.append((bucket.index, pairs))
+        flight_recorder.emit(
+            "op_dispatch", op="reducescatter", phase="grad_release",
+            bucket=bucket.index, groups=len(pairs), bytes=nbytes)
 
     def _on_wire_complete(self, ok: bool) -> None:
         with self._wire_lock:
@@ -340,12 +360,13 @@ class GradReleasePlan:
             self._pass_idx += 1
             return None
         failure = None
+        t0 = time.monotonic()
         try:
             self._flush()
         except Exception as exc:
             failure = exc
-        pairs = [p for _, ps in self._released + self._rs_released
-                 for p in ps]
+        released = self._released + self._rs_released
+        pairs = [p for _, ps in released for p in ps]
         outs = {}
         for key, h in pairs:
             try:
@@ -353,15 +374,20 @@ class GradReleasePlan:
             except Exception as exc:  # wait for the rest first
                 failure = failure or exc
         self._reset_step()
+        flight_recorder.emit(
+            "op_complete", phase="bucket_gather", buckets=len(released),
+            ok=failure is None, seconds=round(time.monotonic() - t0, 6))
         if failure is not None:
             raise failure
         if self.reduce_scatter:
             spec = self._ensure_zspec()
-            return zero.ShardedGrads(spec, tuple(
+            shards = tuple(
                 outs[gi] if gi in outs else torch.zeros(
                     g.shard_elems, dtype=zero.group_dtype(g),
                     device=basics.device())
-                for gi, g in enumerate(spec.groups)))
+                for gi, g in enumerate(spec.groups))
+            memory.tracker().note_tree_bytes("grad_shards", list(shards))
+            return zero.ShardedGrads(spec, shards)
         grads = [p.grad for p in self._params]
         return (dict(zip(self._keys, grads)) if self._keys is not None
                 else grads)

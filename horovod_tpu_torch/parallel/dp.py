@@ -18,8 +18,9 @@ leave it alone, so no gradient goes out twice.
 ``shard_optimizer_states=True`` returns the ZeRO wrapper
 (``parallel/zero.py`` ``sharded_update``) in place of the hooks.
 
-``step()`` carries the JAX update's two hooks (``horovod_tpu/parallel/
-dp.py:214-254``): a step-profiler boundary (``profiler.auto_step()``)
+``step()`` carries the JAX update's hooks (``horovod_tpu/parallel/
+dp.py:214-254``): the memory ledger's ``params`` and ``grads`` bytes, a
+step-profiler boundary (``profiler.auto_step()``)
 before the exchange is awaited, the inner step inside
 ``profiler.annotate("optimizer")``, and, under ``HOROVOD_INTEGRITY``, the
 step guard over the averaged gradients' global norm: a flagged step is
@@ -38,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from horovod_tpu_torch import integrity, profiler
+from horovod_tpu_torch import integrity, memory, profiler
 from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.core import basics
 from horovod_tpu_torch.ops import collectives
@@ -84,6 +85,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._delay = {}
         self._handles = {}
         self._requires_update = []
+        self._param_bytes = None  # the memory ledger's, once: sizes stay
         self._synchronized = False
         self._should_synchronize = True
         for group in self.param_groups:
@@ -169,6 +171,18 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                     "are allreduced a second time")
             self.synchronize()
         self._synchronized = False
+        mem = memory.tracker()
+        if mem.enabled:
+            # the memory ledger's params (each storage once, counted at the
+            # first step) and grads (sizes only: a gradient is a tensor of
+            # its own)
+            params = self._requires_update
+            if self._param_bytes is None:
+                self._param_bytes = memory.tree_bytes(params)
+            mem.set_bytes("params", self._param_bytes)
+            mem.set_bytes("grads", sum(memory.tensor_bytes(p.grad)
+                                       for p in params
+                                       if p.grad is not None))
         if integrity.enabled() and not integrity.guards.guard_gradients(
                 [p.grad for p in self._requires_update]):
             # every rank observes the same averaged norm, so every rank
@@ -249,6 +263,46 @@ def allreduce_gradients(grads, *, average: bool = True,
                                         name=name,
                                         compression=compression)
     return dict(zip(keys, out)) if keys is not None else out
+
+
+def DistributedGradientTape(grad_fn, *, compression=Compression.none,
+                            average: bool = True, returns: str = "grads",
+                            name: str = "gradient_tape"):
+    """Wrap a function that returns gradients so that they come back
+    allreduced (port of ``horovod_tpu/parallel/dp.py:275-317``; reference:
+    ``hvd.DistributedGradientTape``, horovod/tensorflow/__init__.py:
+    323-376). PyTorch has no tape either: the counterpart of a wrapped
+    ``tf.GradientTape`` is a wrapped gradient function, such as one of
+    ``torch.func.grad`` or ``torch.func.grad_and_value`` (a dict of
+    gradients, or a list). ``returns`` says what the function returns:
+
+    * ``"grads"``: the gradients (``torch.func.grad(f)``);
+    * ``"value_and_grads"``: ``(value, grads)``;
+    * ``"grads_and_aux"``: ``(grads, aux)``
+      (``torch.func.grad(f, has_aux=True)``, and
+      ``torch.func.grad_and_value(f)``, whose value passes as the aux).
+
+    The gradients go through :func:`allreduce_gradients` under ``name``."""
+    if returns not in ("grads", "value_and_grads", "grads_and_aux"):
+        raise ValueError(
+            "returns must be 'grads', 'value_and_grads' or 'grads_and_aux', "
+            f"got {returns!r}")
+
+    def reduce(grads):
+        return allreduce_gradients(grads, average=average,
+                                   compression=compression, name=name)
+
+    def wrapped(*args, **kwargs):
+        out = grad_fn(*args, **kwargs)
+        if returns == "value_and_grads":
+            value, grads = out
+            return value, reduce(grads)
+        if returns == "grads_and_aux":
+            grads, aux = out
+            return reduce(grads), aux
+        return reduce(out)
+
+    return wrapped
 
 
 def broadcast_parameters(params, root_rank: int = 0) -> None:

@@ -56,11 +56,28 @@ and :func:`from_full_buffers`, which re-slices full flat buffers read from
 shard files under another world size, for all four kinds (the JAX
 package's ``zero.py:1595-1732``).
 
+The observability planes (the JAX package's hooks): each group's
+reduce-scatter or allgather is an ``op_dispatch`` and ``op_complete``
+flight event with its phase (``grad_scatter``, ``sharded_grads``,
+``sharded_updates``, ``sharded_params``, ``param_gather``), shard, group
+and bytes, and a record of the comms observatory's ``zero`` lane with its
+exact payload bytes (the padded group): on the card its seconds are the
+device's, from an ``enable_timing`` CUDA event pair on the caller's stream
+(recorded at the dispatch and after the wait, less any part before the
+previous group's end), read once the card has passed it; on the CPU the
+host's. The memory ledger holds ``optimizer_shards`` (the flat AdamW
+master and moments, or the inner optimizer's state), ``grad_shards`` and
+``param_shards``, and adopts the optimizer's shard tensors (a re-slice or
+a re-sync adopts the new ones in their place); the optimizer's state is
+noted when it is made (the flat AdamW state at ``init``, a torch
+optimizer's at its first step), since the updates write it in place. A stage-3 gather's stall is
+the goodput ledger's ``exposed_comm``; ``zero_shard_params``,
+``sharded_resync`` and ``sharded_resync_replica`` are flight events.
+
 Not ported: the traced (``shard_map``) and single-controller stacked
-lanes, which a one-process-a-GPU world has no counterpart of; ``resync``
-(with the elastic layer, ROADMAP A1/A10); the metrics, memory-ledger,
-comms and flight-recorder hooks (A11). The stage-3 gather's stall and
-hidden seconds are plain counters here (:data:`GATHER_SECONDS`).
+lanes, which a one-process-a-GPU world has no counterpart of; the
+metrics families. The stage-3 gather's stall and hidden seconds are plain
+counters here (:data:`GATHER_SECONDS`).
 """
 
 from __future__ import annotations
@@ -70,6 +87,10 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
+from horovod_tpu_torch import comms
+from horovod_tpu_torch import flight_recorder
+from horovod_tpu_torch import goodput
+from horovod_tpu_torch import memory
 from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.core import basics
 from horovod_tpu_torch.ops import collectives
@@ -249,6 +270,64 @@ def _check_count(leaves, spec: ZeroSpec, what: str = "gradient") -> None:
             f"was built for {spec.num_leaves}")
 
 
+# the flight recorder's phase of each collective name prefix
+_PHASES = {"zero2.grads": "grad_scatter",
+           "sharded.grads": "sharded_grads",
+           "sharded.adamw.grads": "sharded_grads",
+           "sharded.params": "sharded_updates",
+           "sharded.adamw.params": "sharded_params",
+           "zero3.params": "param_gather"}
+
+
+class _Phase:
+    """One group's collective of a ZeRO phase, for the observability
+    planes: ``op_dispatch`` now, and at :meth:`done` ``op_complete`` and
+    the ``zero``-lane comms record. On the card (comms on) its seconds
+    come from ``enable_timing`` CUDA events on the caller's stream, the
+    one recorded here and one after the wait (which ordered the stream
+    after the collective); on the CPU from the host's clock."""
+
+    __slots__ = ("op", "phase", "shard", "group", "nbytes", "world",
+                 "device", "t0", "start")
+
+    def __init__(self, op: str, prefix: str, spec: ZeroSpec, gi: int,
+                 nbytes: int, device: torch.device):
+        self.op, self.phase = op, _PHASES[prefix]
+        self.shard, self.group = int(spec.rank), gi
+        self.nbytes, self.world = int(nbytes), spec.world
+        self.device = device
+        flight_recorder.emit("op_dispatch", op=op, phase=self.phase,
+                             shard=self.shard, group=gi, bytes=self.nbytes)
+        self.t0 = time.monotonic()
+        self.start = _stamp(device)
+
+    def done(self, after=None):
+        """The collective's wait returned; returns the end stamp (None on
+        the CPU), which bounds the next group's start."""
+        seconds = time.monotonic() - self.t0
+        flight_recorder.emit("op_complete", op=self.op, phase=self.phase,
+                             shard=self.shard, group=self.group,
+                             seconds=round(seconds, 6))
+        if self.start is None:
+            comms.record(self.op, "zero", self.nbytes, max(seconds, 1e-9),
+                         world=self.world)
+            return None
+        end = _stamp(self.device)
+        if end is not None:
+            comms.record_span(self.op, "zero", self.nbytes,
+                              comms.span(self.start, end, after),
+                              world=self.world)
+        return end
+
+
+def _stamp(device: torch.device):
+    """A timing stamp on ``device``'s current stream, recorded now; None on
+    the CPU or with the comms plane off."""
+    if device.type != "cuda":
+        return None
+    return comms.stamp(torch.cuda.current_stream(device))
+
+
 def _scatter(leaves, spec: ZeroSpec, average: bool, compression,
              prefix: str) -> list:
     """Reduce-scatter each group's packed flat gradient (every group in
@@ -258,20 +337,50 @@ def _scatter(leaves, spec: ZeroSpec, average: bool, compression,
     pending = []
     for gi, g in enumerate(spec.groups):
         wire, ctx = compression.compress(_pack_group(leaves, g))
-        pending.append((ctx, collectives.reducescatter_async(
+        ph = _Phase("reducescatter", prefix, spec, gi,
+                    wire.numel() * wire.element_size(), wire.device)
+        pending.append((ctx, ph, collectives.reducescatter_async(
             wire, op=op, name=f"{prefix}.g{gi}")))
-    return [compression.decompress(collectives.synchronize(h), ctx)
-            .to(group_dtype(g))
-            for g, (ctx, h) in zip(spec.groups, pending)]
+    out, end = [], None
+    for g, (ctx, ph, h) in zip(spec.groups, pending):
+        shard = collectives.synchronize(h)
+        end = ph.done(after=end)
+        out.append(compression.decompress(shard, ctx).to(group_dtype(g)))
+    return out
 
 
 def _gather_into(shards, spec: ZeroSpec, out: list, prefix: str) -> None:
     """Allgather every group's shard (all in flight before the first wait)
     under ``<prefix>.g<i>`` and write the gathered leaves into ``out``."""
-    handles = [collectives.allgather_async(s, name=f"{prefix}.g{gi}")
+    handles = [(_Phase("allgather", prefix, spec, gi,
+                       s.numel() * s.element_size() * spec.world, s.device),
+                collectives.allgather_async(s, name=f"{prefix}.g{gi}"))
                for gi, s in enumerate(shards)]
-    for g, h in zip(spec.groups, handles):
-        _unpack_group(collectives.synchronize(h), g, out)
+    end = None
+    for g, (ph, h) in zip(spec.groups, handles):
+        full = collectives.synchronize(h)
+        end = ph.done(after=end)
+        _unpack_group(full, g, out)
+
+
+def _note_optimizer_shards(state) -> None:
+    """The memory ledger's ``optimizer_shards``: the flat AdamW master and
+    moments, or the inner optimizer's state over the shards (each storage
+    once); the tensors are adopted in place of the earlier ones."""
+    t = memory.tracker()
+    if not t.enabled:
+        return
+    if isinstance(state, FlatAdamState):
+        tree = (state.master, state.mu, state.nu)
+    else:
+        tree = [dict(v) for v in state.inner.state.values()]
+    t.note_tree_bytes("optimizer_shards", tree)
+    t.adopt("optimizer_shards", tree, replace=True)
+
+
+def _note_shards(subsystem: str, shards) -> None:
+    """The memory ledger's ``grad_shards`` or ``param_shards``."""
+    memory.tracker().note_tree_bytes(subsystem, list(shards))
 
 
 # ---------------------------------------------------------------------------
@@ -321,8 +430,10 @@ def scatter_gradients(grads, *, spec: Optional[ZeroSpec] = None,
         raise ValueError(
             f"gradient tree has {len(leaves)} leaves but the spec was "
             f"built for {spec.num_leaves}")
-    return ShardedGrads(spec, tuple(_scatter(leaves, spec, average,
-                                             compression, "zero2.grads")))
+    shards = tuple(_scatter(leaves, spec, average, compression,
+                            "zero2.grads"))
+    _note_shards("grad_shards", shards)
+    return ShardedGrads(spec, shards)
 
 
 # ---------------------------------------------------------------------------
@@ -354,9 +465,13 @@ def shard_params(params, *, partition=None) -> ShardedParams:
     names, leaves = _leaves_of(params)
     _check_dense(leaves)
     spec = _local_spec(leaves, partition)
-    return ShardedParams(spec, names, (
+    sp = ShardedParams(spec, names, (
         _shard_of(_pack_group(leaves, g), g, spec.rank)
         for g in spec.groups))
+    _note_shards("param_shards", sp.shards)
+    flight_recorder.emit("zero_shard_params", rank=int(spec.rank),
+                         world=int(spec.world), groups=len(spec.groups))
+    return sp
 
 
 def gather_hidden_fraction() -> float:
@@ -381,20 +496,25 @@ def _iter_group_gathers(sp: ShardedParams, prefetch=None):
     pending: dict = {}
 
     def dispatch(gi):
+        s = sp.shards[gi]
+        ph = _Phase("allgather", "zero3.params", spec, gi,
+                    s.numel() * s.element_size() * spec.world, s.device)
         pending[gi] = (collectives.allgather_async(
-            sp.shards[gi], name=f"zero3.params.g{gi}"), time.monotonic())
+            s, name=f"zero3.params.g{gi}"), time.monotonic(), ph)
 
     nxt = 0
     stall = hidden = 0.0
+    end = None
     try:
         while nxt < min(window, n):
             dispatch(nxt)
             nxt += 1
         for gi in range(n):
-            h, t_disp = pending.pop(gi)
+            h, t_disp, ph = pending.pop(gi)
             t_wait = time.monotonic()
             full = collectives.synchronize(h)
             t_done = time.monotonic()
+            end = ph.done(after=end)
             if nxt < n:
                 dispatch(nxt)
                 nxt += 1
@@ -402,10 +522,14 @@ def _iter_group_gathers(sp: ShardedParams, prefetch=None):
             hidden += max(0.0, t_wait - t_disp)
             yield gi, full
     finally:
-        for h, _ in pending.values():
+        for h, _, _ in pending.values():
             collectives.synchronize(h)
         GATHER_SECONDS["stall"] += stall
         GATHER_SECONDS["hidden"] += hidden
+        if stall > 0:
+            # the step was ready and waited on the wire: exposed
+            # communication, not input idleness
+            goodput.record_span("exposed_comm", stall)
 
 
 def gather_params(sp: ShardedParams, *, prefetch=None):
@@ -494,13 +618,16 @@ class ShardedOptimizer:
         of this rank's shards), or :class:`ShardedParams` (it steps their
         shard tensors themselves)."""
         if isinstance(params, ShardedParams):
-            return ShardedOptState(params.spec, self._inner(params.shards))
-        _, leaves = _leaves_of(params)
-        _check_dense(leaves)
-        spec = _local_spec(leaves, self._partition)
-        return ShardedOptState(spec, self._inner(
-            _shard_of(_pack_group(leaves, g), g, spec.rank)
-            for g in spec.groups))
+            state = ShardedOptState(params.spec, self._inner(params.shards))
+        else:
+            _, leaves = _leaves_of(params)
+            _check_dense(leaves)
+            spec = _local_spec(leaves, self._partition)
+            state = ShardedOptState(spec, self._inner(
+                _shard_of(_pack_group(leaves, g), g, spec.rank)
+                for g in spec.groups))
+        _note_optimizer_shards(state)
+        return state
 
     @torch.no_grad()
     def update(self, grads, state: ShardedOptState, params):
@@ -532,9 +659,12 @@ class ShardedOptimizer:
         shards = state.inner.param_groups[0]["params"]
         for s, g in zip(shards, gshards):
             s.grad = g
+        first = not state.inner.state  # torch optimizers make it lazily
         state.inner.step()
         for s in shards:
             s.grad = None
+        if first:
+            _note_optimizer_shards(state)
         if isinstance(params, ShardedParams):
             _check_shard_spec(params.spec, spec,
                               "ShardedParams (stage-3 params)")
@@ -667,10 +797,12 @@ def sharded_adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
                 _shard_of(_pack_group(leaves, g), g, spec.rank)
                 .to(torch.float32)
                 for g in spec.groups)
-        return FlatAdamState(
+        state = FlatAdamState(
             spec=spec, count=0, master=master,
             mu=tuple(torch.zeros_like(w) for w in master),
             nu=tuple(torch.zeros_like(w) for w in master))
+        _note_optimizer_shards(state)
+        return state
 
     @torch.no_grad()
     def apply(params, state: FlatAdamState, grads):
@@ -709,6 +841,7 @@ def sharded_adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         new_state = FlatAdamState(spec, count, state.master, state.mu,
                                   state.nu)
         if sharded_out:
+            _note_shards("param_shards", ps)
             return ShardedParams(spec, params.names, ps), new_state
         _gather_into(ps, spec, list(params.values()),
                      "sharded.adamw.params")
@@ -834,7 +967,8 @@ def from_full_buffers(target, full: dict, old_groups):
     in the new world); ``full`` is :func:`export_shard_arrays`' dict with
     full ``(old_padded,)`` buffers (the generic kind also its
     ``state_keys``); ``old_groups`` is the manifest's ``groups``. Returns
-    a new state; ``target`` is left as it was."""
+    a new state; ``target`` is left as it was. The memory ledger takes the
+    new state's shards in place of the old ones."""
     spec = target.spec
     if len(old_groups) != len(spec.groups):
         raise ValueError(
@@ -848,14 +982,18 @@ def from_full_buffers(target, full: dict, old_groups):
                           for gi, g in enumerate(spec.groups))
                  for c in ("master", "mu", "nu")}
         count = int(torch.as_tensor(full["count"]).reshape(-1)[0])
-        return FlatAdamState(spec=spec, count=count, **comps)
+        state = FlatAdamState(spec=spec, count=count, **comps)
+        _note_optimizer_shards(state)
+        return state
     if isinstance(target, (ShardedParams, ShardedGrads)):
         dev = _device_of(target.shards)
         shards = tuple(_slice_new_shard(full["leaves"][gi], old_n[gi], g,
                                         spec.rank, group_dtype(g), dev)
                        for gi, g in enumerate(spec.groups))
         if isinstance(target, ShardedParams):
+            _note_shards("param_shards", shards)
             return ShardedParams(spec, target.names, shards)
+        _note_shards("grad_shards", shards)
         return ShardedGrads(spec, shards)
     keys = full.get("state_keys")
     if keys is None or len(keys) != len(spec.groups):
@@ -879,7 +1017,9 @@ def from_full_buffers(target, full: dict, old_groups):
     sd = inner.state_dict()
     inner.load_state_dict({"state": state,
                            "param_groups": sd["param_groups"]})
-    return ShardedOptState(spec=spec, inner=inner)
+    state = ShardedOptState(spec=spec, inner=inner)
+    _note_optimizer_shards(state)
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -998,6 +1138,8 @@ def resync(state, params=None, root_rank: int = 0, replica=None):
         raise ValueError(
             "elastic resync: parameter structure changed across the "
             "re-form (dtype group count mismatch)")
+    flight_recorder.emit("sharded_resync", old_world=int(old_world),
+                         new_world=int(st.size), rank=int(st.rank))
     rep_rank, rep_entries = -1, None
     if replica is not None:
         rep_rank, rep_entries = replica
@@ -1086,4 +1228,8 @@ def resync(state, params=None, root_rank: int = 0, replica=None):
         from horovod_tpu_torch.ckpt import stats as ckpt_stats
 
         ckpt_stats.REPLICA_RESTORES.inc(len(restored))
+        flight_recorder.emit(
+            "sharded_resync_replica",
+            restored_old_ranks=sorted({r for _t, r in restored}),
+            segments=len(restored), rank=int(st.rank))
     return new_state

@@ -52,11 +52,18 @@ the directory. Where the JAX package only warns when its trace cannot
 start, the port raises: a trace that was asked for and is missing would
 pass unseen.
 
-Not ported: the flight-recorder state provider and events, the goodput
-ledger's step hook and the memory plane's watermark and samples (ROADMAP
-A11), and the copy shipped to the launcher's rendezvous store (A13). The
-dump keeps their keys, empty, and :func:`merge_profile_dir` keeps their
-readers, so a merge of the same files gives the JAX package's output.
+The observability planes ride along as in the JAX package: each step
+emits a ``profiler_step`` flight event and gives its wall time to the
+goodput ledger (``goodput.record_step``, its exposed-comm phase as badput;
+the ledger's frontier guard keeps it from counting a step that
+``elastic.State.commit`` counted too); the recent breakdowns are the
+flight recorder's ``profiler`` state; and the dump carries the memory
+sampler's, the comms tracker's and the goodput ledger's trails, the
+incidents and the last flight events, which :func:`merge_profile_dir`
+lays out as counter tracks and instant lanes. ``peak_hbm_bytes`` is the
+memory ledger's device peak on the card (the same allocator figure).
+
+Not ported: the copy shipped to the launcher's rendezvous store (A13).
 """
 
 from __future__ import annotations
@@ -73,6 +80,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from horovod_tpu_torch import comms
+from horovod_tpu_torch import flight_recorder
+from horovod_tpu_torch import goodput
+from horovod_tpu_torch import memory
 from horovod_tpu_torch import timeline as timeline_mod
 from horovod_tpu_torch.core import state as state_mod
 from horovod_tpu_torch.metrics import registry as _metrics
@@ -82,6 +93,8 @@ from horovod_tpu_torch.utils import env
 from horovod_tpu_torch.utils import logging as log
 
 SCHEMA = "horovod-profiler-v1"
+# the last flight events a dump carries for the merged trace
+_FLIGHT_TRACE_EVENTS = 200
 DUMP_PREFIX = "profile-rank-"
 MERGED_TRACE = "merged-trace.json"
 DEVICE_TRACE = "device.trace.json"
@@ -192,6 +205,8 @@ class StepProfiler:
             self.rank = rank
         if device is not None:
             self.device = torch.device(device)
+        flight_recorder.set_state_provider(
+            "profiler", self._debug_state if self.enabled else None)
         if self.enabled and self.dir and cfg.profile_jax:
             self._start_device_trace()
 
@@ -402,6 +417,21 @@ class StepProfiler:
             "args": {"phases_ms": {k: round(v * 1e3, 3)
                                    for k, v in phases.items()},
                      "comm_hidden_fraction": round(hidden_fraction, 4)}})
+        flight_recorder.emit(
+            "profiler_step", step=rec.index,
+            wall_ms=round(wall * 1e3, 3),
+            hidden_fraction=round(hidden_fraction, 4))
+        # the measured wall is productive time, the exposed-comm phase
+        # badput; the ledger's frontier guard dedups against State.commit
+        goodput.record_step(wall, exposed_comm=exposed_phase,
+                            step=rec.index)
+
+    def _debug_state(self) -> dict:
+        """The flight recorder's ``profiler`` state: the recent
+        breakdowns ride in every postmortem dump."""
+        return {"flops_per_step": self._flops_per_step,
+                "peak_flops_per_chip": self._peak_flops,
+                "steps": list(self._steps)}
 
     # -- introspection ------------------------------------------------------
     def history(self) -> List[dict]:
@@ -463,19 +493,18 @@ class StepProfiler:
             "pid": os.getpid(),
             "host": socket.gethostname(),
             "wall_time": time.time(),
-            # the launcher's clock-offset estimate comes with the flight
-            # recorder (A11): one host, one clock
-            "clock_offset_seconds": 0.0,
+            "clock_offset_seconds": flight_recorder.recorder().clock_offset(),
             "flops_per_step": self._flops_per_step,
             "peak_flops_per_chip": self._peak_flops,
             "steps": list(self._steps),
             "trace_events": list(self._trace_events),
-            "memory_samples": [],
+            "memory_samples": memory.tracker().samples(),
             "request_spans": [],
-            "comms_samples": [],
-            "goodput_samples": [],
-            "goodput_incidents": [],
-            "flight_events": [],
+            "comms_samples": comms.tracker().samples(),
+            "goodput_samples": goodput.tracker().samples(),
+            "goodput_incidents": goodput.tracker().incidents(),
+            "flight_events": flight_recorder.recorder().events()
+            [-_FLIGHT_TRACE_EVENTS:],
         }
 
     def dump(self, path: Optional[str] = None) -> dict:

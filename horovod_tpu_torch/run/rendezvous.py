@@ -22,8 +22,8 @@ The server answers 503 inside an injected ``kv_outage`` window
 (``HOROVOD_FAULT_INJECT``, ``utils/resilience.py``); every client op runs
 under a :class:`~horovod_tpu_torch.utils.resilience.RetryPolicy` with a
 socket timeout, and ``get``'s retries are bounded by the op's own
-deadline. Not ported: the comms plane's accounting of the KV lane
-(ROADMAP A11).
+deadline. Each client round trip is a record of the comms observatory's
+``kv`` lane (the response's bytes over the host's wall time).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from urllib.error import HTTPError
 from urllib.parse import parse_qs, urlsplit
 from urllib.request import Request, urlopen
 
+from horovod_tpu_torch import comms
 from horovod_tpu_torch.utils import resilience
 from horovod_tpu_torch.utils.env import (
     HOROVOD_FAULT_INJECT, HOROVOD_RENDEZVOUS_HEARTBEAT_TTL,
@@ -340,8 +341,14 @@ class KVStoreClient:
 
     def _open(self, url_or_req, timeout: float, phase: str) -> bytes:
         resilience.inject("kv", phase)
+        t0 = time.monotonic()
         with urlopen(url_or_req, timeout=timeout) as resp:
-            return resp.read()
+            body = resp.read()
+        # the kv lane: a control-plane round trip is tiny, but its
+        # bandwidth's collapse is the first sign of a sick network (the
+        # response's bytes over the request's host wall time)
+        comms.record(phase, "kv", len(body), time.monotonic() - t0)
+        return body
 
     def set(self, key: str, value: bytes, scope: Optional[str] = None) -> None:
         req = Request(self._url(key, scope), data=value, method="PUT")

@@ -25,7 +25,10 @@ naming the ranks that never announced, kept on :attr:`Controller.failure`
 takes every peer out of its loop in the same cycle. The stall inspector's
 elastic verdict lands there too. The response cache and the bin-packing
 run on the engine ``HOROVOD_NATIVE_CYCLE`` picks (the C++ one by default).
-Not ported: the flight-recorder events (ROADMAP A11).
+The flight recorder gets the JAX package's events: ``cache_invalidate``,
+the coordinator's ``negotiate_begin``, ``rank_request`` and
+``negotiate_end`` (with the arrival skew), and ``collective_timeout`` with
+a failure dump.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional, Tuple
 
+from horovod_tpu_torch import flight_recorder
 from horovod_tpu_torch.runtime import fusion
 from horovod_tpu_torch.runtime import message as msg
 from horovod_tpu_torch.runtime import types
@@ -314,6 +318,8 @@ class Controller:
                     self._invalidate_queue.append(name)
                     coordinator.set_invalid_in_queue()
                     self._deferred_first_seen.pop(name, None)
+                    flight_recorder.emit("cache_invalidate", name=name,
+                                         stale=stale)
                 coordinator.set_uncached_in_queue()
                 uncached_to_send.append(r)
 
@@ -376,12 +382,20 @@ class Controller:
                             if r.tensor_name not in invalidate_names:
                                 invalidate_names.append(r.tensor_name)
                             continue
+                        fresh = (r.tensor_name
+                                 not in self.message_table.pending())
                         if timeline is not None:
-                            if r.tensor_name not in self.message_table.pending():
+                            if fresh:
                                 timeline.negotiate_start(r.tensor_name,
                                                          r.request_type)
                             timeline.negotiate_rank_ready(r.tensor_name,
                                                           r.rank)
+                        if fresh:
+                            flight_recorder.emit("negotiate_begin",
+                                                 name=r.tensor_name,
+                                                 type=r.request_type)
+                        flight_recorder.emit("rank_request",
+                                             name=r.tensor_name, rank=r.rank)
                         if self.message_table.increment(r, self.world):
                             ready_names.append(r.tensor_name)
                 negotiated: List[msg.Response] = []
@@ -389,9 +403,14 @@ class Controller:
                     arrivals = self.message_table.arrivals(name)
                     if self.straggler is not None and arrivals:
                         self.straggler.observe(name, arrivals)
+                    skew = (round(max(arrivals.values())
+                                  - min(arrivals.values()), 6)
+                            if arrivals else 0.0)
                     reqs = self.message_table.pop(name)
                     if timeline is not None:
                         timeline.negotiate_end(name)
+                    flight_recorder.emit("negotiate_end", name=name,
+                                         skew=skew)
                     negotiated.append(construct_response(reqs))
                 final = []
                 if invalidate_names:
@@ -456,6 +475,9 @@ class Controller:
             f"generation {gen}; ranks never announced: {ranks}",
             ranks=ranks)
         log.error("%s", exc)
+        flight_recorder.emit("collective_timeout", tensors=len(overdue),
+                             missing=ranks, generation=gen)
+        flight_recorder.dump_on_failure("collective_timeout")
         self.failure = exc
         self.request_shutdown()
 

@@ -54,8 +54,22 @@ waiting handle lifts. The ``nan`` and ``bitflip`` faults of
 ``integrity/inject.py`` fire here. A collective that fails because a peer
 went away records a ``WorkerLostError`` on :attr:`Executor.failure`.
 
-Not ported yet: the hierarchy, the comms plane's bandwidth tracker and
-the flight recorder (ROADMAP A8, A11).
+The observability planes: each dispatch, completion and failure is a
+flight-recorder event (``op_dispatch``, ``op_complete``, ``op_fail``) and a
+failure that is an OOM becomes the memory ledger's record
+(``memory.maybe_record_oom``). Each collective is a record of the comms
+observatory's ``device`` lane, once: on the CPU with its host time from
+dispatch to completion, as in the JAX package; on the card with the
+device's time, from an ``enable_timing`` CUDA event pair recorded on the
+comm stream before the collective's call and after its ``wait``
+(``comms.stamp``; a collective queued behind the previous one is timed
+from that one's end, ``comms.span``). The pair rides the bin's held entry
+and is read when the device has passed the bin's ``done`` event: in
+``_mark_done``'s sweep of the held queue, or at ``close``. The cycle
+thread never synchronizes for it, and with ``HOROVOD_COMMS=0`` no timing
+event is recorded.
+
+Not ported yet: the hierarchy (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -69,8 +83,11 @@ from typing import Callable, List, NamedTuple, Optional
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch import comms
 from horovod_tpu_torch import exceptions
+from horovod_tpu_torch import flight_recorder
 from horovod_tpu_torch import integrity
+from horovod_tpu_torch import memory
 from horovod_tpu_torch import timeline as timeline_mod
 from horovod_tpu_torch.integrity import digest as integ_digest
 from horovod_tpu_torch.integrity import inject as integ_inject
@@ -196,7 +213,7 @@ class _PendingOp:
 
     __slots__ = ("executor", "op", "entries", "timeline", "name0", "finish",
                  "done", "lease", "nbytes", "t0", "t_disp_end",
-                 "t_drain_start")
+                 "t_drain_start", "lane")
 
     def __init__(self, executor: "Executor", op: str, entries, timeline):
         self.executor = executor
@@ -214,6 +231,10 @@ class _PendingOp:
         self.t0 = time.perf_counter()
         self.t_disp_end: Optional[float] = None
         self.t_drain_start: Optional[float] = None
+        # the comms lane of the bytes this op moved; on the card its
+        # seconds come from the comm stream's events, not the host's
+        # interval
+        self.lane: Optional[str] = None
 
     def _close(self) -> None:
         self.done = True
@@ -228,6 +249,10 @@ class _PendingOp:
         _comm_clock.record(total,
                            max(0.0, total - max(0.0, drain_start - disp_end)),
                            self.nbytes)
+        if self.lane is not None and self.executor.stream is None:
+            # gloo: the host interval is the collective's
+            comms.record(self.op, self.lane, self.nbytes, total,
+                         world=self.executor.world)
         if self.timeline is not None:
             self.timeline.end(self.name0)
 
@@ -236,6 +261,8 @@ class _PendingOp:
         executor first: an integrity verdict (which the runtime survives)
         or the loss of a peer (which takes it down)."""
         ex = self.executor
+        # an OOM at dispatch or at the drain becomes the ledger's record
+        memory.maybe_record_oom(exc, where="executor")
         if isinstance(exc, exceptions.NumericalError):
             if ex.integrity_failure is None:
                 ex.integrity_failure = exc
@@ -251,6 +278,9 @@ class _PendingOp:
         if self.t_drain_start is None:
             self.t_drain_start = time.perf_counter()
         _OP_ERRORS.labels(op=self.op).inc()
+        flight_recorder.emit("op_fail", op=self.op, name=self.name0,
+                             bytes=self.nbytes, bucket=None,
+                             error=str(status.reason)[:200])
         for e in self.entries:
             e.complete(status, None)
         self._close()
@@ -267,6 +297,9 @@ class _PendingOp:
             self.fail_exc(exc)
             return
         _OP_BYTES.labels(op=self.op).inc(self.nbytes)
+        flight_recorder.emit(
+            "op_complete", op=self.op, name=self.name0, bytes=self.nbytes,
+            bucket=None, seconds=round(time.perf_counter() - self.t0, 6))
         ok = types.Status.OK()
         for e in self.entries:
             e.complete(ok, e.output)
@@ -301,6 +334,35 @@ class Executor:
         #: digest checks run and the cycle thread's seconds in them
         self.digest_checks = 0
         self.digest_seconds = 0.0
+        # the end stamp of the last timed collective on the comm stream
+        self._last_end: Optional[comms.Stamp] = None
+
+    def _stamp(self) -> Optional[comms.Stamp]:
+        """A timing stamp on the comm stream now; None on the CPU or with
+        the comms plane off."""
+        if self.stream is None:
+            return None
+        return comms.stamp(self.stream)
+
+    def _timing(self, pend: "_PendingOp", start):
+        """After the collective's wait on the comm stream: its timing for
+        the held entry, (op, bytes, span), or None when ``start`` is."""
+        if start is None:
+            return None
+        end = self._stamp()
+        if end is None:
+            return None
+        after, self._last_end = self._last_end, end
+        return pend.op, pend.nbytes, comms.span(start, end, after)
+
+    def _record_timing(self, timing) -> None:
+        """A held bin's collective, passed by the device, into the comms
+        observatory with the device's seconds."""
+        if timing is None:
+            return
+        op, nbytes, s = timing
+        comms.record(op, "device", nbytes, comms.span_seconds(s),
+                     world=self.world)
 
     def _integrity_due(self) -> bool:
         """Advance the digest cadence by one eligible dispatch; True on the
@@ -337,12 +399,13 @@ class Executor:
         for producer in producers.values():
             self.stream.wait_stream(producer)
 
-    def _mark_done(self, entries) -> None:
+    def _mark_done(self, entries, timing=None) -> None:
         """Record the bin's ``done`` event, numbered in the comm stream's
         order (see ``Done``). Until the device has passed it, the executor
         holds the bin's tensors, so the allocator cannot hand their memory
         to another stream while the comm stream still uses it (one
-        reference a bin in place of ``record_stream`` a tensor)."""
+        reference a bin in place of ``record_stream`` a tensor). A bin's
+        collective timing rides its entry and is recorded as it leaves."""
         if self.stream is None:
             return
         event = torch.cuda.Event()
@@ -350,9 +413,10 @@ class Executor:
         self.latest = done = Done(next(_done_seq), event, self)
         for e in entries:
             e.done = done
-        self._held.append((event, [(e.tensor, e.output) for e in entries]))
+        self._held.append((event, [(e.tensor, e.output) for e in entries],
+                           timing))
         while self._held and self._held[0][0].query():
-            self._held.popleft()
+            self._record_timing(self._held.popleft()[2])
 
     def close(self, wait: bool = True) -> None:
         """Wait for the comm stream's work, then drop the held tensors.
@@ -364,6 +428,8 @@ class Executor:
             return
         if self.stream is not None:
             self.stream.synchronize()
+        for _event, _tensors, timing in self._held:
+            self._record_timing(timing)
         self._held.clear()
 
     def dispatch(self, response, entries: List[types.TensorTableEntry],
@@ -372,6 +438,8 @@ class Executor:
         (reference: PerformOperation, operations.cc:211-279: statuses go
         through the entries' callbacks, an ERROR response fails them all)."""
         pend = _PendingOp(self, response.response_type, entries, timeline)
+        flight_recorder.emit("op_dispatch", op=pend.op, name=pend.name0,
+                             tensors=len(entries), bytes=pend.nbytes)
         try:
             if timeline is not None:
                 timeline.start(pend.name0, response.response_type)
@@ -381,13 +449,14 @@ class Executor:
                     types.Status.PreconditionError(response.error_message))
                 return pend
             self._order_after_inputs(entries)
+            pend.lane = "device"
             if kind == types.ALLREDUCE:
                 pend.finish = self._dispatch_allreduce(entries, timeline,
                                                        pend, controller)
             elif kind in (types.BROADCAST, types.ALLGATHER,
                           types.REDUCESCATTER, types.ALLTOALL):
                 pend.finish = self._dispatch_each(
-                    kind, entries, timeline, pend.name0,
+                    kind, entries, timeline, pend,
                     response.tensor_sizes, controller)
             else:
                 raise ValueError(f"response type {kind} is not ported")
@@ -426,12 +495,14 @@ class Executor:
         if timeline is not None:
             timeline.activity_end(name0)
             timeline.activity_start(name0, f"{self.backend}_ALLREDUCE")
+        start = self._stamp()
         work = dist.all_reduce(buf, op=_TORCH_OPS[reduce_op],
                                group=self.group, async_op=True)
         types.COUNTS["allreduce"] += 1
 
         def finish():
             work.wait()
+            timing = self._timing(pend, start)
             if reduce_op == types.REDUCE_AVERAGE:
                 _average_(buf, self.world)
             if plan == "bitflip":
@@ -452,16 +523,17 @@ class Executor:
                 e.output = e.tensor
             if timeline is not None:
                 timeline.activity_end(name0)
-            self._mark_done(entries)
+            self._mark_done(entries, timing)
 
         return finish
 
-    def _dispatch_each(self, kind, entries, timeline, name0, sizes=(),
+    def _dispatch_each(self, kind, entries, timeline, pend, sizes=(),
                        controller=None):
         """One collective an entry: broadcast in place; allgather (ragged
         by the negotiated ``sizes``), alltoall and reduce-scatter into the
         outputs the enqueue allocated. A reduce-scatter is a digest's
         eligible dispatch: its inputs' non-finite count, no CRC."""
+        name0 = pend.name0
         if timeline is not None:
             timeline.activity_start(name0, f"{self.backend}_{kind}")
         nf_dev = None
@@ -479,6 +551,7 @@ class Executor:
                              for x in inputs)
                 self.digest_seconds += time.perf_counter() - t0
         works, tails = [], []
+        start = self._stamp()
         for e, x in zip(entries, inputs):
             if kind == types.BROADCAST:
                 e.output = x
@@ -502,6 +575,7 @@ class Executor:
         def finish():
             for w in works:
                 w.wait()
+            timing = self._timing(pend, start)
             if nf_dev is not None:
                 t0 = time.perf_counter()
                 self._verify(controller, nf_dev, 0, f"rs[{len(entries)}]",
@@ -514,7 +588,7 @@ class Executor:
                     _average_(e.output, self.world)
             if timeline is not None:
                 timeline.activity_end(name0)
-            self._mark_done(entries)
+            self._mark_done(entries, timing)
 
         return finish
 

@@ -62,6 +62,23 @@ def _refresh_gauges() -> None:
     _BUF_LEASES_OUT.labels(purpose=PURPOSE).set(leases)
 
 
+def bytes_by_purpose() -> Dict[str, Dict[str, int]]:
+    """Slab bytes over every live manager, keyed by purpose (``fusion``):
+    the memory ledger's pull source (``horovod_tpu/runtime/fusion_buffer.
+    py:63-76``). Empty while no manager exists."""
+    with _managers_lock:
+        managers = list(_managers)
+    out: Dict[str, Dict[str, int]] = {}
+    for mgr in managers:
+        total, live, leases = mgr.usage()
+        rec = out.setdefault(PURPOSE, {
+            "allocated_bytes": 0, "live_bytes": 0, "leases_outstanding": 0})
+        rec["allocated_bytes"] += total
+        rec["live_bytes"] += live
+        rec["leases_outstanding"] += leases
+    return out
+
+
 def bucket_elems(nelems: int, itemsize: int, quantum_bytes: int) -> int:
     """Element count of the size bucket holding ``nelems`` items.
 

@@ -40,8 +40,15 @@ integrity verdict of the digests (``NumericalError``) reaches the waiting
 handle without taking the runtime down: the first handle to see it raises
 it and clears it, and the runtime goes on for the rollback's replay.
 
-Not ported yet: autotune (ROADMAP A8), tracing, the flight recorder and
-the lane-hazard watchdog (A11).
+The flight recorder's ``runtime`` state is this runtime's in-flight view
+(the table's names, the ops in the cycle's pipeline, the failure), read
+without a lock so a wedged cycle cannot block a dump; a cycle that fails
+emits ``cycle_abort`` and makes a failure dump, and ``stop`` emits
+``runtime_stop``. Each change of the pipeline's depth is a
+``pipeline_depth`` event.
+
+Not ported yet: autotune (ROADMAP A8), tracing (A12) and the lane-hazard
+watchdog (A10).
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from typing import Any, List, Optional
 import torch
 
 from horovod_tpu_torch import exceptions
+from horovod_tpu_torch import flight_recorder
 from horovod_tpu_torch.core import state as state_mod
 from horovod_tpu_torch.exceptions import NotInitializedError
 from horovod_tpu_torch.metrics import COUNT_BUCKETS, registry as _metrics
@@ -71,6 +79,7 @@ from horovod_tpu_torch.stall import StallInspector, StragglerTracker
 from horovod_tpu_torch.timeline import Timeline
 from horovod_tpu_torch.utils import env
 from horovod_tpu_torch.utils import logging as log
+from horovod_tpu_torch.utils import resilience
 
 COUNTS = types.COUNTS
 reset_counts = types.reset_counts
@@ -230,6 +239,9 @@ class Runtime:
                 report_seconds=cfg.straggler_report_seconds)
         # stale deferred hits renegotiate on the stall warning's clock
         self.controller.STALE_HIT_SECONDS = cfg.stall_check_time_seconds
+        # the cycle's pipeline, visible to a dump while ops are in flight
+        self._cycle_pending: "Optional[collections.deque]" = None
+        flight_recorder.set_state_provider("runtime", self._debug_state)
         self._stop = threading.Event()
         self._woken = threading.Event()   # work was enqueued
         self._urgent = threading.Event()  # start a cycle now: no pacing
@@ -451,6 +463,12 @@ class Runtime:
             for e in self.queue.get_entries(
                     [r.tensor_name for r in requests]):
                 e.complete(status, None)
+            # the dump after the entries: a caller that its failure woke
+            # may enqueue the same names again at once
+            flight_recorder.emit(
+                "cycle_abort", generation=resilience.current_generation(),
+                error="%s: %s" % (type(exc).__name__, str(exc)[:200]))
+            flight_recorder.dump_on_failure("cycle_abort")
             raise
         finally:
             seconds = time.perf_counter() - t0
@@ -476,6 +494,7 @@ class Runtime:
                 "failure)")
         _CYCLE_TENSORS.observe(sum(len(r.tensor_names) for r in responses))
         pending: "collections.deque" = collections.deque()
+        self._cycle_pending = pending
         cycle_entries = []
         try:
             for response in responses:
@@ -490,6 +509,7 @@ class Runtime:
                     response, entries, timeline=self.timeline,
                     controller=self.controller))
                 _PIPELINE_DEPTH.set(len(pending))
+                flight_recorder.emit("pipeline_depth", depth=len(pending))
                 while len(pending) >= self.depth:
                     self._drain_one(pending)
             while pending:
@@ -516,7 +536,26 @@ class Runtime:
         first, so no caller it wakes reads a stale depth."""
         op = pending.popleft()
         _PIPELINE_DEPTH.set(len(pending))
+        flight_recorder.emit("pipeline_depth", depth=len(pending))
         op.complete()
+
+    def _debug_state(self) -> dict:
+        """The flight recorder's ``runtime`` state: the table's names, the
+        ops in the cycle's pipeline with their ages, the failure. Read
+        without a lock: a dying process must not wait on a wedged cycle
+        thread, so the values are a best-effort view."""
+        ops = []
+        for tok in list(self._cycle_pending or ()):
+            ops.append({"op": tok.op, "name": tok.name0,
+                        "bytes": tok.nbytes, "bucket": None,
+                        "age_seconds": round(time.perf_counter() - tok.t0,
+                                             3)})
+        return {
+            "in_flight_names": sorted(self.queue._table),
+            "pending_ops": ops,
+            "failure": repr(self.failure) if self.failure else None,
+            "stopped": self._stop.is_set(),
+        }
 
     def _emit_timeline_counters(self) -> None:
         """One ``"C"`` event a series each cycle, in the trace's clock
@@ -544,6 +583,7 @@ class Runtime:
         shutdown goes out as the SHOULD_SHUT_DOWN bit, so every worker
         leaves its loop in the same cycle (response_cache.h:128-132)."""
         self._deliberate_stop = True
+        flight_recorder.emit("runtime_stop")
         if self.controller.lockstep and self._thread.is_alive():
             self.controller.request_shutdown()
             self._woken.set()

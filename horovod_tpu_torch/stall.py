@@ -22,9 +22,9 @@ naming the missing ranks, in place of the shutdown's True: the controller
 keeps it as its typed verdict and still sends the shutdown bit, and
 ``@hvd.elastic.run`` re-forms without the stalled ranks.
 
-Not ported: the flight-recorder events (``stall_warning``,
-``stall_shutdown``, ``straggler_report``; ROADMAP A11) and the goodput
-ledger's straggler span (A11).
+The flight recorder gets ``stall_warning``, ``stall_shutdown`` (with a
+failure dump) and ``straggler_report``; the coordinator's arrival skew of
+each negotiation is the goodput ledger's ``straggler_wait``.
 """
 
 from __future__ import annotations
@@ -32,6 +32,8 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional, Tuple
 
+from horovod_tpu_torch import flight_recorder
+from horovod_tpu_torch import goodput
 from horovod_tpu_torch.exceptions import WorkerStallError
 from horovod_tpu_torch.metrics import registry as _metrics
 from horovod_tpu_torch.utils import logging as log
@@ -83,6 +85,10 @@ class StragglerTracker:
         t_first = min(arrivals.values())
         skew = max(arrivals.values()) - t_first
         _NEGOTIATE_SKEW.observe(skew)
+        if skew > 0:
+            # how long the first rank's tensor waited for the last one:
+            # straggler badput on the coordinator's ledger
+            goodput.record_span("straggler_wait", skew)
         for rank, t in arrivals.items():
             lag = t - t_first
             prev = self.lag_ewma.get(rank)
@@ -119,6 +125,9 @@ class StragglerTracker:
             "straggler report: over %d negotiations the lateness EWMA is "
             "%s; rank %d arrived last in %.0f%% of them",
             self.samples, self.lag_summary(), leader, 100.0 * last_frac)
+        flight_recorder.emit("straggler_report", leader=leader,
+                             lag=round(self.lag_ewma.get(leader, 0.0), 6),
+                             samples=self.samples)
 
 
 class StallInspector:
@@ -185,12 +194,17 @@ class StallInspector:
                 "different tensors or that only subset of ranks is "
                 "submitting tensors. Stalled ops: %s%s",
                 self.warning_time, "; ".join(stalled), lag_note)
+            flight_recorder.emit("stall_warning", tensors=len(stalled),
+                                 missing=sorted(warn_missing))
         if shutdown:
             _STALL_SHUTDOWNS.inc()
             log.error(
                 "Stalled tensors exceeded "
                 "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS (%.0fs); "
                 "shutting down.", self.shutdown_time)
+            flight_recorder.emit("stall_shutdown",
+                                 ranks=sorted(missing_ranks))
+            flight_recorder.dump_on_failure("stall_shutdown")
             if self.elastic:
                 raise WorkerStallError(
                     f"stalled ranks exceeded the shutdown threshold "

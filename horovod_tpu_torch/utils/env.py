@@ -4,8 +4,9 @@ runtime's knobs and :class:`Config`, the fusion bucket quantum, the metrics
 endpoint and dump, the ZeRO stage and gradient release knobs, the step
 profiler's and the integrity plane's knobs, the checkpoint writer's, its
 restore's and its replica ring's knobs, the elastic layer's, the
-rendezvous store's and the control plane's resilience knobs, and the
-flash attention's ``FLASH_FUSED_BWD`` switch).
+rendezvous store's and the control plane's resilience knobs, the four
+observability planes' knobs, and the flash attention's
+``FLASH_FUSED_BWD`` switch).
 
 ``hvd.init()`` parses the runtime's knobs once into :class:`Config`
 (``horovod_tpu/utils/env.py:224-350``); the runtime reads that. The knobs
@@ -167,6 +168,29 @@ HOROVOD_CKPT_FAULT = "HOROVOD_CKPT_FAULT"
 HOROVOD_CKPT_VERIFY = "HOROVOD_CKPT_VERIFY"
 HOROVOD_CKPT_REPLICATION = "HOROVOD_CKPT_REPLICATION"
 
+# The observability planes (horovod_tpu/utils/env.py:56-57, 157,
+# 208-221; memory.py:61-63, comms.py:71-74, goodput.py:68-70): the flight
+# recorder (on by default; an integer > 1 is the ring's capacity) and its
+# dump directory; the memory ledger (on), its sampler's cadence in seconds
+# and the live tensors an OOM record lists; the comms observatory (on),
+# its window of records a key, its EWMA weight and its degradation
+# threshold; the goodput ledger (on), its incident capacity and the
+# cadence of its log report (0: none). Each is read by its module's
+# ``configure``, which ``init()`` calls.
+HOROVOD_FLIGHT_RECORDER = "HOROVOD_FLIGHT_RECORDER"
+HOROVOD_FLIGHT_RECORDER_DIR = "HOROVOD_FLIGHT_RECORDER_DIR"
+DEFAULT_FLIGHT_RECORDER_CAPACITY = 2048
+HOROVOD_MEMORY = "HOROVOD_MEMORY"
+HOROVOD_MEMORY_SAMPLE_SECONDS = "HOROVOD_MEMORY_SAMPLE_SECONDS"
+HOROVOD_MEMORY_TOPK = "HOROVOD_MEMORY_TOPK"
+HOROVOD_COMMS = "HOROVOD_COMMS"
+HOROVOD_COMMS_WINDOW = "HOROVOD_COMMS_WINDOW"
+HOROVOD_COMMS_EWMA_ALPHA = "HOROVOD_COMMS_EWMA_ALPHA"
+HOROVOD_COMMS_DEGRADED_FRACTION = "HOROVOD_COMMS_DEGRADED_FRACTION"
+HOROVOD_GOODPUT = "HOROVOD_GOODPUT"
+HOROVOD_GOODPUT_INCIDENTS = "HOROVOD_GOODPUT_INCIDENTS"
+HOROVOD_GOODPUT_REPORT_SECONDS = "HOROVOD_GOODPUT_REPORT_SECONDS"
+
 # Fused attention backward (reference: horovod_tpu/ops/pallas/
 # flash_attention.py:741-742): "1" sends a backward whose query and key
 # extents both fit one 1024 block to the one kernel that writes dq, dk and
@@ -201,6 +225,22 @@ def _get_bool(name: str, default: bool = False) -> bool:
     return value.strip().lower() not in ("0", "false", "no", "off", "")
 
 
+def parse_flight_recorder(value: "str | None") -> "tuple[bool, int]":
+    """``HOROVOD_FLIGHT_RECORDER`` -> (enabled, ring capacity). Unset or
+    truthy = on at the default capacity; an integer > 1 is the capacity;
+    0/false/no/off disables."""
+    if value is None or value.strip() == "":
+        return True, DEFAULT_FLIGHT_RECORDER_CAPACITY
+    v = value.strip().lower()
+    if v in ("0", "false", "no", "off"):
+        return False, DEFAULT_FLIGHT_RECORDER_CAPACITY
+    try:
+        n = int(v)
+    except ValueError:
+        return True, DEFAULT_FLIGHT_RECORDER_CAPACITY
+    return True, (n if n > 1 else DEFAULT_FLIGHT_RECORDER_CAPACITY)
+
+
 def native_cycle() -> bool:
     """``HOROVOD_NATIVE_CYCLE``, default on."""
     return _get_bool(HOROVOD_NATIVE_CYCLE, True)
@@ -212,8 +252,9 @@ def native_cycle() -> bool:
 # built), the attention backward's switch (read at each backward), the
 # integrity knobs (read when a guard is made or a step is taken) and the
 # checkpoint knobs (read when a manager is made or a commit or a restore
-# runs), and the elastic, rendezvous and resilience knobs (read when a
-# re-form, a commit, a store client or a transport needs them).
+# runs), the elastic, rendezvous and resilience knobs (read when a
+# re-form, a commit, a store client or a transport needs them), and the
+# observability planes' knobs (read by each plane's ``configure``).
 ENV_DIRECT_KNOBS = (
     HOROVOD_RANK, HOROVOD_SIZE, HOROVOD_LOCAL_RANK, HOROVOD_LOCAL_SIZE,
     HOROVOD_CROSS_RANK, HOROVOD_CROSS_SIZE, HOROVOD_COORDINATOR_ADDR,
@@ -238,6 +279,11 @@ ENV_DIRECT_KNOBS = (
     HOROVOD_NET_BACKOFF_BASE_SECONDS, HOROVOD_NET_BACKOFF_MAX_SECONDS,
     HOROVOD_NET_DEADLINE_SECONDS, HOROVOD_NET_ATTEMPT_TIMEOUT_SECONDS,
     HOROVOD_COLLECTIVE_TIMEOUT, HOROVOD_FAULT_INJECT,
+    HOROVOD_FLIGHT_RECORDER, HOROVOD_FLIGHT_RECORDER_DIR, HOROVOD_MEMORY,
+    HOROVOD_MEMORY_SAMPLE_SECONDS, HOROVOD_MEMORY_TOPK, HOROVOD_COMMS,
+    HOROVOD_COMMS_WINDOW, HOROVOD_COMMS_EWMA_ALPHA,
+    HOROVOD_COMMS_DEGRADED_FRACTION, HOROVOD_GOODPUT,
+    HOROVOD_GOODPUT_INCIDENTS, HOROVOD_GOODPUT_REPORT_SECONDS,
 )
 
 

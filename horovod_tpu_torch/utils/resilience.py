@@ -24,9 +24,10 @@ collective deadline and network chaos (port of
   (``runtime/hierarchy``, ROADMAP A8): it parses as in the JAX package, and
   :func:`inject` raises ``NotImplementedError`` while it is armed.
 
-Not ported: the flight-recorder events and the goodput spans (ROADMAP
-A11). This module sits at the bottom layer and imports no runtime,
-elastic or run module.
+Each retry is a ``net_retry`` flight event and its backoff sleep the
+goodput ledger's ``collective_stall``; exhaustion is ``net_gave_up``; a
+fired fault is ``chaos_inject``. This module sits at the bottom layer and
+imports no runtime, elastic or run module.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ import time
 from typing import Callable, List, Optional
 from urllib.error import HTTPError, URLError
 
+from horovod_tpu_torch import flight_recorder
+from horovod_tpu_torch import goodput
 from horovod_tpu_torch.metrics import registry as _metrics
 from horovod_tpu_torch.utils import logging as log
 from horovod_tpu_torch.utils.env import (
@@ -90,17 +93,24 @@ def is_retryable(exc: BaseException) -> bool:
 
 def note_retry(transport: str, phase: str, attempt: int, delay: float,
                exc: BaseException) -> None:
-    """Account one retry in the metrics."""
+    """Account one retry: the metrics, a ``net_retry`` event, and the
+    backoff sleep about to happen as collective-stall badput."""
     _NET_RETRIES.labels(transport=transport).inc()
     _NET_BACKOFF.labels(transport=transport).inc(delay)
+    flight_recorder.emit("net_retry", transport=transport, phase=phase,
+                         attempt=attempt, delay=round(delay, 4),
+                         error=str(exc)[:120])
+    goodput.record_span("collective_stall", delay)
     log.debug("net retry: %s/%s attempt %d in %.3fs (%s)",
               transport, phase, attempt, delay, exc)
 
 
 def give_up(transport: str, phase: str, attempt: int,
             exc: BaseException) -> None:
-    """Account an exhausted retry budget."""
+    """Account an exhausted retry budget: the metric and ``net_gave_up``."""
     _NET_GAVE_UP.labels(transport=transport).inc()
+    flight_recorder.emit("net_gave_up", transport=transport, phase=phase,
+                         attempts=attempt, error=str(exc)[:200])
     log.warning("net retries exhausted: %s/%s after %d attempt(s): %s",
                 transport, phase, attempt, exc)
 
@@ -337,6 +347,8 @@ def inject(transport: str, phase: str = "",
         elif f.kind == "flaky" and targeted and in_window:
             if ch.rng.random() < f.prob:
                 _CHAOS_INJECTED.labels(kind="flaky").inc()
+                flight_recorder.emit("chaos_inject", fault="flaky",
+                                     transport=transport, phase=phase)
                 raise ChaosError(
                     f"chaos: injected connection reset "
                     f"({transport}/{phase})")
@@ -345,6 +357,8 @@ def inject(transport: str, phase: str = "",
             if not ch._partition_announced:
                 ch._partition_announced = True
                 _CHAOS_INJECTED.labels(kind="partition").inc()
+                flight_recorder.emit("chaos_inject", fault="partition",
+                                     rank=ch.rank, seconds=f.seconds)
                 log.error("chaos: partitioning rank %d control traffic "
                           "for %s", ch.rank,
                           "ever" if end == float("inf")

@@ -236,15 +236,23 @@ def test_four_cards_lose_rank2_and_resync_from_the_replica(tmp_path):
     """One rank a card, NCCL data group: rank 2 dies at step 3; the three
     survivors abort their groups, re-form through the store this process
     hosts, resync ZeRO-1 with rank 2's moments from rank 1's replica, and
-    finish."""
+    finish; their flight dumps name rank 2 as the culprit."""
     if torch.cuda.device_count() < 4:
         pytest.skip("needs four CUDA devices")
+    flight = tmp_path / "flight"
     rcs, outs = _world("transformer", tmp_path, world=4, timeout=600,
                        cuda=True, env={
                            "HOROVOD_FAULT_INJECT":
                                "kill:rank=2:step=3:code=17",
-                           "HOROVOD_ELASTIC_MIN_WORKERS": "3"})
+                           "HOROVOD_ELASTIC_MIN_WORKERS": "3",
+                           "HOROVOD_FLIGHT_RECORDER_DIR": str(flight)})
     assert rcs[2] == 17, outs[2][-3000:]
+    # the survivors' flight dumps exist and the postmortem names rank 2
+    from horovod_tpu_torch import flight_recorder
+
+    dumps = flight_recorder.load_dumps(str(flight))
+    assert {0, 1, 3} <= {d["launch_rank"] for d in dumps}, dumps
+    assert flight_recorder.suspect_culprit(dumps)[0] == 2
     own = [torch.load(tmp_path / f"own-r{r}-s2.pt") for r in range(4)]
     for i in (0, 1, 3):
         assert rcs[i] == 0, (i, outs[i][-3000:])

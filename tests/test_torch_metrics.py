@@ -4,7 +4,7 @@ lifecycle's metrics knobs against the JAX package's (mirrors
 
 The same operations on both registries give byte-equal Prometheus text
 and equal snapshots, dumps and cross-rank summaries; the endpoint serves
-its four routes and no thread or socket exists while
+its routes and no thread or socket exists while
 ``HOROVOD_METRICS_PORT`` is unset; ``HOROVOD_METRICS_DUMP`` writes this
 rank's snapshot at shutdown; the straggler tracker ranks the JAX package's
 way; ``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS`` shuts a stalled job down; and
@@ -134,7 +134,8 @@ def test_endpoint_serves_its_routes_and_stops():
             status, kind, body = _get(port, route)
             assert status == 200 and kind == "application/json"
             assert set(json.loads(body)["routes"]) == {
-                "/metrics", "/debug/routes", "/profile", "/healthz"}
+                "/metrics", "/debug", "/debug/routes", "/profile", "/memory",
+                "/comms", "/goodput", "/healthz"}
         hvd.shutdown()
         status, _, _ = _get(port, "/healthz")
         assert status == 503

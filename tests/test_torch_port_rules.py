@@ -83,6 +83,141 @@ def test_public_surface_is_the_jax_bindings_but_mesh():
     assert not hasattr(hvd, "mesh")
 
 
+def _all_of(path: Path) -> list:
+    """A package ``__init__``'s ``__all__``, read from its source."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return list(ast.literal_eval(node.value))
+    raise AssertionError(f"{path} has no __all__")
+
+
+# The reference's exports whose modules the port does not have yet, each
+# with the ROADMAP queue-A item that brings it.
+UNPORTED_EXPORTS = {
+    "tracing": "A12", "serve": "A12", "ServePolicy": "A12",
+    "data": "A13",
+    "OrderedLaneError": "A10", "assert_collective_lane_clear": "A10",
+    "SparseGrad": "A8", "sparse_allgather": "A8",
+    "with_sparse_embedding_grad": "A8",
+    "ring_attention": "A9", "ulysses_attention": "A9",
+    "transformer_tp_rules": "A9", "params_shardings": "A9",
+    "tp_train_step": "A9", "xla_attention": "A9", "pipeline_apply": "A9",
+    "last_stage_value": "A9", "stack_stage_params": "A9",
+    "switch_moe": "A7", "load_balance_loss": "A7", "default_capacity": "A7",
+    "MnistConvNet": "A7", "VGG": "A7", "VGG11": "A7", "VGG13": "A7",
+    "VGG16": "A7", "VGG19": "A7", "moe": "A7",
+}
+# Exports the port leaves out by decision: the device mesh and its axis
+# names (PyTorch has no device mesh of that kind), and the
+# single-controller stacked mode's ``stack_per_worker`` (one process a GPU
+# has no stacked worker dimension).
+DECIDED_OUT = {"mesh", "CROSS_AXIS", "LOCAL_AXIS", "GLOBAL_AXES",
+               "stack_per_worker"}
+
+
+@pytest.mark.parametrize("init,module", [
+    ("__init__.py", "horovod_tpu_torch"),
+    ("models/__init__.py", "horovod_tpu_torch.models"),
+    ("parallel/__init__.py", "horovod_tpu_torch.parallel"),
+])
+def test_reference_exports_resolve_in_the_port(init, module):
+    """Every name of the JAX package's ``__all__`` (the package, its
+    models and its parallel package) resolves in the port's counterpart,
+    unless its module is not ported yet (then it is listed with its
+    queue-A item and must not resolve: a listed name that the port has
+    gets off the list) or it is out by decision. ``mesh`` stays out."""
+    import importlib
+
+    theirs = _all_of(REPO / "horovod_tpu" / init)
+    ours = importlib.import_module(module)
+    missing = [n for n in theirs if not hasattr(ours, n)
+               and n not in UNPORTED_EXPORTS and n not in DECIDED_OUT]
+    assert not missing, missing
+    stale = [n for n in theirs if hasattr(ours, n)
+             and (n in UNPORTED_EXPORTS or n in DECIDED_OUT)]
+    assert not stale, stale
+    assert set(UNPORTED_EXPORTS.values()) <= {"A7", "A8", "A9", "A10",
+                                              "A12", "A13"}
+    assert not hasattr(hvd, "mesh")
+    if module == "horovod_tpu_torch.models":
+        assert ours.ResNet50 is ResNet50 and ours.BertLarge is BertLarge
+    if module == "horovod_tpu_torch":
+        assert hvd.ddl_built() is False and hvd.mlsl_built() is False
+        assert callable(hvd.grouped_allreduce_async)
+        assert callable(hvd.dump_debug_state)
+
+
+def test_distributed_gradient_tape_reduces_a_gradient_function(monkeypatch):
+    """``DistributedGradientTape`` wraps a function that returns gradients
+    (``torch.func.grad``'s) and gives them back averaged, in each of the
+    JAX package's three return conventions."""
+    for k in ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_COORDINATOR_ADDR"):
+        monkeypatch.delenv(k, raising=False)
+    hvd.shutdown()
+    hvd.init(device="cpu")
+    try:
+        def loss(p, x):
+            return ((p["w"] * x).sum() - 1.0) ** 2
+
+        x = torch.arange(3.0)
+        p = {"w": torch.ones(3)}
+        want = torch.func.grad(loss)(p, x)
+        got = hvd.DistributedGradientTape(torch.func.grad(loss))(p, x)
+        assert torch.equal(got["w"], want["w"])
+        val, g = hvd.DistributedGradientTape(
+            lambda *a: (loss(*a), torch.func.grad(loss)(*a)),
+            returns="value_and_grads")(p, x)
+        assert torch.equal(g["w"], want["w"]) and float(val) == 4.0
+        g, aux = hvd.DistributedGradientTape(
+            torch.func.grad_and_value(loss), returns="grads_and_aux")(p, x)
+        assert torch.equal(g["w"], want["w"]) and float(aux) == 4.0
+        with pytest.raises(ValueError):
+            hvd.DistributedGradientTape(lambda: None, returns="bad")
+    finally:
+        hvd.shutdown()
+
+
+def test_observability_planes_leave_jax_out_and_start_nothing(tmp_path):
+    """The four planes import no JAX; configured for the CPU, fed and
+    dumped, they start no thread (the memory sampler runs for a card only)
+    and open no socket."""
+    code = (
+        "import os, sys, threading\n"
+        "import torch\n"
+        "import horovod_tpu_torch as hvd\n"
+        "from horovod_tpu_torch import comms, flight_recorder, goodput,"
+        " memory\n"
+        "memory.configure(rank=0, device='cpu')\n"
+        "comms.configure(rank=0, world=1)\n"
+        "goodput.configure(rank=0, world=1)\n"
+        "memory.tracker().note_tree_bytes('params', [torch.ones(4)])\n"
+        "comms.record('allreduce', 'device', 16, 0.001)\n"
+        "goodput.record_step(0.01)\n"
+        "hvd.dump_debug_state(path='d.json')\n"
+        "assert memory.memory_state()['subsystems']['params']['bytes'] "
+        "== 16\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "socks = []\n"
+        "for fd in os.listdir('/proc/self/fd'):\n"
+        "    try:\n"
+        "        link = os.readlink('/proc/self/fd/' + fd)\n"
+        "    except OSError:\n"
+        "        continue\n"
+        "    if link.startswith('socket:'):\n"
+        "        socks.append(link)\n"
+        "assert not socks, socks\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n" % (FORBIDDEN,))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    for knob in ("HOROVOD_RENDEZVOUS_HTTP_ADDR", "HOROVOD_RENDEZVOUS_HTTP_PORT",
+                 "HOROVOD_METRICS_PORT", "HOROVOD_MEMORY"):
+        env.pop(knob, None)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=tmp_path, timeout=120)
+    assert (tmp_path / "d.json").exists()
+
+
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, horovod_tpu_torch, horovod_tpu_torch.models.convert,"
             " horovod_tpu_torch.models.transformer,"
@@ -711,7 +846,12 @@ def test_chip_smoke_cpu_rehearsal_prints_no_result(no_card):
                   "11a P2 checkpoint", "11b in-place hazard",
                   "11c rank-0 checkpoint", "11c corrupt copy",
                   "12a re-form", "12b rollback in place",
-                  "digest on/off in turns", "phase 12 kernel launches"):
+                  "digest on/off in turns", "phase 12 kernel launches",
+                  "goodput: 1 elastic_reform incident(s)",
+                  "12b goodput: 1 rollback incident(s)", "13 routes:",
+                  "13 memory:", "13 comms:", "13 OOM record:",
+                  "13 goodput:", "13 observability planes on BERT-Large P2",
+                  "phase 13 kernel launches", "13 P4 (stage 2"):
         assert phase in out.stdout, phase
     assert "BERT-Large MLM" in out.stdout
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout

@@ -248,6 +248,36 @@ Phases (any failure exits non-zero):
    groups) 3 steps a turn on, off, off, on: the host ms a dispatch the
    planes cost. B1-B3 launched 24 times a pass and B8 once a group a step
    over P2's steps.
+14. The transformer options and the conv and MoE models. 14a: BERT-Large
+   with ``fused_qkv=True`` and ``remat=True`` on phase 4's hooks path, its
+   weights phase 4's seed-0 ones fused by concatenation
+   (``fuse_qkv_state``), 2 warm-up and 10 timed steps: the first loss
+   within 1e-2 of phase 4's, losses finite and falling, B1/B2 launched
+   twice a layer a step (the backward recomputes each layer) and B3-B6
+   once; then remat off, off, on (2 + 3 steps each), their losses within
+   1e-3 of the main run's: the step ms and peak memory of each, the
+   remat peak below the plain one; every gradient from the response
+   cache from the second step, fewer NCCL calls a step than gradients
+   (the recomputation spreads the backward over more cycles). 14b: VGG-16 as the bench's row (256 x
+   224², 1000 classes, bf16, ``DistributedOptimizer(SGD(0.01 x size,
+   momentum 0.9))`` through ``make_train_step``), 2 warm-up and 10 timed
+   steps: losses finite and falling; every step's fusion bins hold
+   ``fc1.kernel`` (411,041,792 bytes, over the 64 MiB threshold) alone;
+   every gradient from the response cache from the second step, fewer
+   NCCL calls than gradients, no slab or group after warm-up; images/s,
+   MFU at 3 x 30.342 GFLOP an image, NCCL calls and fusion groups a step
+   and peak memory. 14c: the MoE LM (``models/moe.py``) at GPT-2-small's
+   widths (vocab 50257, 12 x 768, 12 heads, d_ff 3072, 8 x 1024 tokens),
+   one expert at world 1, ``default_capacity``, ``moe_lm_loss``,
+   ``DistributedOptimizer(Adam(3e-3))`` over the shared parameters and
+   Adam over the expert, 2 warm-up and 10 timed steps: losses finite and
+   falling, B1-B6 once a layer a step, four all-to-alls a layer a step
+   (dispatch and combine, each with its gradient's), every collective a
+   step requests answered from the response cache from the second step.
+   Then GPT-2-small (phase 7's path) with the full-logits loss and with
+   ``causal_lm_loss_chunked`` (128 positions a chunk), in turns full,
+   chunked, chunked, full (2 + 3 steps each): each run's step ms and
+   peak memory, its first loss within 1e-3 of the first run's.
 
 Between them: 2d. kernel B10 (fused BN + ReLU) bit-equal to its plain
 version at every distinct BN input of Inception-V3 at batch 32 (bf16),
@@ -277,7 +307,8 @@ driven once with its count set to 0 just before, then timed beside its
 bound and SDPA's forward.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (each kernel's
-launches counted on the path that runs it: the flash kernels on phase 4,
+launches counted on the paths that run it: the flash kernels on phase 4
+and on 14a and 14c,
 the multi-tensor AdamW on P1, the flat AdamW on P2, P4 and P5, B10 on phase 6, B11 on
 the probe's phase 2e, B7 on phase 7's fused run, B12-B14 on the probe's
 phase 2g), the card's name and power limit, and ``{"ok": true,
@@ -314,10 +345,14 @@ from horovod_tpu_torch.metrics import registry as metrics_registry
 from horovod_tpu_torch.models import inception as inc
 from horovod_tpu_torch.models.inception import InceptionV3
 from horovod_tpu_torch.models.resnet import BatchNormReLU, ResNet50
+from horovod_tpu_torch.models import moe
 from horovod_tpu_torch.models.transformer import (BertLarge, GPT2Small,
                                                   Transformer, causal_lm_loss,
+                                                  causal_lm_loss_chunked,
+                                                  fuse_qkv_state,
                                                   masked_lm_loss_gathered,
                                                   sample_masked_positions)
+from horovod_tpu_torch.models.vgg import VGG16
 from horovod_tpu_torch.ops import collectives, kernel_build
 from horovod_tpu_torch.ops import conv_bn_act as cba
 from horovod_tpu_torch.ops import flash_attention as fa
@@ -374,6 +409,9 @@ INCEPTION_FLOPS = 3 * 11.137e9
 # ResNet-50 as the bench runs it (bench.py:85, 258-300): 8.234 GFLOP per
 # image forward at 224 x 224, a train step 3x that
 RESNET_FLOPS = 3 * 8.234e9
+# VGG-16 as the bench runs it (bench.py:89): 30.342 GFLOP per image forward
+# at 224 x 224, a train step 3x that
+VGG_FLOPS = 3 * 30.342e9
 # AdamW as the bench runs it (bench.py:473-476, 1398-1408)
 ADAMW = dict(b1=0.9, b2=0.999, learning_rate=1e-4, weight_decay=1e-4)
 EPS = 1e-8
@@ -411,7 +449,13 @@ FULL = dict(
     resnet=dict(batch=128, size=224, classes=1000, dtype=BF16),
     round_steps=3, api_rounds=3,
     elastic_model=dict(vocab_size=30522, max_seq=512),
-    obs_steps=4, obs_p4_steps=3)
+    obs_steps=4, obs_p4_steps=3,
+    # phase 14: turns of (warm-up, timed) steps; VGG-16 as the bench's row
+    # (its threshold the default); the MoE LM at GPT-2-small's widths
+    opt_turn_steps=(2, 3),
+    vgg=dict(batch=256, size=224, classes=1000, dtype=BF16, threshold=None),
+    moe_lm=dict(vocab_size=50257, d_model=768, num_layers=12, num_heads=12,
+                d_ff=3072, max_seq=1024), moe_batch=8, lm_chunk=128)
 DRY = dict(
     cases={"a": (1, 2, 64, 64, False, 0, 0), "b": (1, 2, 96, 64, True, 0, 0),
            "d_masked": (1, 2, 64, 64, True, 8, 40),
@@ -419,7 +463,8 @@ DRY = dict(
     timed=("a",), iters=2,
     tiny=dict(vocab_size=64, d_model=128, num_layers=1, num_heads=2,
               d_ff=256, max_seq=32), tiny_batch=2,
-    model=dict(vocab_size=1000, max_seq=64, num_layers=1), batch=2, seq=64,
+    model=dict(vocab_size=1000, max_seq=64, num_layers=1, d_model=128,
+               num_heads=2, d_ff=256), batch=2, seq=64,
     warmup=1, steps=2, opt_iters=2, engine_steps=(1, 1),
     inception=dict(batch=2, size=75, classes=10, dtype=F32), sba_iters=1,
     tiny_inception=(2, 75), block_input=(2, 5),
@@ -434,7 +479,12 @@ DRY = dict(
     round_steps=1, api_rounds=2,
     elastic_model=dict(vocab_size=1000, max_seq=64, num_layers=1,
                        d_model=128, num_heads=2, d_ff=256),
-    obs_steps=1, obs_p4_steps=1)
+    obs_steps=1, obs_p4_steps=1,
+    # fc1 is 8 MB at 32 x 32: a threshold below it sends it alone
+    opt_turn_steps=(1, 1),
+    vgg=dict(batch=2, size=32, classes=10, dtype=F32, threshold=4 << 20),
+    moe_lm=dict(vocab_size=512, d_model=128, num_layers=2, num_heads=2,
+                d_ff=256, max_seq=64), moe_batch=2, lm_chunk=16)
 
 
 def check(ok: bool, what: str) -> None:
@@ -3772,6 +3822,372 @@ def _planes_p4(cfg, device, where, data) -> None:
         f"{where}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the transformer options, VGG-16 and the MoE LM
+# ---------------------------------------------------------------------------
+
+
+def _drive(step, warmup: int, steps: int, dev) -> dict:
+    """``warmup + steps`` calls of ``step() -> loss``: the losses, each timed
+    step's seconds, ``runtime.COUNTS`` after each step and the requested
+    collectives of each (``collectives.COUNTS`` summed), and the peak
+    memory from the first step on."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, times, snaps, requested = [], [], [dict(hrt.COUNTS)], []
+    for i in range(warmup + steps):
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        losses.append(step().item())  # waits for the step's last kernel
+        snaps.append(dict(hrt.COUNTS))
+        requested.append(sum(collectives.COUNTS.values()))
+        if i >= warmup:
+            times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    return dict(losses=losses, times=times, issued=runtime_steps(snaps),
+                alltoall=[b["alltoall"] - a["alltoall"]
+                          for a, b in zip(snaps, snaps[1:])],
+                requested=requested, peak=peak,
+                step_ms=1e3 * statistics.median(times))
+
+
+def _falling(what: str, losses: list) -> None:
+    check(all(math.isfinite(x) for x in losses), f"{what}: non-finite loss")
+    check(losses[-1] < losses[0], f"{what}: loss did not fall: {losses}")
+
+
+def bert_options(cfg, device, card, phase4_first: float) -> dict:
+    """14a: BERT-Large with ``fused_qkv=True`` and ``remat=True`` on phase
+    4's hooks path (AdamW, the bench's gathered MLM batch), its weights
+    phase 4's seed-0 ones fused by concatenation (``fuse_qkv_state``): 2
+    warm-up and 10 timed steps, then turns at ``remat`` off, off, on
+    (``opt_turn_steps`` each) for the peak memory. The first loss within
+    1e-2 of phase 4's; losses finite and falling; B1/B2 launched twice a
+    layer a step under remat (the backward's recomputation), B3-B6 once;
+    every turn's losses within 1e-3 of the main run's; the remat peak
+    below the plain one; every gradient from the response cache from the
+    second step, fewer NCCL calls a step than gradients, no slab or group
+    after warm-up."""
+    tokens, positions, labels, _ = mlm_data(cfg)
+    warm, timed = cfg["opt_turn_steps"]
+    hvd.init(device=None if device.type == "cuda" else "cpu")
+    dev = hvd.device()
+    unfused = BertLarge(**cfg["model"], device=dev, seed=0)
+    state = fuse_qkv_state(unfused.state_dict())
+    del unfused
+    toks, pos, lab = (torch.from_numpy(a).to(dev)
+                      for a in (tokens, positions, labels))
+    runs = []
+    try:
+        for remat, steps in ((True, (cfg["warmup"], cfg["steps"])),
+                             (False, (warm, timed)), (False, (warm, timed)),
+                             (True, (warm, timed))):
+            # built on meta (no values drawn), given a copy of the weights
+            model = BertLarge(**cfg["model"], device="meta",
+                              fused_qkv=True, remat=remat)
+            model.load_state_dict({k: v.clone() for k, v in state.items()},
+                                  assign=True)
+            hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+            opt = adamw_optimizer(model)
+            n_tensors = len(list(model.parameters()))
+            n_layers = len(model.layers)
+
+            def step():
+                opt.zero_grad()
+                hidden = model(toks, output="hidden")
+                loss = masked_lm_loss_gathered(hidden, model.token_embed,
+                                               pos, lab)
+                loss.backward()
+                opt.step()
+                return loss.detach()
+
+            fa.reset_launch_counts()
+            run = _drive(step, *steps, dev)
+            run.update(remat=remat, launches=dict(fa.LAUNCHES),
+                       steps=sum(steps))
+            runs.append(run)
+            del model, opt, step
+            free_memory(device)
+    finally:
+        hvd.shutdown()
+        free_memory(device)
+
+    main = runs[0]
+    where = f"({card})"
+    log(f"14a BERT-Large fused_qkv + remat (hooks, AdamW): {n_layers} "
+        f"layers, {n_tensors} parameter tensors, batch {cfg['batch']} x seq "
+        f"{cfg['seq']}, {cfg['warmup']} warm-up + {cfg['steps']} timed "
+        f"steps, then remat off, off, on ({warm} + {timed} steps each)")
+    log("  losses: " + " ".join(f"{x:.4f}" for x in main["losses"]))
+    log(f"  kernel launches: {main['launches']}")
+    log_runtime("BERT-Large fused_qkv + remat", main["issued"])
+    _falling("14a", main["losses"])
+    first = abs(main["losses"][0] - phase4_first) / abs(phase4_first)
+    log(f"  first loss {main['losses'][0]:.6f} vs phase 4's "
+        f"{phase4_first:.6f}: relative {first:.3e} (limit 1e-2)")
+    check(first <= 1e-2, f"14a first loss off phase 4's by {first:.3e}")
+    # the recomputed forwards spread the backward's gradients over more
+    # cycles than phase 4's (a fused bin is what one cycle finds ready):
+    # held to fewer calls than gradients, as ResNet-50's are
+    check_hooks_runtime(cfg, main["issued"], n_tensors,
+                        env.DEFAULT_FUSION_THRESHOLD_BYTES,
+                        dev.type == "cuda", card_limit=n_tensors)
+    for run in runs[1:]:
+        worst = _worst(run["losses"], main["losses"][:len(run["losses"])])
+        check(worst <= 1e-3, f"14a remat={run['remat']}: losses off the "
+                             f"main run's by {worst:.3e}")
+    if dev.type == "cuda":
+        want = {k: 0 for k in main["launches"]}
+        want.update(flash_fwd=2 * n_layers * main["steps"],
+                    flash_bwd_dq=n_layers * main["steps"],
+                    flash_bwd_dkv=n_layers * main["steps"])
+        check(main["launches"] == want,
+              f"14a kernel launches {main['launches']}, want {want}")
+        per_step = {k: v // main["steps"] for k, v in
+                    main["launches"].items() if v}
+        log(f"  B1-B6 launches a step: {per_step} (remat: the flash "
+            f"forward twice a layer)")
+        for run in runs:
+            log(f"  remat {str(run['remat']):5s}: step "
+                f"{run['step_ms']:.2f} ms median, max_memory_allocated "
+                f"{run['peak'] / 2**30:.3f} GiB {where}")
+        on = [r["peak"] for r in runs if r["remat"]]
+        off = [r["peak"] for r in runs if not r["remat"]]
+        check(max(on) < min(off), f"14a: remat peaks {on} not below the "
+                                  f"plain ones {off}")
+    return dict(launches=main["launches"], losses=main["losses"])
+
+
+def train_vgg(cfg, device, card) -> None:
+    """14b: VGG-16 as the bench's ``vgg`` row runs it (``bench.py:89,
+    280-287``): ``VGG16(1000, bf16, seed=0)``, the bench's images and
+    labels, ``DistributedOptimizer(SGD(0.01 x size, momentum 0.9))``
+    through ``make_train_step``, 2 warm-up and 10 timed steps. Losses
+    finite and falling; every step's bins (``fusion.fuse_responses``)
+    hold ``fc1.kernel`` alone, its 411 MB gradient over the 64 MiB
+    threshold; every gradient from the response cache from the second
+    step; no fusion slab or group after warm-up."""
+    vg = cfg["vgg"]
+    batch, size = vg["batch"], vg["size"]
+    rng = np.random.RandomState(0)
+    images = rng.uniform(-1, 1, (batch, size, size, 3)).astype(np.float32)
+    labels = rng.randint(0, vg["classes"], (batch,)).astype(np.int32)
+    bins, real = [], fusion_mod.fuse_responses
+
+    def recorded(*args, **kwargs):
+        out = real(*args, **kwargs)
+        bins.append([list(r.tensor_names) for r in out])
+        return out
+
+    threshold = vg["threshold"] or env.DEFAULT_FUSION_THRESHOLD_BYTES
+    collectives.reset_counts()
+    with knobs(**{env.HOROVOD_FUSION_THRESHOLD: threshold}):
+        hvd.init(device=None if device.type == "cuda" else "cpu")
+    fusion_mod.fuse_responses = recorded
+    try:
+        dev = hvd.device()
+        model = VGG16(num_classes=vg["classes"], dtype=vg["dtype"],
+                      image_size=size, seed=0)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01 * hvd.size(),
+                            momentum=0.9),
+            named_parameters=model.named_parameters())
+        train_step = make_train_step(model, opt)
+        x, y = (torch.from_numpy(a).to(dev) for a in (images, labels))
+        n_tensors = len(list(model.parameters()))
+        n_params = sum(p.numel() for p in model.parameters())
+        fc1_bytes = model.fc1.kernel.numel() * 4
+        marks = []
+
+        def step():
+            marks.append(len(bins))
+            return train_step(x, y)
+
+        run = _drive(step, cfg["warmup"], cfg["steps"], dev)
+        marks.append(len(bins))
+        del model, opt, train_step, step
+    finally:
+        fusion_mod.fuse_responses = real
+        hvd.shutdown()
+        free_memory(device)
+
+    per_step = [[b for cycle in bins[a:z] for b in cycle]
+                for a, z in zip(marks, marks[1:])]
+    alone = [sum(b == ["fc1.kernel"] for b in s) for s in per_step]
+    log(f"14b VGG-16: {n_params:,} params in {n_tensors} tensors, batch "
+        f"{batch} x {size}^2 NHWC, {vg['dtype']}, SGD(0.01, momentum 0.9) "
+        f"hooks, {cfg['warmup']} warm-up + {cfg['steps']} timed steps")
+    log("  losses: " + " ".join(f"{v:.4f}" for v in run["losses"]))
+    log_runtime("VGG-16", run["issued"])
+    log(f"  fusion groups a step: {[len(s) for s in per_step]}; fc1.kernel "
+        f"({fc1_bytes:,} bytes, threshold {threshold:,}) alone a step: "
+        f"{alone}")
+    _falling("14b VGG-16", run["losses"])
+    check(all(n == 1 for n in alone), f"14b: fc1.kernel rode alone {alone} "
+                                      f"times a step, want 1")
+    check(fc1_bytes > threshold,
+          f"14b: fc1's {fc1_bytes} bytes are not over the threshold")
+    check_hooks_runtime(cfg, run["issued"], n_tensors, threshold,
+                        device.type == "cuda", card_limit=n_tensors)
+    if device.type == "cuda":
+        check(n_params == 138_357_544, f"VGG-16 has {n_params} params")
+        img_s = batch / (run["step_ms"] / 1e3)
+        where = f"({card})"
+        log(f"  step {run['step_ms']:.2f} ms median {where}")
+        log(f"  images/s {img_s:.1f} {where}")
+        log(f"  MFU {img_s * VGG_FLOPS / PEAK_FLOPS:.4f} against 989 TFLOP/s "
+            f"bf16, {VGG_FLOPS / 1e9:.3f} GFLOP/image {where}")
+        log(f"  NCCL calls a step {run['issued']['allreduce']} {where}")
+        log(f"  max_memory_allocated {run['peak'] / 2**30:.2f} GiB {where}")
+
+
+def train_moe(cfg, device, card) -> dict:
+    """14c: the MoE LM at GPT-2-small's widths (``moe_lm``), one expert at
+    world 1, ``default_capacity`` of the rank's tokens, the loss of
+    ``moe_lm_loss``, ``DistributedOptimizer(Adam(3e-3))`` over the shared
+    parameters and a plain Adam over the experts (the JAX test's
+    optimizer), 2 warm-up and 10 timed steps. Losses finite and falling;
+    B1-B6 once a layer a step; from the second step every collective the
+    step requests (the exchanges ``moe.l<i>.dispatch``/``.combine`` and
+    their gradients among them) answered from the response cache."""
+    mc = cfg["moe_lm"]
+    batch, seq = cfg["moe_batch"], mc["max_seq"]
+    tokens = np.random.RandomState(0).randint(
+        0, mc["vocab_size"], (batch, seq)).astype(np.int32)
+    fa.reset_launch_counts()
+    hvd.init(device=None if device.type == "cuda" else "cpu")
+    try:
+        dev = hvd.device()
+        model = moe.MoeLM(**mc, seed=0)
+        capacity = hvd.default_capacity(batch * seq, hvd.size())
+        named = list(model.named_parameters())
+        shared = [(n, p) for n, p in named if n.startswith("shared.")]
+        experts = [p for n, p in named if n.startswith("experts.")]
+        opt_s = hvd.DistributedOptimizer(
+            torch.optim.Adam([p for _, p in shared], lr=3e-3),
+            named_parameters=shared)
+        opt_e = torch.optim.Adam(experts, lr=3e-3)
+        toks = torch.from_numpy(tokens).to(dev)
+        n_params = sum(p.numel() for _, p in named)
+
+        def step():
+            opt_s.zero_grad()
+            opt_e.zero_grad()
+            loss = moe.moe_lm_loss(model, toks, capacity)
+            loss.backward()
+            opt_s.step()
+            opt_e.step()
+            return loss.detach()
+
+        run = _drive(step, cfg["warmup"], cfg["steps"], dev)
+        launches = dict(fa.LAUNCHES)
+        n_layers = len(model.shared.layers)
+        del model, opt_s, opt_e, step
+    finally:
+        hvd.shutdown()
+        free_memory(device)
+
+    steps = cfg["warmup"] + cfg["steps"]
+    log(f"14c MoE LM: {n_layers} layers x {mc['d_model']}, "
+        f"{mc['num_heads']} heads, d_ff {mc['d_ff']}, vocab "
+        f"{mc['vocab_size']}, {n_params / 1e6:.1f}M params on this rank, "
+        f"1 expert (world 1), batch {batch} x seq {seq}, capacity "
+        f"{capacity}, Adam(3e-3), {cfg['warmup']} warm-up + "
+        f"{cfg['steps']} timed steps")
+    log("  losses: " + " ".join(f"{v:.4f}" for v in run["losses"]))
+    log(f"  kernel launches: {launches}")
+    log_runtime("MoE LM", run["issued"])
+    hits = run["issued"]["cache_hits"]
+    log(f"  collectives requested a step {run['requested']}; alltoalls "
+        f"issued a step {run['alltoall']} (4 a layer)")
+    _falling("14c MoE LM", run["losses"])
+    check(all(h == n for h, n in zip(hits[1:], run["requested"][1:])),
+          f"14c: cache hits a step {hits}, requested {run['requested']}")
+    check(all(a == 4 * n_layers for a in run["alltoall"]),
+          f"14c: alltoalls a step {run['alltoall']}, want {4 * n_layers}")
+    if device.type == "cuda":
+        want = {k: 0 for k in launches}
+        want.update(dict.fromkeys(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), n_layers * steps))
+        check(launches == want, f"14c kernel launches {launches}, want "
+                                f"{want}")
+        where = f"({card})"
+        log(f"  step {run['step_ms']:.2f} ms median; tokens/s "
+            f"{batch * seq / (run['step_ms'] / 1e3):.1f} {where}")
+        log(f"  max_memory_allocated {run['peak'] / 2**30:.2f} GiB {where}")
+    return dict(launches=launches)
+
+
+def gpt_loss_turns(cfg, device, card) -> None:
+    """A16's measurement: GPT-2-small on phase 7's path (hooks, AdamW(1e-4,
+    weight_decay 1e-4), the bench's tokens, dq + dk/dv) with the
+    full-logits ``causal_lm_loss`` and with ``causal_lm_loss_chunked``
+    (``lm_chunk`` positions a chunk), in turns full, chunked, chunked,
+    full: each run's step ms and peak memory. Each run's first loss within
+    1e-3 of the first full run's (the same function up to float32
+    summation order)."""
+    batch, seq = cfg["gpt_batch"], cfg["gpt_seq"]
+    tokens = np.random.RandomState(0).randint(
+        0, cfg["gpt"]["vocab_size"], (batch, seq)).astype(np.int32)
+    chunk = cfg["lm_chunk"]
+    warm, timed = cfg["opt_turn_steps"]
+    hvd.init(device=None if device.type == "cuda" else "cpu")
+    runs = []
+    try:
+        dev = hvd.device()
+        toks = torch.from_numpy(tokens).to(dev)
+        for chunked in (False, True, True, False):
+            model = GPT2Small(**cfg["gpt"], device=dev, seed=0)
+            opt = adamw_optimizer(model)
+
+            def step():
+                opt.zero_grad()
+                if chunked:
+                    loss = causal_lm_loss_chunked(
+                        model(toks, output="hidden"), model.token_embed,
+                        toks, chunk)
+                else:
+                    loss = causal_lm_loss(model(toks), toks)
+                loss.backward()
+                opt.step()
+                return loss.detach()
+
+            run = _drive(step, warm, timed, dev)
+            run["chunked"] = chunked
+            runs.append(run)
+            del model, opt, step
+            free_memory(device)
+    finally:
+        hvd.shutdown()
+        free_memory(device)
+    where = f"({card})"
+    log(f"GPT-2-small loss turns (full, chunked {chunk}, chunked, full; "
+        f"{warm} + {timed} steps each, batch {batch} x seq {seq}):")
+    for run in runs:
+        name = f"chunked {chunk}" if run["chunked"] else "full logits"
+        log(f"  {name:12s}: step {run['step_ms']:.2f} ms median, "
+            f"max_memory_allocated {run['peak'] / 2**30:.3f} GiB, first "
+            f"loss {run['losses'][0]:.6f} {where}")
+        first = abs(run["losses"][0] - runs[0]["losses"][0]) / abs(
+            runs[0]["losses"][0])
+        check(first <= 1e-3 and all(math.isfinite(v) for v in run["losses"]),
+              f"GPT-2 chunked={run['chunked']}: first loss off by {first:.3e}")
+
+
+def options_and_models_phase(cfg, device, card, phase4_first) -> dict:
+    """Phase 14: 14a-14c and the loss turns; the flash launches of 14a and
+    14c for the kernels line (14d)."""
+    a = bert_options(cfg, device, card, phase4_first)
+    train_vgg(cfg, device, card)
+    c = train_moe(cfg, device, card)
+    gpt_loss_turns(cfg, device, card)
+    launches = {k: a["launches"][k] + c["launches"][k]
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    log(f"phase 14 kernel launches (14a + 14c): {launches}")
+    return launches
+
+
 GROUPS = (  # kernel-name fragments -> group, first match wins
     ("flash_", "attention kernels (port)"),
     ("sba_kernel", "BN + ReLU kernel B10 (port)"),
@@ -3864,7 +4280,16 @@ def main() -> int:
     else:  # float32 references: no TF32 in matmuls or convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    clock = {"start": time.perf_counter()}
+
+    def elapsed(what: str) -> None:  # where the script's time limit goes
+        now = time.perf_counter()
+        log(f"[{what}: {now - clock.get('last', clock['start']):.1f} s; "
+            f"{now - clock['start']:.1f} s in all]")
+        clock["last"] = now
+
     card = environment(dry)
+    elapsed("phase 1")
 
     # largest absolute error of each kernel's output over every case
     errs = dict.fromkeys(KERNELS, 0.0)
@@ -3900,29 +4325,42 @@ def main() -> int:
     errs.update(verrs)
     tiny_model_check(cfg, device)
     tiny_inception_check(cfg, device)
+    elapsed("phases 2-3")
     runs = {path: train(cfg, device, card, path, args.profile)
             for path in PATHS}
     compare_losses(runs)
     compare_fusion(cfg, device, card, runs["hooks"])
     compare_engines(cfg, device, card)
+    elapsed("phases 4-5, 4b, 4c")
     if args.turns > 1:
         compare_in_turns(cfg, device, card, runs, args.turns)
     inception = train_inception(cfg, device, card, args.profile)
     gpt = {fused: train_gpt(cfg, device, card, fused, args.profile)
            for fused in (False, True)}
     compare_gpt_runs(gpt[False], gpt[True])
+    elapsed("phases 6-7")
     resnet = train_resnet(cfg, device, card, args.profile)
+    elapsed("phase 8")
     check_collectives(device)
     training_api(cfg, device, card, resnet["losses"])
+    elapsed("phases 9-10")
     checkpoint_phase(cfg, device, card)
+    elapsed("phase 11")
     elastic_phase(cfg, device, card)
+    elapsed("phase 12")
     observability_phase(cfg, device, card)
+    elapsed("phase 13")
+    p14 = options_and_models_phase(cfg, device, card,
+                                   runs["hooks"]["losses"][0])
+    elapsed("phase 14")
     if dry:
         log("DRY RUN complete: control flow rehearsed; no result line")
         return 0
 
-    # each kernel's launches are counted on the path that runs it
-    launches = {**runs["hooks"]["launches"],
+    # each kernel's launches are counted on the paths that run it: the
+    # flash kernels on phase 4 and phase 14's BERT-Large (remat) and MoE LM
+    launches = {**{k: v + p14.get(k, 0)
+                   for k, v in runs["hooks"]["launches"].items()},
                 "adamw_multi": runs["fused"]["launches"]["adamw_multi"],
                 "flat_adamw": sum(runs[p]["launches"]["flat_adamw"]
                                   for p in ("zero", "zero2", "zero3")),

@@ -11,7 +11,9 @@ alltoall; allreduce, allgather and broadcast differentiable). Beyond it:
 ``grouped_allreduce``, the bucket-wise gradient release
 (``GradReleasePlan``), ZeRO stages 1-3 (``sharded_adamw``,
 ``sharded_update``, ``scatter_gradients``, ``shard_params``,
-``gather_params``, ``iter_param_buckets``), and ``flash_attention`` on
+``gather_params``, ``iter_param_buckets``), expert parallelism
+(``switch_moe`` over the runtime's all-to-all, ``load_balance_loss``,
+``default_capacity``, ``stack_stage_params``), and ``flash_attention`` on
 hand-written Hopper kernels (``csrc/``). The replicated fused AdamW is
 ``horovod_tpu_torch.ops.fused_adamw.fused_adamw``. Every collective goes
 through the enqueue runtime (``runtime/``): named, negotiated across the
@@ -123,6 +125,12 @@ from horovod_tpu_torch.ops.flash_attention import (  # noqa: F401
     flash_attention_partial,
 )
 from horovod_tpu_torch.parallel.buckets import GradReleasePlan  # noqa: F401
+from horovod_tpu_torch.parallel._util import stack_stage_params  # noqa: F401
+from horovod_tpu_torch.parallel.ep import (  # noqa: F401
+    default_capacity,
+    load_balance_loss,
+    switch_moe,
+)
 from horovod_tpu_torch.parallel.zero import (  # noqa: F401
     sharded_update,
     sharded_adamw,

@@ -10,9 +10,9 @@ JAX package's single controller, whose arrays are ``(world, shard)``
 stacked, and the port's per-rank shards (:func:`flat_state_from_jax`,
 :func:`flat_state_to_jax`).
 
-Inception-V3's and ResNet's variables go both ways by name
-(:func:`inception_from_flax` and :func:`resnet_from_flax`,
-:func:`inception_grads_to_flax` and :func:`resnet_grads_to_flax`,
+Inception-V3's, ResNet's, VGG's and MnistConvNet's variables go both
+ways by name (:func:`inception_from_flax`, :func:`resnet_from_flax`,
+:func:`vgg_from_flax`, :func:`mnist_from_flax` and their ``*_grads_to_flax``,
 :func:`batch_stats_to_flax`): the port's submodules carry flax's names, so
 the path of a flax leaf, joined with dots, is its state-dict key. A flax
 ``Conv`` kernel is HWIO where the port's is OIHW, and a ``Dense`` kernel
@@ -26,8 +26,15 @@ arrays (``{"params": {...}}`` or the inner dict). Layouts differ: a flax
 ``Dense`` kernel is ``(in, out)`` where ``nn.Linear.weight`` is ``(out,
 in)``; the attention's ``DenseGeneral`` q/k/v kernels are
 ``(d, heads, head_dim)`` with ``(heads, head_dim)`` biases, and its ``out``
-kernel is ``(heads, head_dim, d)``. Each entry of :func:`key_map` pairs a
-flax path with a torch key and the two layout conversions.
+kernel is ``(heads, head_dim, d)``; under ``fused_qkv`` one ``qkv``
+kernel ``(d, 3, heads, head_dim)`` takes their place. Each entry of
+:func:`key_map` pairs a flax path with a torch key and the two layout
+conversions.
+
+The MoE LM's tree (the JAX package's ``init_moe_lm``) goes to one rank's
+``MoeLM`` with :func:`moe_from_jax` (its expert leaves sliced at the rank)
+and back with :func:`moe_to_jax`; its weights keep the ``(in, out)``
+layout.
 """
 
 from __future__ import annotations
@@ -69,7 +76,11 @@ def _shaped(a, shape):
     return a.reshape(shape)
 
 
-def key_map(num_layers: int) -> List[Entry]:
+def key_map(num_layers: int, fused_qkv: bool = False) -> List[Entry]:
+    """The entries of a ``num_layers`` transformer; ``fused_qkv`` maps the
+    attention's one ``qkv`` kernel ``(d, 3, heads, head_dim)`` and bias
+    ``(3, heads, head_dim)`` to the port's ``qkv`` ``(3 d, d)`` weight and
+    ``(3 d,)`` bias instead of query, key and value."""
     entries: List[Entry] = [
         (("token_embed", "embedding"), "token_embed", _same, _same),
         (("pos_embed",), "pos_embed", _same, _same),
@@ -81,7 +92,7 @@ def key_map(num_layers: int) -> List[Entry]:
         for ln, tln in (("LayerNorm_0", "ln1"), ("LayerNorm_1", "ln2")):
             entries += [((fl, ln, "scale"), f"{tl}.{tln}.weight", _same, _same),
                         ((fl, ln, "bias"), f"{tl}.{tln}.bias", _same, _same)]
-        for name in ("query", "key", "value"):
+        for name in ("qkv",) if fused_qkv else ("query", "key", "value"):
             entries += [
                 ((fl, "attention", name, "kernel"),
                  f"{tl}.attention.{name}.weight", _dense_in, _dense_in_back),
@@ -115,12 +126,19 @@ def _num_layers(params) -> int:
     return sum(1 for k in params if k.startswith("layer_"))
 
 
+def _key_map_of(params) -> List[Entry]:
+    """The key map of a flax transformer tree, fused or not."""
+    n = _num_layers(params)
+    fused = n > 0 and "qkv" in params["layer_0"]["attention"]
+    return key_map(n, fused)
+
+
 def params_from_flax(tree) -> Dict[str, torch.Tensor]:
     """The port's state dict from a flax parameter tree of numpy arrays."""
     params = _inner(tree)
     return {tkey: torch.from_numpy(np.array(
                 to_torch(np.asarray(_get(params, path), np.float32))))
-            for path, tkey, to_torch, _ in key_map(_num_layers(params))}
+            for path, tkey, to_torch, _ in _key_map_of(params)}
 
 
 def grads_to_flax(tensors: Dict[str, torch.Tensor], like) -> dict:
@@ -129,7 +147,7 @@ def grads_to_flax(tensors: Dict[str, torch.Tensor], like) -> dict:
     structure and shapes."""
     params = _inner(like)
     out: dict = {}
-    for path, tkey, _, to_flax in key_map(_num_layers(params)):
+    for path, tkey, _, to_flax in _key_map_of(params):
         shape = np.shape(_get(params, path))
         node = out
         for k in path[:-1]:
@@ -258,10 +276,59 @@ def inception_grads_to_flax(tensors: Dict[str, torch.Tensor], like) -> dict:
     return out
 
 
-# ResNet's tree maps by the same rule (``models/resnet.py`` names its
-# submodules as flax does)
+# ResNet's, VGG's and MnistConvNet's trees map by the same rule
+# (``models/{resnet, vgg, mnist}.py`` name their submodules as flax does;
+# VGG and MnistConvNet flatten in flax's (H, W, C) order, so their first
+# dense kernel only transposes)
 resnet_from_flax = inception_from_flax
 resnet_grads_to_flax = inception_grads_to_flax
+vgg_from_flax = inception_from_flax
+vgg_grads_to_flax = inception_grads_to_flax
+mnist_from_flax = inception_from_flax
+mnist_grads_to_flax = inception_grads_to_flax
+
+
+def _tree_leaves(tree, prefix: Path = ()):
+    """(path, leaf) of every leaf of nested dicts and lists (a list's
+    index is a path element)."""
+    items = tree.items() if hasattr(tree, "items") else (
+        enumerate(tree) if isinstance(tree, (list, tuple)) else None)
+    if items is None:
+        yield prefix, tree
+        return
+    for k, v in items:
+        yield from _tree_leaves(v, prefix + (str(k),))
+
+
+def moe_from_jax(params, rank: int) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s ``MoeLM`` state dict from the JAX package's MoE
+    parameter tree (``init_moe_lm``'s ``{"shared", "experts"}``, numpy or
+    JAX arrays): the shared leaves whole, each expert leaf's row ``rank``
+    of its leading ``n_experts`` axis. Keys are the tree's paths joined
+    with dots; the weights keep their ``(in, out)`` layout."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _tree_leaves(params):
+        a = np.asarray(leaf, np.float32)
+        if path[0] == "experts":
+            a = a[rank]
+        out[".".join(path)] = torch.from_numpy(np.array(a))
+    return out
+
+
+def moe_to_jax(tensors: Dict[str, torch.Tensor], like) -> dict:
+    """A JAX-shaped MoE tree of numpy arrays from one rank's tensors keyed
+    like ``MoeLM``'s state dict (gradients, parameters): the structure of
+    ``like`` with every expert leaf of this rank alone (no leading
+    axis)."""
+
+    def build(node, prefix):
+        if hasattr(node, "items"):
+            return {k: build(v, prefix + (k,)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [build(v, prefix + (str(i),)) for i, v in enumerate(node)]
+        return tensors[".".join(prefix)].detach().float().cpu().numpy()
+
+    return build(like, ())
 
 
 def batch_stats_to_flax(model: torch.nn.Module) -> dict:

@@ -17,7 +17,12 @@ model constructors and the losses). Numerics follow the flax modules:
   sends its backward to the fused kernel);
 * :func:`causal_lm_loss_chunked` projects the vocab a chunk of positions at
   a time under ``torch.utils.checkpoint``, as the JAX package's
-  ``jax.checkpoint`` scan does.
+  ``jax.checkpoint`` scan does;
+* the options ``fused_qkv`` (one ``qkv`` projection, ``:99, 118-126``) and
+  ``remat`` (each layer under ``torch.utils.checkpoint``, ``:288,
+  374-375``) are the JAX model's; under ``remat`` the backward runs each
+  layer's forward again, so the flash forward launches twice a layer a
+  step.
 
 The KV-cache ``decode``/``paged`` serving branches are not ported yet.
 Weights carry across from the JAX package with ``models/convert.py``.
@@ -65,27 +70,41 @@ class LayerNorm(nn.LayerNorm):
 
 
 class SelfAttention(nn.Module):
-    """Multi-head self-attention on the flash kernels."""
+    """Multi-head self-attention on the flash kernels.
+
+    ``fused_qkv=True`` holds one ``qkv`` projection of ``3 * d_model``
+    outputs, ordered (3, heads, head_dim) as the JAX package's ``qkv``
+    ``DenseGeneral`` (``(d, 3, heads, head_dim)``) orders them; else
+    ``query``, ``key`` and ``value``, concatenated for the one product."""
 
     def __init__(self, d_model: int, num_heads: int, causal: bool = False,
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None, fused_qkv: bool = False):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"num_heads ({num_heads}) must divide d_model "
                              f"({d_model})")
         self.num_heads, self.causal, self.dtype = num_heads, causal, dtype
-        self.query = nn.Linear(d_model, d_model, device=device)
-        self.key = nn.Linear(d_model, d_model, device=device)
-        self.value = nn.Linear(d_model, d_model, device=device)
+        self.fused_qkv = fused_qkv
+        if fused_qkv:
+            self.qkv = nn.Linear(d_model, 3 * d_model, device=device)
+        else:
+            self.query = nn.Linear(d_model, d_model, device=device)
+            self.key = nn.Linear(d_model, d_model, device=device)
+            self.value = nn.Linear(d_model, d_model, device=device)
         self.out = nn.Linear(d_model, d_model, device=device)
 
     def forward(self, x):
         b, s, d = x.shape
         h = self.num_heads
-        # one (d, 3d) product for q, k and v; the parameters stay separate
-        w = torch.cat([self.query.weight, self.key.weight, self.value.weight])
-        bias = torch.cat([self.query.bias, self.key.bias, self.value.bias])
-        qkv = F.linear(x.to(self.dtype), w.to(self.dtype), bias.to(self.dtype))
+        if self.fused_qkv:
+            qkv = _dense(x, self.qkv, self.dtype)
+        else:  # one (d, 3d) product; the parameters stay separate
+            w = torch.cat([self.query.weight, self.key.weight,
+                           self.value.weight])
+            bias = torch.cat([self.query.bias, self.key.bias,
+                              self.value.bias])
+            qkv = F.linear(x.to(self.dtype), w.to(self.dtype),
+                           bias.to(self.dtype))
         # (b, s, 3, h, dh) -> 3 x (b, h, s, dh)
         q, k, v = (t.contiguous() for t in
                    qkv.view(b, s, 3, h, d // h).permute(2, 0, 3, 1, 4))
@@ -111,11 +130,12 @@ class TransformerLayer(nn.Module):
     """Pre-LayerNorm block: x + Attn(LN(x)); x + MLP(LN(x))."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int,
-                 causal: bool = False, dtype=torch.bfloat16, device=None):
+                 causal: bool = False, dtype=torch.bfloat16, device=None,
+                 fused_qkv: bool = False):
         super().__init__()
         self.ln1 = LayerNorm(d_model, dtype, device)
         self.attention = SelfAttention(d_model, num_heads, causal, dtype,
-                                       device)
+                                       device, fused_qkv)
         self.ln2 = LayerNorm(d_model, dtype, device)
         self.mlp = Mlp(d_model, d_ff, dtype, device)
 
@@ -131,21 +151,31 @@ class Transformer(nn.Module):
     encoder. Parameters are made on ``device`` (default: the card, see
     :func:`horovod_tpu_torch.utils.device.resolve`) from ``seed`` with
     flax's initialisers (normal(0.02) embeddings, LeCun-normal dense
-    kernels)."""
+    kernels).
+
+    ``fused_qkv`` gives each attention one ``qkv`` projection (see
+    :class:`SelfAttention`; :func:`fuse_qkv_state` carries an unfused
+    model's weights across). ``remat`` runs each layer under
+    ``torch.utils.checkpoint`` (the JAX package's ``nn.remat``): the
+    backward recomputes the layer's forward, the flash forward included,
+    instead of keeping its activations."""
 
     def __init__(self, vocab_size: int, d_model: int = 768,
                  num_layers: int = 12, num_heads: int = 12, d_ff: int = 3072,
                  max_seq: int = 512, causal: bool = False,
-                 dtype=torch.bfloat16, device=None, seed: int = 0):
+                 dtype=torch.bfloat16, device=None, seed: int = 0,
+                 remat: bool = False, fused_qkv: bool = False):
         super().__init__()
         device = resolve(device)
         self.vocab_size, self.max_seq, self.dtype = vocab_size, max_seq, dtype
+        self.remat = remat
         self.token_embed = nn.Parameter(
             torch.empty(vocab_size, d_model, device=device))
         self.pos_embed = nn.Parameter(torch.empty(max_seq, d_model,
                                                   device=device))
         self.layers = nn.ModuleList(
-            TransformerLayer(d_model, num_heads, d_ff, causal, dtype, device)
+            TransformerLayer(d_model, num_heads, d_ff, causal, dtype, device,
+                             fused_qkv)
             for _ in range(num_layers))
         self.final_norm = LayerNorm(d_model, dtype, device)
         self.reset_parameters(seed)
@@ -181,11 +211,32 @@ class Transformer(nn.Module):
         x = (F.embedding(token_ids, self.token_embed).to(self.dtype)
              + self.pos_embed[pos_offset:pos_offset + seq].to(self.dtype))
         for layer in self.layers:
-            x = layer(x)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, use_reentrant=False)
+            else:
+                x = layer(x)
         x = self.final_norm(x)
         if output == "hidden":
             return x
         return (x @ self.token_embed.to(self.dtype).T).float()
+
+
+def fuse_qkv_state(state: dict) -> dict:
+    """An unfused model's state dict as a ``fused_qkv=True`` model's: each
+    layer's ``query``, ``key`` and ``value`` weights and biases,
+    concatenated in that order, become its ``qkv`` (the other entries stay
+    as they are)."""
+    out = {}
+    for key, t in state.items():
+        head, _, leaf = key.rpartition(".")
+        prefix, _, name = head.rpartition(".")
+        if name == "query":
+            out[f"{prefix}.qkv.{leaf}"] = torch.cat(
+                [state[f"{prefix}.{n}.{leaf}"]
+                 for n in ("query", "key", "value")])
+        elif name not in ("key", "value") or not prefix.endswith("attention"):
+            out[key] = t
+    return out
 
 
 # BERT family (bidirectional encoders; BERT-Large: 24 layers, hidden 1024,

@@ -1,7 +1,8 @@
 """Parallelism strategies of the port (port of
-``horovod_tpu/parallel/__init__.py``): data parallel and ZeRO. The
-sequence-parallel ``ring_attention`` and ``ulysses_attention`` come with
-ROADMAP A9."""
+``horovod_tpu/parallel/__init__.py``): data parallel, ZeRO, and expert
+parallelism (``switch_moe``, ``load_balance_loss``, ``default_capacity``,
+with ``stack_stage_params``). The sequence-parallel ``ring_attention`` and
+``ulysses_attention`` come with ROADMAP A9."""
 
 from horovod_tpu_torch.parallel.dp import (
     DistributedGradientTape,
@@ -11,6 +12,12 @@ from horovod_tpu_torch.parallel.dp import (
     broadcast_parameters,
 )
 from horovod_tpu_torch.ops.collectives import broadcast_object
+from horovod_tpu_torch.parallel._util import stack_stage_params
+from horovod_tpu_torch.parallel.ep import (
+    default_capacity,
+    load_balance_loss,
+    switch_moe,
+)
 from horovod_tpu_torch.parallel.zero import (
     FlatAdamState,
     ShardedOptState,
@@ -29,4 +36,8 @@ __all__ = [
     "sharded_adamw",
     "ShardedOptState",
     "FlatAdamState",
+    "switch_moe",
+    "load_balance_loss",
+    "default_capacity",
+    "stack_stage_params",
 ]

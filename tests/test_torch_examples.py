@@ -3,7 +3,8 @@ the CPU (``--device cpu``), at tiny sizes: each rank exits 0 and prints
 what the JAX package's example prints. ``bert_large_sparse`` prints
 "lockstep OK" on every rank, as ``tests/test_tpurun_integration.py`` asks
 of the JAX one; ``synthetic_benchmark`` runs with and without
-``--fp16-allreduce``."""
+``--fp16-allreduce``; ``moe`` (two experts, one a rank) runs at its
+defaults and its loss falls."""
 
 import os
 import subprocess
@@ -21,6 +22,7 @@ CASES = {
     "synthetic_benchmark_fp16": (["--batch-size", "8", "--image-size", "32",
                                   "--fp16-allreduce"], "Img/sec total:"),
     "mnist": (["--epochs", "1"], "epoch 0: loss"),
+    "moe": ([], "final loss"),  # its defaults: 50 steps, d 64
 }
 
 
@@ -51,5 +53,9 @@ def test_example_runs_on_two_gloo_ranks(case, tmp_path):
             assert marker in out, out[-3000:]
     if case == "bert_large_sparse":
         assert "step 1: loss" in outs[0]
+    if case == "moe":
+        losses = [float(line.split("loss ")[1].split()[0])
+                  for line in outs[0].splitlines() if "loss " in line]
+        assert losses[-1] < losses[0], losses
     if case.startswith("synthetic"):
         assert "Batch size: 8, workers: 2" in outs[0]

@@ -278,6 +278,23 @@ Phases (any failure exits non-zero):
    ``causal_lm_loss_chunked`` (128 positions a chunk), in turns full,
    chunked, chunked, full (2 + 3 steps each): each run's step ms and
    peak memory, its first loss within 1e-3 of the first run's.
+15. The gradient wire's extensions (no kernel of their own). 15a: the
+   hardware probes at world 1 (``autotune/probe.probe_and_seed``) with
+   ``HOROVOD_PROBE_CACHE`` at a temporary path: the 64 MiB device copy's
+   GB/s beside the 3.35 TB/s peak (below it), the allreduce probe (at
+   world 1 one read and one write of its buffer, busbw 0) and the seeded
+   fusion threshold; the artifact read back (a second call probes nothing
+   and seeds the same threshold) and ignored at world 4; the ``device``
+   roofline unseeded at world 1. 15b: BERT-Large at full width on phase
+   4's hooks path from phase 4's seed-0 weights with ``HOROVOD_AUTOTUNE=1``
+   (one warm-up sample, one busy cycle a sample, three Bayesian points),
+   phase 4's steps and then until the tuner freezes (at most
+   ``autotune_max_steps``): every ``autotune_commit`` and the frozen knobs
+   printed, the losses bit-equal to phase 4's (every reduction at world 1
+   is exact), B1-B6 once a layer a step; then the first knobs and the
+   frozen ones in turns (first, frozen, frozen, first; 2 + 3 steps), each
+   run's losses bit-equal to phase 4's and its step ms beside the card's
+   name and power limit.
 
 Between them: 2d. kernel B10 (fused BN + ReLU) bit-equal to its plain
 version at every distinct BN input of Inception-V3 at batch 32 (bf16),
@@ -307,8 +324,8 @@ driven once with its count set to 0 just before, then timed beside its
 bound and SDPA's forward.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (each kernel's
-launches counted on the paths that run it: the flash kernels on phase 4
-and on 14a and 14c,
+launches counted on the paths that run it: the flash kernels on phase 4,
+on 14a and 14c and on 15b,
 the multi-tensor AdamW on P1, the flat AdamW on P2, P4 and P5, B10 on phase 6, B11 on
 the probe's phase 2e, B7 on phase 7's fused run, B12-B14 on the probe's
 phase 2g), the card's name and power limit, and ``{"ok": true,
@@ -339,6 +356,7 @@ import torch
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch import comms, flight_recorder, goodput, memory
+from horovod_tpu_torch.autotune import probe as aprobe
 from horovod_tpu_torch.core import state as state_mod
 from horovod_tpu_torch.metrics import flatten_snapshot
 from horovod_tpu_torch.metrics import registry as metrics_registry
@@ -455,7 +473,9 @@ FULL = dict(
     opt_turn_steps=(2, 3),
     vgg=dict(batch=256, size=224, classes=1000, dtype=BF16, threshold=None),
     moe_lm=dict(vocab_size=50257, d_model=768, num_layers=12, num_heads=12,
-                d_ff=3072, max_seq=1024), moe_batch=8, lm_chunk=128)
+                d_ff=3072, max_seq=1024), moe_batch=8, lm_chunk=128,
+    # phase 15b: the autotuned run's steps until the tuner freezes, at most
+    autotune_max_steps=40)
 DRY = dict(
     cases={"a": (1, 2, 64, 64, False, 0, 0), "b": (1, 2, 96, 64, True, 0, 0),
            "d_masked": (1, 2, 64, 64, True, 8, 40),
@@ -484,7 +504,8 @@ DRY = dict(
     opt_turn_steps=(1, 1),
     vgg=dict(batch=2, size=32, classes=10, dtype=F32, threshold=4 << 20),
     moe_lm=dict(vocab_size=512, d_model=128, num_layers=2, num_heads=2,
-                d_ff=256, max_seq=64), moe_batch=2, lm_chunk=16)
+                d_ff=256, max_seq=64), moe_batch=2, lm_chunk=16,
+    autotune_max_steps=60)
 
 
 def check(ok: bool, what: str) -> None:
@@ -4188,6 +4209,222 @@ def options_and_models_phase(cfg, device, card, phase4_first) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the gradient wire's extensions (the probes and the autotuner)
+# ---------------------------------------------------------------------------
+
+
+def probes_15a(device, card) -> None:
+    """15a: the hardware probes at world 1 through ``probe_and_seed`` with
+    the probe cache at a temporary path: the memory copy bandwidth beside
+    the 3.35 TB/s peak, the allreduce probe (at world 1 one read and one
+    write of its buffer: the JAX probe's one-device pass), the seeded
+    threshold; the artifact read back (the second call probes nothing and
+    seeds the same threshold), ignored at another world size; the
+    ``device`` roofline stays unseeded at world 1, whose bus bandwidth is
+    0 by the bus factor."""
+    hvd.init(device=None if device.type == "cuda" else "cpu")
+    tracker = comms.tracker()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "probe.json")
+            with knobs(**{env.HOROVOD_PROBE_CACHE: path}):
+                cfg1 = env.Config.from_env()
+                t0 = time.perf_counter()
+                m = aprobe.probe_and_seed(cfg1, world=hvd.size(),
+                                          rank=hvd.rank())
+                probe_s = time.perf_counter() - t0
+                cfg2 = env.Config.from_env()
+                again = aprobe.probe_and_seed(cfg2, world=hvd.size(),
+                                              rank=hvd.rank())
+                doc = aprobe.load_cached_roofline(path, world=hvd.size())
+                other = aprobe.load_cached_roofline(path, world=4)
+                with tracker._lock:
+                    tracker._roofline.pop("device", None)
+                comms.configure(rank=hvd.rank(), world=hvd.size())
+                seeded = tracker._roofline.get("device")
+    finally:
+        hvd.shutdown()
+    where = "(no device times)" if device.type != "cuda" else f"({card})"
+    log(f"15a probes at world 1 ({probe_s:.2f} s): memory copy "
+        f"{m['hbm_gbps']:.1f} GB/s ({m['hbm_gbps'] / (PEAK_BYTES / 1e9):.3f}"
+        f" of the 3350 GB/s peak), allreduce algbw "
+        f"{m['allreduce_gbps']:.1f} GB/s (world 1: a read and a write of "
+        f"its buffer), busbw {m['allreduce_busbw_gbps']:.1f} GB/s -> "
+        f"fusion threshold {m['fusion_threshold_bytes']} bytes {where}")
+    check(not m["cached"] and m["hbm_gbps"] > 0 and m["allreduce_gbps"] > 0,
+          f"15a probe: {m}")
+    if device.type == "cuda":
+        check(m["hbm_gbps"] < PEAK_BYTES / 1e9 * 1.02,
+              f"15a copy bandwidth {m['hbm_gbps']:.1f} GB/s above the peak")
+    check(again["cached"] and again["hbm_gbps"] == m["hbm_gbps"]
+          and cfg2.fusion_threshold_bytes == cfg1.fusion_threshold_bytes,
+          f"15a cache: second probe {again}")
+    check(doc is not None and doc["hbm_gbps"] == m["hbm_gbps"]
+          and doc["fusion_threshold_bytes"] == m["fusion_threshold_bytes"],
+          f"15a cache file {doc}")
+    check(other is None, "15a: an artifact of world 1 read at world 4")
+    check(m["allreduce_busbw_gbps"] == 0.0 and seeded is None,
+          f"15a: device roofline {seeded} at world 1")
+    log(f"  15a probe cache: written, read back (second call cached, the "
+        f"same threshold), ignored at world 4; the device roofline stays "
+        f"unseeded at world 1 (bus bandwidth 0)")
+
+
+AUTOTUNE_KNOBS = {env.HOROVOD_AUTOTUNE: 1,
+                  env.HOROVOD_AUTOTUNE_WARMUP_SAMPLES: 1,
+                  env.HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE: 1,
+                  env.HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES: 3}
+
+
+def _bert_run(cfg, device, state: dict, batch, steps: tuple,
+              until_frozen=0):
+    """One BERT-Large run on phase 4's hooks path from ``state`` (phase 4's
+    seed-0 weights) under the knobs of the environment: ``init()``, the
+    steps (``warm-up, timed``; with ``until_frozen``, more steps until the
+    autotuner freezes, at most that many), ``shutdown()``. Returns the
+    losses, step ms, flash launches, and the tuner's view at the end."""
+    toks, pos, lab = batch
+    moved = flatten_snapshot(hvd.metrics()).get(
+        "horovod_autotune_commits_total", 0)
+    hvd.init(device=None if device.type == "cuda" else "cpu")
+    dev = hvd.device()
+    since, commits = time.time(), {}
+
+    def collect():
+        # the flight recorder's ring holds a few steps of events: its
+        # autotune commits are read after every step
+        for e in list(flight_recorder.recorder()._events):
+            if e["kind"] == "autotune_commit" and e["t"] >= since:
+                commits.setdefault(e["t"], e)
+
+    try:
+        model = BertLarge(**cfg["model"], device="meta")
+        model.load_state_dict({k: v.to(dev, copy=True)
+                               for k, v in state.items()}, assign=True)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        collect()
+        opt = adamw_optimizer(model)
+
+        def step():
+            opt.zero_grad()
+            loss = masked_lm_loss_gathered(model(toks, output="hidden"),
+                                           model.token_embed, pos, lab)
+            loss.backward()
+            opt.step()
+            collect()
+            return loss.detach()
+
+        fa.reset_launch_counts()
+        run = _drive(step, *steps, dev)
+        rt = state_mod.global_state().runtime
+        while until_frozen and rt._autotune_active \
+                and len(run["losses"]) < until_frozen:
+            run["losses"].append(step().item())
+        run.update(launches=dict(fa.LAUNCHES),
+                   steps=len(run["losses"]),
+                   active=rt._autotune_active,
+                   params=(rt.param_manager.params()
+                           if rt.param_manager is not None else None),
+                   swept=(rt.param_manager.swept_knobs
+                          if rt.param_manager is not None else ()),
+                   n_layers=len(model.layers))
+        del model, opt, step
+    finally:
+        hvd.shutdown()
+        free_memory(device)
+    collect()
+    run["commits"] = [commits[t] for t in sorted(commits)]
+    run["commits_counted"] = flatten_snapshot(hvd.metrics()).get(
+        "horovod_autotune_commits_total", 0) - moved
+    return run
+
+
+def autotune_15b(cfg, device, card, phase4: list) -> dict:
+    """15b: BERT-Large at full width on phase 4's hooks path with
+    ``HOROVOD_AUTOTUNE=1`` (one warm-up sample, one busy cycle a sample,
+    three Bayesian points: the tuner freezes within the phase), the same
+    steps as phase 4, then until it freezes; every ``autotune_commit`` and
+    the frozen knobs printed; then the step ms in turns with the first
+    knobs and the frozen ones (first, frozen, frozen, first). At world 1
+    every reduction is exact, so every run's losses equal phase 4's bit for
+    bit, under every knob set the tuner tried."""
+    tokens, positions, labels, _ = mlm_data(cfg)
+    dev = torch.device("cuda") if device.type == "cuda" else device
+    batch = tuple(torch.from_numpy(a).to(dev)
+                  for a in (tokens, positions, labels))
+    state = {k: v.detach().cpu() for k, v in
+             BertLarge(**cfg["model"], device=dev, seed=0)
+             .state_dict().items()}
+    free_memory(device)
+    where = "(no device times)" if device.type != "cuda" else f"({card})"
+    with tempfile.TemporaryDirectory() as tmp, \
+            knobs(**AUTOTUNE_KNOBS,
+                  **{env.HOROVOD_AUTOTUNE_LOG: os.path.join(tmp, "at.csv")}):
+        tuned = _bert_run(cfg, device, state, batch,
+                          (cfg["warmup"], cfg["steps"]),
+                          until_frozen=cfg["autotune_max_steps"])
+        csv_rows = open(os.path.join(tmp, "at.csv")).read().splitlines()
+    log(f"15b autotune on BERT-Large (hooks, AdamW), batch {cfg['batch']} x "
+        f"seq {cfg['seq']}: swept {','.join(tuned['swept'])}; frozen after "
+        f"{tuned['steps']} steps; {len(tuned['commits'])} commits, "
+        f"{len(csv_rows) - 2} scored points in the CSV log")
+    for e in tuned["commits"]:
+        log("  autotune_commit " + json.dumps(
+            {k: v for k, v in e.items() if k not in ("t", "kind")}))
+    frozen = tuned["params"]
+    check(not tuned["active"] and frozen is not None and not frozen.active,
+          f"15b: the tuner did not freeze within {tuned['steps']} steps")
+    check(len(tuned["commits"]) >= 2 and not tuned["commits"][-1]["active"]
+          and len(tuned["commits"]) == tuned["commits_counted"],
+          f"15b commits {tuned['commits']}, "
+          f"horovod_autotune_commits_total moved {tuned['commits_counted']}")
+    log(f"  frozen knobs: fusion threshold {frozen.fusion_threshold_bytes} "
+        f"bytes, cycle {frozen.cycle_time_ms:.3f} ms, cache "
+        f"{frozen.cache_enabled}, pipeline depth "
+        f"{frozen.cycle_pipeline_depth}, grad bucket "
+        f"{frozen.grad_bucket_bytes} bytes")
+    n = min(len(phase4), len(tuned["losses"]))
+    check(tuned["losses"][:n] == phase4[:n],
+          f"15b autotuned losses {tuned['losses'][:n]} not bit-equal to "
+          f"phase 4's {phase4[:n]}")
+    log("  losses (bit-equal to phase 4's): "
+        + " ".join(f"{x:.4f}" for x in tuned["losses"]))
+    turns = {}
+    frozen_knobs = {env.HOROVOD_FUSION_THRESHOLD:
+                    frozen.fusion_threshold_bytes,
+                    env.HOROVOD_CYCLE_TIME: repr(frozen.cycle_time_ms),
+                    env.HOROVOD_CYCLE_PIPELINE_DEPTH:
+                    frozen.cycle_pipeline_depth}
+    if not frozen.cache_enabled:
+        frozen_knobs[env.HOROVOD_CACHE_CAPACITY] = 0
+    for label in ("first", "frozen", "frozen", "first"):
+        with knobs(**(frozen_knobs if label == "frozen" else {})):
+            run = _bert_run(cfg, device, state, batch, cfg["opt_turn_steps"])
+        check(run["losses"] == phase4[:len(run["losses"])],
+              f"15b {label} knobs: losses {run['losses']} not bit-equal to "
+              f"phase 4's")
+        turns.setdefault(label, []).append(run["step_ms"])
+    log(f"  step ms in turns, first knobs: {turns['first']}, frozen knobs: "
+        f"{turns['frozen']} {where}; every turn's losses bit-equal to phase "
+        f"4's")
+    if device.type == "cuda":
+        want = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                             tuned["n_layers"] * tuned["steps"])
+        got = {k: tuned["launches"][k] for k in want}
+        check(got == want, f"15b kernel launches {got}, want {want}")
+    log(f"phase 15 kernel launches (15b's autotuned run): "
+        f"{tuned['launches']}")
+    return tuned["launches"]
+
+
+def wire_extensions_phase(cfg, device, card, phase4: list) -> dict:
+    """Phase 15: 15a and 15b; the flash launches of 15b for the kernels
+    line."""
+    probes_15a(device, card)
+    return autotune_15b(cfg, device, card, phase4)
+
+
 GROUPS = (  # kernel-name fragments -> group, first match wins
     ("flash_", "attention kernels (port)"),
     ("sba_kernel", "BN + ReLU kernel B10 (port)"),
@@ -4353,13 +4590,16 @@ def main() -> int:
     p14 = options_and_models_phase(cfg, device, card,
                                    runs["hooks"]["losses"][0])
     elapsed("phase 14")
+    p15 = wire_extensions_phase(cfg, device, card, runs["hooks"]["losses"])
+    elapsed("phase 15")
     if dry:
         log("DRY RUN complete: control flow rehearsed; no result line")
         return 0
 
     # each kernel's launches are counted on the paths that run it: the
-    # flash kernels on phase 4 and phase 14's BERT-Large (remat) and MoE LM
-    launches = {**{k: v + p14.get(k, 0)
+    # flash kernels on phase 4, phase 14's BERT-Large (remat) and MoE LM
+    # and phase 15's autotuned BERT-Large
+    launches = {**{k: v + p14.get(k, 0) + p15.get(k, 0)
                    for k, v in runs["hooks"]["launches"].items()},
                 "adamw_multi": runs["fused"]["launches"]["adamw_multi"],
                 "flat_adamw": sum(runs[p]["launches"]["flat_adamw"]

@@ -13,7 +13,9 @@ alltoall; allreduce, allgather and broadcast differentiable). Beyond it:
 ``sharded_update``, ``scatter_gradients``, ``shard_params``,
 ``gather_params``, ``iter_param_buckets``), expert parallelism
 (``switch_moe`` over the runtime's all-to-all, ``load_balance_loss``,
-``default_capacity``, ``stack_stage_params``), and ``flash_attention`` on
+``default_capacity``, ``stack_stage_params``), sparse embedding gradients
+(``with_sparse_embedding_grad``, ``SparseGrad``, ``sparse_allgather``),
+and ``flash_attention`` on
 hand-written Hopper kernels (``csrc/``). The replicated fused AdamW is
 ``horovod_tpu_torch.ops.fused_adamw.fused_adamw``. Every collective goes
 through the enqueue runtime (``runtime/``): named, negotiated across the
@@ -28,7 +30,11 @@ two-phase checkpoint with neighbour replicas); a damaged checkpoint raises
 ``hvd.CheckpointCorruptError``. ``hvd.elastic`` (``run``, ``State``,
 ``ObjectState``, ``ArrayState``, ``restarts``) re-forms a world that lost a
 worker through the rendezvous store (``horovod_tpu_torch.run``) and
-``hvd.reinit()``, and rolls back in place after an integrity verdict. The
+``hvd.reinit()``, and rolls back in place after an integrity verdict.
+``HOROVOD_HIERARCHICAL_ALLREDUCE`` / ``_ALLGATHER`` run the collectives in
+two levels over sub-communicators (``runtime/hierarchy.py``) and
+``HOROVOD_AUTOTUNE`` tunes the runtime's knobs while training runs
+(``horovod_tpu_torch.autotune``). The
 observability planes are modules too: ``hvd.flight_recorder`` (the event
 ring and its dumps, ``hvd.dump_debug_state()``), ``hvd.memory`` (the byte
 ledger against the CUDA allocator), ``hvd.comms`` (each collective's
@@ -126,6 +132,11 @@ from horovod_tpu_torch.ops.flash_attention import (  # noqa: F401
 )
 from horovod_tpu_torch.parallel.buckets import GradReleasePlan  # noqa: F401
 from horovod_tpu_torch.parallel._util import stack_stage_params  # noqa: F401
+from horovod_tpu_torch.parallel.sparse import (  # noqa: F401
+    SparseGrad,
+    sparse_allgather,
+    with_sparse_embedding_grad,
+)
 from horovod_tpu_torch.parallel.ep import (  # noqa: F401
     default_capacity,
     load_balance_loss,

@@ -15,9 +15,14 @@ seconds)`` records from each lane that moves bytes. The port records:
   ``device`` records of the collectives it rode;
 * ``kv``: the rendezvous KV store's round trips (``run/rendezvous.py``).
 
-``host_ring``, ``spmd``, ``bucket_wire``, ``hier_intra`` and
-``hier_cross`` keep their names in :data:`LANES`; the port has no path
-for them yet.
+* ``hier_intra`` and ``hier_cross``: the two-level collectives' hops
+  (``runtime/hierarchy.py``), each hop's call on its own group.
+
+``host_ring``, ``spmd`` and ``bucket_wire`` keep their names in
+:data:`LANES`; the port has no path for them. ``configure`` seeds the
+``device``, ``hier_intra`` and ``hier_cross`` rooflines from the probe
+cache (``HOROVOD_PROBE_CACHE``, ``autotune/probe.py``) probed at this
+world size.
 
 **The seconds on the card are the device's.** NCCL runs asynchronously on
 the runtime's comm stream, so a host interval from dispatch to drain is
@@ -497,9 +502,10 @@ def record_span(op: str, lane: str, nbytes: int, s: Span,
 
 def configure(rank: Optional[int] = None,
               world: Optional[int] = None) -> None:
-    """Take the rank and world, parse the ``HOROVOD_COMMS_*`` knobs and
-    register the flight recorder's ``comms`` provider. From
-    ``hvd.init()`` (again at each elastic re-init)."""
+    """Take the rank and world, parse the ``HOROVOD_COMMS_*`` knobs, seed
+    the lanes' rooflines from the probe cache and register the flight
+    recorder's ``comms`` provider. From ``hvd.init()`` (again at each
+    elastic re-init)."""
     t = _tracker
     if rank is not None:
         t.rank = int(rank)
@@ -511,12 +517,35 @@ def configure(rank: Optional[int] = None,
         HOROVOD_COMMS_EWMA_ALPHA, DEFAULT_EWMA_ALPHA)))
     t.degraded_fraction = env._get_float(HOROVOD_COMMS_DEGRADED_FRACTION,
                                          DEFAULT_DEGRADED_FRACTION)
+    _seed_from_probe_cache(t)
     from horovod_tpu_torch import flight_recorder
 
     if t.enabled:
         flight_recorder.set_state_provider("comms", t.ledger)
     else:
         flight_recorder.set_state_provider("comms", None)
+
+
+def _seed_from_probe_cache(t: "CommsTracker") -> None:
+    """Seed lane rooflines from the probe cache (``HOROVOD_PROBE_CACHE``,
+    ``autotune/probe.py``) when it matches this world: the data group's
+    allreduce bus bandwidth bounds the ``device`` lane (the port has no
+    ``spmd`` lane), the hierarchy's hops their own lanes. A corrupt value
+    seeds nothing."""
+    from horovod_tpu_torch.autotune import probe
+
+    roofline = probe.load_cached_roofline(world=t.world)
+    if not roofline:
+        return
+    for lane, key in (("device", "allreduce_busbw_gbps"),
+                      ("hier_intra", "hier_intra_busbw_gbps"),
+                      ("hier_cross", "hier_cross_busbw_gbps")):
+        try:
+            value = float(roofline.get(key) or 0.0)
+        except (TypeError, ValueError):
+            continue
+        if value > 0:
+            t.seed_roofline(lane, value, source="probe_cache")
 
 
 _DATA_LANES = frozenset(("device", "host_ring", "spmd", "zero",

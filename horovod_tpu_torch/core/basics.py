@@ -22,7 +22,9 @@ on every rank: the control group (gloo, for negotiation, with
 a typed error within it) and the data group (the collectives: NCCL on the
 card, gloo on the CPU). Its own groups keep the runtime's calls apart from
 any a user makes on the default group. The runtime itself starts at the
-first enqueue; ``shutdown()`` stops it before it destroys the groups.
+first enqueue; ``shutdown()`` stops it and destroys the two-level
+collectives' groups (``runtime/hierarchy.py``; aborts them on the card
+after a lost peer) before it destroys the world's.
 
 ``shutdown()`` survives a dead peer: after the runtime went down for a
 failure, a collective the dead peer never joins may sit on the card's comm
@@ -194,6 +196,9 @@ def shutdown() -> None:
             st.runtime.stop()
             failed = (st.runtime.failure is not None
                       or st.runtime.executor.failure is not None)
+            # the two-level collectives' groups go before the world's
+            st.runtime.executor.drop_hierarchy(
+                abort=failed and st.device.type == "cuda")
         profiler.finalize()
         reg = metrics_registry()
         reg.stop_server()

@@ -39,15 +39,14 @@ wait, pipeline depth), ``runtime/tensor_queue.py`` (depth, enqueued),
 bytes and leases out, purpose ``fusion``), ``runtime/executor.py`` (op
 duration, bytes and errors by op, comm exposed seconds), ``stall.py``
 (warnings, shutdowns, straggler lag, negotiation skew) and ``timeline.py``
-(dropped events), ``profiler.py`` (step seconds, comm hidden fraction,
-MFU), ``integrity/guards.py`` (skipped steps), ``ckpt/stats.py`` (the
+(dropped events), ``runtime/runtime.py`` (the autotuner's committed
+``horovod_autotune_param{knob}`` and ``horovod_autotune_commits_total``),
+``profiler.py`` (step seconds, comm hidden fraction, MFU), ``integrity/guards.py`` (skipped steps), ``ckpt/stats.py`` (the
 checkpoint's commits, abandons, bytes, snapshot, commit and restore
 seconds, replica restores, integrity failures).
 
 Not ported: ``horovod_elastic_faults_injected_total`` waits for the
 elastic ``State`` that fires the faults it counts;
-``horovod_autotune_param`` and ``horovod_autotune_commits_
-total`` wait for the autotuner (ROADMAP A8);
 ``horovod_executor_program_compiles_total`` and ``_program_cache_hits_
 total`` count compiled XLA programs and ``horovod_executor_pad_bytes_total``
 their bucket padding, none of which the port has (NCCL compiles nothing

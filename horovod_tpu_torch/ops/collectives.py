@@ -371,15 +371,18 @@ def broadcast_object(obj, root_rank: int = 0, name: Optional[str] = None):
 class SparseHandle:
     """Future of a sparse allreduce (``horovod_tpu/torch/mpi_ops.py:193-
     225``): the two gathers of every rank's indices and values. ``wait``
-    builds the COO result; duplicates sum on ``coalesce``, so the result
-    is the allreduce of the dense tensors the ranks hold."""
+    decompresses the values and builds the COO result; duplicates sum on
+    ``coalesce``, so the result is the allreduce of the dense tensors the
+    ranks hold."""
 
-    __slots__ = ("_h_idx", "_h_vals", "_shape", "_average", "_result")
+    __slots__ = ("_h_idx", "_h_vals", "_shape", "_average", "_compression",
+                 "_ctx", "_result")
 
     def __init__(self, h_idx: Handle, h_vals: Handle, shape,
-                 average: bool):
+                 average: bool, compression=Compression.none, ctx=None):
         self._h_idx, self._h_vals = h_idx, h_vals
         self._shape, self._average = shape, average
+        self._compression, self._ctx = compression, ctx
         self._result = None
 
     def poll(self) -> bool:
@@ -389,7 +392,8 @@ class SparseHandle:
     def wait(self) -> torch.Tensor:
         if self._result is None:
             idx = synchronize(self._h_idx)    # (nnz of all ranks, ndim)
-            vals = synchronize(self._h_vals)  # (nnz of all ranks, ...)
+            vals = self._compression.decompress(
+                synchronize(self._h_vals), self._ctx)
             if self._average:
                 vals = vals / basics.size()
             self._result = torch.sparse_coo_tensor(
@@ -398,17 +402,21 @@ class SparseHandle:
 
 
 def sparse_allreduce_async(tensor: torch.Tensor, average: bool = True,
-                           name: Optional[str] = None) -> SparseHandle:
+                           name: Optional[str] = None,
+                           compression=Compression.none) -> SparseHandle:
     """Allreduce a sparse COO tensor without densifying it
     (``horovod_tpu/torch/mpi_ops.py:228-245``): every rank's coalesced
     indices and values are gathered (ragged dim 0: each rank has its own
-    nnz), as ``"<name>.indices"`` and ``"<name>.values"``."""
+    nnz), as ``"<name>.indices"`` and ``"<name>.values"``; ``compression``
+    casts the values on the wire (the JAX package's
+    ``exchange_sparse_grad``)."""
     t = tensor.coalesce()
     name = _op_name("sparse_allreduce", name)
+    values, ctx = compression.compress(t.values().contiguous())
     h_idx = allgather_async(t.indices().t().contiguous(),
                             name=f"{name}.indices")
-    h_vals = allgather_async(t.values().contiguous(), name=f"{name}.values")
-    return SparseHandle(h_idx, h_vals, t.shape, average)
+    h_vals = allgather_async(values.contiguous(), name=f"{name}.values")
+    return SparseHandle(h_idx, h_vals, t.shape, average, compression, ctx)
 
 
 class _AllreduceFunction(torch.autograd.Function):

@@ -1,7 +1,9 @@
 """Parallelism strategies of the port (port of
-``horovod_tpu/parallel/__init__.py``): data parallel, ZeRO, and expert
-parallelism (``switch_moe``, ``load_balance_loss``, ``default_capacity``,
-with ``stack_stage_params``). The sequence-parallel ``ring_attention`` and
+``horovod_tpu/parallel/__init__.py``): data parallel, sparse embedding
+gradients (``SparseGrad``, ``sparse_allgather``,
+``with_sparse_embedding_grad``), ZeRO, and expert parallelism
+(``switch_moe``, ``load_balance_loss``, ``default_capacity``, with
+``stack_stage_params``). The sequence-parallel ``ring_attention`` and
 ``ulysses_attention`` come with ROADMAP A9."""
 
 from horovod_tpu_torch.parallel.dp import (
@@ -13,6 +15,11 @@ from horovod_tpu_torch.parallel.dp import (
 )
 from horovod_tpu_torch.ops.collectives import broadcast_object
 from horovod_tpu_torch.parallel._util import stack_stage_params
+from horovod_tpu_torch.parallel.sparse import (
+    SparseGrad,
+    sparse_allgather,
+    with_sparse_embedding_grad,
+)
 from horovod_tpu_torch.parallel.ep import (
     default_capacity,
     load_balance_loss,
@@ -36,6 +43,9 @@ __all__ = [
     "sharded_adamw",
     "ShardedOptState",
     "FlatAdamState",
+    "SparseGrad",
+    "sparse_allgather",
+    "with_sparse_embedding_grad",
     "switch_moe",
     "load_balance_loss",
     "default_capacity",

@@ -106,11 +106,26 @@ def release_enabled() -> bool:
     return env._get_bool(env.HOROVOD_GRAD_BUCKET_RELEASE, False)
 
 
+# The autotuner's committed bucket payload (runtime._autotune_sync; 0:
+# none; cleared when the runtime stops). It applies to release plans built
+# after the commit: a plan keeps its partition
+# (horovod_tpu/parallel/buckets.py:126-140).
+_autotuned_bucket_bytes = 0
+
+
+def set_autotuned_bucket_bytes(nbytes: int) -> None:
+    """The autotuner's commit hook: the bucket payload of plans built from
+    now on (0 clears it)."""
+    global _autotuned_bucket_bytes
+    _autotuned_bucket_bytes = max(0, int(nbytes))
+
+
 def bucket_bytes_from_env() -> int:
-    """``HOROVOD_GRAD_BUCKET_BYTES`` rounded up to a whole number of
-    fusion quanta (at least one)."""
-    raw = env._get_int(env.HOROVOD_GRAD_BUCKET_BYTES,
-                       env.DEFAULT_GRAD_BUCKET_BYTES)
+    """``HOROVOD_GRAD_BUCKET_BYTES`` (the autotuner's committed value wins
+    while set) rounded up to a whole number of fusion quanta (at least
+    one)."""
+    raw = _autotuned_bucket_bytes or env._get_int(
+        env.HOROVOD_GRAD_BUCKET_BYTES, env.DEFAULT_GRAD_BUCKET_BYTES)
     quantum = max(1, zero._quantum_bytes())
     raw = max(quantum, raw)
     return ((raw + quantum - 1) // quantum) * quantum

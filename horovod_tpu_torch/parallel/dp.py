@@ -14,7 +14,10 @@ gather of every rank's indices and values) unless ``sparse_as_dense``
 densifies it first (``horovod_tpu/torch/__init__.py:79-82, 141-147,
 192-193``). A parameter that a gradient release plan has tagged
 (``parallel/buckets.py``) is the plan's: its hook and ``synchronize``
-leave it alone, so no gradient goes out twice.
+leave it alone, so no gradient goes out twice. A ``SparseGrad`` (from
+``with_sparse_embedding_grad``, ``parallel/sparse.py``) enters through
+``add_sparse_grad`` as one backward pass's gradient: it joins ``p.grad``
+as a COO tensor and goes out by the same sparse path.
 ``shard_optimizer_states=True`` returns the ZeRO wrapper
 (``parallel/zero.py`` ``sharded_update``) in place of the hooks.
 
@@ -44,7 +47,7 @@ from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.core import basics
 from horovod_tpu_torch.ops import collectives
 from horovod_tpu_torch.ops.collectives import Average, Sum
-from horovod_tpu_torch.parallel import buckets, zero
+from horovod_tpu_torch.parallel import buckets, sparse, zero
 
 
 class _DistributedOptimizer(torch.optim.Optimizer):
@@ -102,12 +105,24 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 p.grad = p.grad.to_dense()
             elif self._op in (Average, Sum):
                 return collectives.sparse_allreduce_async(
-                    p.grad, average=self._op == Average, name=name)
+                    p.grad, average=self._op == Average, name=name,
+                    compression=self._compression)
             else:
                 raise ValueError("a sparse gradient is reduced by Average "
                                  "or Sum only; pass sparse_as_dense=True")
         return collectives.allreduce_async_(
             p.grad, op=self._op, name=name, compression=self._compression)
+
+    def add_sparse_grad(self, p, sg: "sparse.SparseGrad") -> None:
+        """Take ``sg`` as one backward pass's gradient of ``p``, as the
+        hook takes autograd's: its COO form is added to ``p.grad`` and sent
+        by the sparse path when the passes of a step are in."""
+        if p not in self._delay:
+            raise ValueError("add_sparse_grad: the parameter is not one of "
+                             "this optimizer's")
+        coo = sg.to_coo().to(p.dtype)
+        p.grad = coo if p.grad is None else p.grad + coo
+        self._mark_ready(p)
 
     def _make_hook(self):
         # The parameter keeps its hooks in C++, out of the garbage
@@ -242,11 +257,15 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
 
 def allreduce_gradients(grads, *, average: bool = True,
                         compression=Compression.none,
-                        name: str = "allreduce_gradients"):
+                        name: str = "allreduce_gradients",
+                        sparse_as_dense: bool = False):
     """Allreduce a dict or list of gradient tensors as one group and return
     the same structure, reduced (port of ``dp.allreduce_gradients``). The
     i-th gradient is named ``"<name>.<i>"`` every call, so from the second
-    call on the runtime answers them from its response cache. Inside
+    call on the runtime answers them from its response cache. A
+    ``SparseGrad`` leaf is exchanged by its ids and rows (two gathers,
+    started before the dense group) unless ``sparse_as_dense`` densifies
+    it into the group; either way its result is dense. Inside
     ``buckets.prereduced()`` the gradients are returned as they are;
     stage-2 ``ShardedGrads`` are refused."""
     if isinstance(grads, zero.ShardedGrads):
@@ -258,16 +277,33 @@ def allreduce_gradients(grads, *, average: bool = True,
     if buckets.is_prereduced():
         return grads
     keys = list(grads) if isinstance(grads, dict) else None
-    tensors = [grads[k] for k in keys] if keys is not None else list(grads)
-    out = collectives.grouped_allreduce(tensors, average=average,
-                                        name=name,
-                                        compression=compression)
+    leaves = [grads[k] for k in keys] if keys is not None else list(grads)
+    out = list(leaves)
+    exchanges = {}
+    for i, g in enumerate(leaves):
+        if sparse.is_sparse(g):
+            if sparse_as_dense:
+                out[i] = g.densify()
+            else:
+                exchanges[i] = collectives.sparse_allreduce_async(
+                    g.to_coo(), average=average, name=f"{name}.{i}",
+                    compression=compression)
+    dense = [i for i in range(len(out)) if i not in exchanges]
+    if dense:
+        reduced = collectives.grouped_allreduce(
+            [out[i] for i in dense], average=average, name=name,
+            compression=compression)
+        for i, r in zip(dense, reduced):
+            out[i] = r
+    for i, handle in exchanges.items():
+        out[i] = handle.wait().to_dense()
     return dict(zip(keys, out)) if keys is not None else out
 
 
 def DistributedGradientTape(grad_fn, *, compression=Compression.none,
                             average: bool = True, returns: str = "grads",
-                            name: str = "gradient_tape"):
+                            name: str = "gradient_tape",
+                            sparse_as_dense: bool = False):
     """Wrap a function that returns gradients so that they come back
     allreduced (port of ``horovod_tpu/parallel/dp.py:275-317``; reference:
     ``hvd.DistributedGradientTape``, horovod/tensorflow/__init__.py:
@@ -282,7 +318,8 @@ def DistributedGradientTape(grad_fn, *, compression=Compression.none,
       (``torch.func.grad(f, has_aux=True)``, and
       ``torch.func.grad_and_value(f)``, whose value passes as the aux).
 
-    The gradients go through :func:`allreduce_gradients` under ``name``."""
+    The gradients go through :func:`allreduce_gradients` under ``name``
+    (``SparseGrad`` leaves too, densified first with ``sparse_as_dense``)."""
     if returns not in ("grads", "value_and_grads", "grads_and_aux"):
         raise ValueError(
             "returns must be 'grads', 'value_and_grads' or 'grads_and_aux', "
@@ -290,7 +327,8 @@ def DistributedGradientTape(grad_fn, *, compression=Compression.none,
 
     def reduce(grads):
         return allreduce_gradients(grads, average=average,
-                                   compression=compression, name=name)
+                                   compression=compression, name=name,
+                                   sparse_as_dense=sparse_as_dense)
 
     def wrapped(*args, **kwargs):
         out = grad_fn(*args, **kwargs)

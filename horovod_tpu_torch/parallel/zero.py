@@ -116,9 +116,25 @@ def stage_from_env() -> int:
     return max(1, min(3, env._get_int(env.HOROVOD_ZERO_STAGE, 1)))
 
 
+# The autotuner's committed prefetch window (runtime._autotune_sync; 0:
+# none; cleared when the runtime stops; horovod_tpu/parallel/zero.py:
+# 161-190).
+_autotuned_prefetch_buckets = 0
+
+
+def set_autotuned_prefetch_buckets(n: int) -> None:
+    """The autotuner's commit hook: the stage-3 prefetch window (0 clears
+    it)."""
+    global _autotuned_prefetch_buckets
+    _autotuned_prefetch_buckets = max(0, int(n))
+
+
 def prefetch_buckets_from_env() -> int:
-    """``HOROVOD_ZERO_PREFETCH_BUCKETS``: how many group allgathers a
-    stage-3 gather keeps in flight ahead of its consumer (at least 1)."""
+    """``HOROVOD_ZERO_PREFETCH_BUCKETS`` (the autotuner's committed value
+    wins while set): how many group allgathers a stage-3 gather keeps in
+    flight ahead of its consumer (at least 1)."""
+    if _autotuned_prefetch_buckets > 0:
+        return _autotuned_prefetch_buckets
     return max(1, env._get_int(env.HOROVOD_ZERO_PREFETCH_BUCKETS,
                                env.DEFAULT_ZERO_PREFETCH_BUCKETS))
 

@@ -69,7 +69,22 @@ and is read when the device has passed the bin's ``done`` event: in
 thread never synchronizes for it, and with ``HOROVOD_COMMS=0`` no timing
 event is recorded.
 
-Not ported yet: the hierarchy (ROADMAP A8).
+The two-level collectives (``runtime/hierarchy.py``): with
+``HOROVOD_HIERARCHICAL_ALLREDUCE`` a fused allreduce runs as the intra
+reduce-scatter, the cross allreduce of 1/g of the slab (in the wire dtype
+of ``HOROVOD_HIERARCHY_COMPRESSION``) and the intra allgather, its slab
+padded to a multiple of g (wire traffic only, zeroed), and a
+reduce-scatter as the two-level one; with ``HOROVOD_HIERARCHICAL_
+ALLGATHER`` an equal allgather runs as the intra then the cross
+allgather. The plan and its groups are built at the first such dispatch
+(every rank reaches it at the same point of the negotiated order) and
+memoised on (world, rank, group size, generation); a plan that resolves
+flat, a ragged allgather and a reduce-scatter whose size is not a multiple
+of the world run the flat call, each with a warning once. Under
+integrity digests the non-finite count is taken before compression and the
+CRC after assembly. Each flat collective passes the chaos seam
+(``resilience.inject("ring", ..., crossings=...)``, the flat ring's
+crossings of the slow link), each hop its own.
 """
 
 from __future__ import annotations
@@ -92,9 +107,13 @@ from horovod_tpu_torch import timeline as timeline_mod
 from horovod_tpu_torch.integrity import digest as integ_digest
 from horovod_tpu_torch.integrity import inject as integ_inject
 from horovod_tpu_torch.metrics import registry as _metrics
+from horovod_tpu_torch.runtime import hierarchy
 from horovod_tpu_torch.runtime import types
 from horovod_tpu_torch.runtime.fusion_buffer import FusionBufferManager
 from horovod_tpu_torch.runtime.gloo_controller import lost_worker
+from horovod_tpu_torch.utils import env
+from horovod_tpu_torch.utils import logging as log
+from horovod_tpu_torch.utils import resilience
 
 _OP_LATENCY = _metrics().histogram(
     "horovod_executor_op_duration_seconds",
@@ -166,12 +185,9 @@ _TORCH_OPS = {types.REDUCE_SUM: dist.ReduceOp.SUM,
               types.REDUCE_MAX: dist.ReduceOp.MAX,
               types.REDUCE_PRODUCT: dist.ReduceOp.PRODUCT}
 
-# torch 2.13 names the one-tensor forms reduce_scatter_single and
-# all_gather_single; older releases have only the *_tensor names
-_reduce_scatter_one = getattr(dist, "reduce_scatter_single", None) \
-    or dist.reduce_scatter_tensor
-_all_gather_one = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
+# the one-tensor reduce-scatter and allgather of this torch release
+_reduce_scatter_one = hierarchy._reduce_scatter_one
+_all_gather_one = hierarchy._all_gather_one
 
 
 def _average_(out: torch.Tensor, world: int) -> None:
@@ -312,8 +328,11 @@ class Executor:
     keeps as its current stream."""
 
     def __init__(self, device: torch.device, group, world: int,
-                 fusion_threshold: int, quantum_bytes: int, depth: int):
+                 fusion_threshold: int, quantum_bytes: int, depth: int,
+                 config: Optional[env.Config] = None):
         self.device = device
+        # the runtime's knobs: the hierarchy's, which the autotuner writes
+        self.config = env.Config() if config is None else config
         self.group = group
         self.world = world
         self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
@@ -336,6 +355,78 @@ class Executor:
         self.digest_seconds = 0.0
         # the end stamp of the last timed collective on the comm stream
         self._last_end: Optional[comms.Stamp] = None
+        # the memoised two-level plan, its groups and its key
+        self._hier_key = None
+        self._hier: Optional[hierarchy.HierarchyGroups] = None
+        self._warned: set = set()
+
+    # -- the two-level collectives (horovod_tpu/runtime/executor.py:509-585)
+    def hierarchical_available(self) -> bool:
+        """Whether a hierarchy can form: an explicit group size must tile
+        the world into >= 2 groups of >= 2; with host-derived grouping any
+        world >= 4 could split (a plan that resolves flat is a no-op).
+        Static: no wire traffic."""
+        w = self.world
+        if w < 4:
+            return False
+        g = self._hier_group_size()
+        return g == 0 or (g >= 2 and w % g == 0 and w // g >= 2)
+
+    def _hier_group_size(self) -> int:
+        """``HOROVOD_HIERARCHY_GROUP_SIZE`` (0: from the hosts' names), as
+        the autotuner last wrote it."""
+        return int(self.config.hierarchy_group_size or 0)
+
+    def _hierarchy_plan(self, controller, knob: bool):
+        """The groups of the memoised plan when ``knob`` (the op's
+        hierarchical switch) is on and the plan is enabled, else None. The
+        plan is built where every rank builds it, at the same point of the
+        negotiated order; a new generation (an elastic re-form) or group
+        size builds a new one, destroying the old groups."""
+        if not knob or self.world < 2:
+            return None
+        gsize = self._hier_group_size()
+        key = (self.world, controller.rank, gsize,
+               resilience.current_generation())
+        if self._hier_key != key:
+            self.drop_hierarchy()
+            plan = hierarchy.build_plan(controller, gsize)
+            self._hier_key = key
+            if plan.enabled:
+                self._hier = hierarchy.HierarchyGroups(
+                    plan, "nccl" if self.stream is not None else "gloo",
+                    warm=self.device)
+                flight_recorder.emit(
+                    "hierarchy_plan", groups=plan.num_groups,
+                    group_size=plan.group_size, source=plan.source,
+                    world=plan.world)
+                log.debug("hierarchy: %s", plan.describe())
+            else:
+                self._warn_once("flat", "hierarchy: world %d with group "
+                                "size %d resolves flat; the flat "
+                                "collectives run", self.world, gsize)
+        return self._hier
+
+    def _hier_wire_dtype(self):
+        """The cross hop's wire dtype (None: full precision) from
+        ``HOROVOD_HIERARCHY_COMPRESSION``; an unknown name raises."""
+        return hierarchy.wire_dtype_from_name(
+            self.config.hierarchy_compression)
+
+    def _warn_once(self, what: str, msg: str, *args) -> None:
+        if what not in self._warned:
+            self._warned.add(what)
+            log.warning(msg, *args)
+
+    def drop_hierarchy(self, abort: bool = False) -> None:
+        """Destroy the plan's groups (``abort``: abort them, after a lost
+        peer on the card) and forget the plan."""
+        h, self._hier, self._hier_key = self._hier, None, None
+        if h is not None:
+            if not abort and self.stream is not None:
+                # no communicator goes while a hop of it is still queued
+                self.stream.synchronize()
+            h.destroy(abort=abort)
 
     def _stamp(self) -> Optional[comms.Stamp]:
         """A timing stamp on the comm stream now; None on the CPU or with
@@ -399,13 +490,14 @@ class Executor:
         for producer in producers.values():
             self.stream.wait_stream(producer)
 
-    def _mark_done(self, entries, timing=None) -> None:
+    def _mark_done(self, entries, timing=None, works=None) -> None:
         """Record the bin's ``done`` event, numbered in the comm stream's
         order (see ``Done``). Until the device has passed it, the executor
-        holds the bin's tensors, so the allocator cannot hand their memory
-        to another stream while the comm stream still uses it (one
-        reference a bin in place of ``record_stream`` a tensor). A bin's
-        collective timing rides its entry and is recorded as it leaves."""
+        holds the bin's tensors and its works (a two-level chain holds its
+        hops' temporaries), so the allocator cannot hand their memory to
+        another stream while the comm stream still uses it (one reference
+        a bin in place of ``record_stream`` a tensor). A bin's collective
+        timing rides its entry and is recorded as it leaves."""
         if self.stream is None:
             return
         event = torch.cuda.Event()
@@ -413,8 +505,8 @@ class Executor:
         self.latest = done = Done(next(_done_seq), event, self)
         for e in entries:
             e.done = done
-        self._held.append((event, [(e.tensor, e.output) for e in entries],
-                           timing))
+        self._held.append((event, ([(e.tensor, e.output) for e in entries],
+                                   works), timing))
         while self._held and self._held[0][0].query():
             self._record_timing(self._held.popleft()[2])
 
@@ -475,12 +567,19 @@ class Executor:
         name0 = entries[0].name
         sizes = [e.tensor.numel() for e in entries]
         total = sum(sizes)
+        hier = self._hierarchy_plan(controller,
+                                    self.config.hierarchical_allreduce)
+        # the two-level slab is a multiple of g long: pad, wire traffic only
+        padded = total if hier is None else \
+            -(-total // hier.plan.group_size) * hier.plan.group_size
         if timeline is not None:
             timeline.activity_start(name0,
                                     timeline_mod.MEMCPY_IN_FUSION_BUFFER)
         pend.lease = self.fusion_buffers.acquire(
-            total, entries[0].tensor.dtype, self.device)
+            padded, entries[0].tensor.dtype, self.device)
         buf = pend.lease.tensor[:total]
+        if padded > total:
+            pend.lease.tensor[total:padded].zero_()
         # flat views of the (contiguous) inputs: packed from, unpacked into
         flats = [e.tensor.view(-1) for e in entries]
         torch.cat(flats, out=buf)
@@ -496,8 +595,19 @@ class Executor:
             timeline.activity_end(name0)
             timeline.activity_start(name0, f"{self.backend}_ALLREDUCE")
         start = self._stamp()
-        work = dist.all_reduce(buf, op=_TORCH_OPS[reduce_op],
-                               group=self.group, async_op=True)
+        if hier is not None:
+            # nf_dev above counted the uncompressed input, and the CRC
+            # below runs over the assembled result: the digests' verdicts
+            # do not depend on the wire precision
+            work = hierarchy.hier_allreduce(
+                hier, pend.lease.tensor[:padded], _TORCH_OPS[reduce_op],
+                wire_dtype=self._hier_wire_dtype(), stream=self.stream)
+        else:
+            # a flat allreduce's 2(w-1) steps each cross the slow link
+            resilience.inject("ring", "allreduce",
+                              crossings=2 * (self.world - 1))
+            work = dist.all_reduce(buf, op=_TORCH_OPS[reduce_op],
+                                   group=self.group, async_op=True)
         types.COUNTS["allreduce"] += 1
 
         def finish():
@@ -523,7 +633,7 @@ class Executor:
                 e.output = e.tensor
             if timeline is not None:
                 timeline.activity_end(name0)
-            self._mark_done(entries, timing)
+            self._mark_done(entries, timing, work)
 
         return finish
 
@@ -550,23 +660,54 @@ class Executor:
                 nf_dev = sum(integ_digest.nonfinite_count_tensor(x)
                              for x in inputs)
                 self.digest_seconds += time.perf_counter() - t0
+        hier = None
+        if kind == types.REDUCESCATTER:
+            hier = self._hierarchy_plan(controller,
+                                        self.config.hierarchical_allreduce)
+        elif kind == types.ALLGATHER:
+            hier = self._hierarchy_plan(controller,
+                                        self.config.hierarchical_allgather)
+            if hier is not None and len(set(sizes)) > 1:
+                self._warn_once("ragged", "hierarchy: a ragged allgather "
+                                "runs the flat call")
+                hier = None
         works, tails = [], []
         start = self._stamp()
         for e, x in zip(entries, inputs):
             if kind == types.BROADCAST:
+                resilience.inject("ring", "broadcast")
                 e.output = x
                 works.append(dist.broadcast(x, src=e.root_rank,
                                             group=self.group, async_op=True))
+            elif kind == types.ALLGATHER and hier is not None:
+                works.append(hierarchy.hier_allgather(
+                    hier, x, e.output, stream=self.stream))
             elif kind == types.ALLGATHER and len(set(sizes)) > 1:
+                resilience.inject("ring", "allgather",
+                                  crossings=self.world - 1)
                 works.append(self._ragged_allgather(e, sizes, tails))
             elif kind == types.ALLGATHER:
+                resilience.inject("ring", "allgather",
+                                  crossings=self.world - 1)
                 works.append(_all_gather_one(e.output, x.contiguous(),
                                              group=self.group, async_op=True))
             elif kind == types.ALLTOALL:
+                resilience.inject("ring", "alltoall")
                 works.append(dist.all_to_all_single(
                     e.output, x.contiguous(), group=self.group,
                     async_op=True))
+            elif hier is not None and x.numel() % self.world == 0:
+                works.append(hierarchy.hier_reducescatter(
+                    hier, x.contiguous(), e.output,
+                    _TORCH_OPS[e.reduce_op],
+                    wire_dtype=self._hier_wire_dtype(), stream=self.stream))
             else:
+                if hier is not None:
+                    self._warn_once("rs", "hierarchy: a reduce-scatter "
+                                    "whose size is not a multiple of the "
+                                    "world runs the flat call")
+                resilience.inject("ring", "reducescatter",
+                                  crossings=self.world - 1)
                 works.append(_reduce_scatter_one(
                     e.output, x.contiguous(), op=_TORCH_OPS[e.reduce_op],
                     group=self.group, async_op=True))
@@ -588,7 +729,7 @@ class Executor:
                     _average_(e.output, self.world)
             if timeline is not None:
                 timeline.activity_end(name0)
-            self._mark_done(entries, timing)
+            self._mark_done(entries, timing, works)
 
         return finish
 

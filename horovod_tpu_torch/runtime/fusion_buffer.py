@@ -167,6 +167,26 @@ class FusionBufferManager:
         _refresh_gauges()  # outside this lock: it takes every manager's
         return lease
 
+    def grow(self, max_per_key: int) -> None:
+        """Let each key lease ``max_per_key`` slabs at once (the autotuner
+        deepened the pipeline): every key seen gets its extra slabs now,
+        on the calling thread's stream; a smaller number changes
+        nothing."""
+        n = int(max_per_key)
+        with self._lock:
+            if n <= self.max_per_key:
+                return
+            for key in self._count:
+                extra = n - self._count[key]
+                self._free[key].extend(
+                    torch.empty(key[0], dtype=key[1], device=key[2])
+                    for _ in range(extra))
+                self._count[key] = n
+                types.bump("slabs", _BUF_ALLOCS, extra)
+                self._total_bytes += extra * key[0] * key[1].itemsize
+            self.max_per_key = n
+        _refresh_gauges()
+
     def release(self, lease: BufferLease) -> None:
         """Return a lease's slab. Idempotent: failure paths may release the
         same lease from more than one unwind."""

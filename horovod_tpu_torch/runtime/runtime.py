@@ -47,13 +47,35 @@ emits ``cycle_abort`` and makes a failure dump, and ``stop`` emits
 ``runtime_stop``. Each change of the pipeline's depth is a
 ``pipeline_depth`` event.
 
-Not ported yet: autotune (ROADMAP A8), tracing (A12) and the lane-hazard
-watchdog (A10).
+The autotuner (``HOROVOD_AUTOTUNE``; reference: parameter_manager wired
+into RunLoopOnce and SynchronizeParameters, operations.cc:500-550,
+controller.cc:32-46): under ``HOROVOD_AUTOTUNE_PROBE`` every rank runs the
+hardware probes as the runtime starts (``autotune/probe.py``: the card's
+memory and the data group's allreduce, and the hierarchy's hops where one
+can form) and the ranks agree on the coordinator's seeded fusion
+threshold. The coordinator holds a ``ParameterManager`` that scores each
+busy cycle; after every cycle it broadcasts the packed knobs on the gloo
+control group and every rank applies them at that boundary: the fusion
+threshold, the cycle time, the cache switch, the hierarchy's knobs, the
+pipeline depth, the release plans' bucket bytes and the stage-3 prefetch
+window. Each change applied is an ``autotune_commit`` flight event and
+moves ``horovod_autotune_param{knob}`` and ``horovod_autotune_commits_
+total`` on every rank; once the manager freezes the syncs stop. The sweep
+holds ``cache_enabled`` when a cache exists and, where a hierarchy can form
+(``Executor.hierarchical_available``), ``hierarchical_allreduce``,
+``hierarchy_compression`` and ``hierarchical_allgather``: the port's one
+data plane consults all three. A sample's score is the JAX package's: the
+cycle's bytes over its host seconds (on the card the time to queue the
+work), blended half and half with ``comms.data_lane_busbw_gbs()`` (the
+device's event times, of the bins whose ``done`` event has passed).
+
+Not ported yet: tracing (A12) and the lane-hazard watchdog (A10).
 """
 
 from __future__ import annotations
 
 import collections
+import struct
 import threading
 import time
 from typing import Any, List, Optional
@@ -99,6 +121,16 @@ _PIPELINE_DEPTH = _metrics().gauge(
     "horovod_cycle_pipeline_depth",
     "Responses currently in flight on the pipelined data plane (bounded "
     "by HOROVOD_CYCLE_PIPELINE_DEPTH).")
+_AUTOTUNE_PARAM = _metrics().gauge(
+    "horovod_autotune_param",
+    "Runtime parameter value most recently committed by the per-cycle "
+    "autotune sync, by knob (string-valued knobs are encoded: the "
+    "hierarchy codec reports its COMPRESSION_CODECS index).",
+    labelnames=("knob",))
+_AUTOTUNE_COMMITS = _metrics().counter(
+    "horovod_autotune_commits_total",
+    "Parameter-blob changes applied at a cycle boundary (the broadcast "
+    "blob differed from the previously applied one).")
 
 
 def wire_dtype(dtype: torch.dtype) -> str:
@@ -218,7 +250,7 @@ class Runtime:
         self._cycle_time_s = cfg.cycle_time_ms / 1000.0
         self.executor = Executor(
             device, data_group, controller.world, self.fusion_threshold,
-            cfg.fusion_bucket_quantum, self.depth)
+            cfg.fusion_bucket_quantum, self.depth, cfg)
         # the coordinator writes the timeline (reference: operations.cc)
         self.timeline = (Timeline(cfg.timeline_file,
                                   mark_cycles=cfg.timeline_mark_cycles,
@@ -242,6 +274,17 @@ class Runtime:
         # the cycle's pipeline, visible to a dump while ops are in flight
         self._cycle_pending: "Optional[collections.deque]" = None
         flight_recorder.set_state_provider("runtime", self._debug_state)
+        # the autotuner: every rank probes together (collective), the
+        # coordinator tunes, every rank applies the broadcast knobs
+        self.param_manager = None
+        self._autotune_active = bool(cfg.autotune)
+        self._applied_params_blob: Optional[bytes] = None
+        self._cycle_bytes = 0
+        self.probe: Optional[dict] = None
+        if self._autotune_active and cfg.autotune_probe:
+            self._probe(data_group)
+        if self._autotune_active and controller.is_coordinator:
+            self.param_manager = self._make_param_manager()
         self._stop = threading.Event()
         self._woken = threading.Event()   # work was enqueued
         self._urgent = threading.Event()  # start a cycle now: no pacing
@@ -452,7 +495,11 @@ class Runtime:
         # it already counted
         types.bump("cycles", _CYCLES)
         try:
-            return self._run_cycle_body(requests)
+            keep_going = self._run_cycle_body(requests)
+            if self._autotune_active:
+                self._autotune_sync(self._cycle_bytes,
+                                    time.perf_counter() - t0)
+            return keep_going
         except Exception as exc:
             # the typed reason first: a handle reads it as it wakes
             self._record_failure(exc)
@@ -496,6 +543,7 @@ class Runtime:
         pending: "collections.deque" = collections.deque()
         self._cycle_pending = pending
         cycle_entries = []
+        self._cycle_bytes = 0
         try:
             for response in responses:
                 entries = self.queue.get_entries(response.tensor_names)
@@ -508,6 +556,7 @@ class Runtime:
                 pending.append(self.executor.dispatch(
                     response, entries, timeline=self.timeline,
                     controller=self.controller))
+                self._cycle_bytes += pending[-1].nbytes
                 _PIPELINE_DEPTH.set(len(pending))
                 flight_recorder.emit("pipeline_depth", depth=len(pending))
                 while len(pending) >= self.depth:
@@ -538,6 +587,146 @@ class Runtime:
         _PIPELINE_DEPTH.set(len(pending))
         flight_recorder.emit("pipeline_depth", depth=len(pending))
         op.complete()
+
+    # -- the autotuner (horovod_tpu/runtime/runtime.py:195-320, 811-886) --
+    def _probe(self, data_group) -> None:
+        """The hardware probes, on every rank together: the card's memory
+        and the data group's allreduce seed the fusion threshold (the
+        coordinator's wins), and where a hierarchy can form its hops seed
+        their lanes. A probe that fails raises."""
+        from horovod_tpu_torch.autotune import probe
+
+        cfg, ctrl = self.config, self.controller
+        measured = probe.probe_and_seed(cfg, world=ctrl.world,
+                                        rank=ctrl.rank, group=data_group,
+                                        device=self.device)
+        if ctrl.world > 1:
+            # every rank must bin-pack cycle 1 with the same threshold
+            blob = (struct.pack("<q", cfg.fusion_threshold_bytes)
+                    if ctrl.is_coordinator else None)
+            cfg.fusion_threshold_bytes = struct.unpack(
+                "<q", ctrl.bcast_blob(blob))[0]
+        self.fusion_threshold = cfg.fusion_threshold_bytes
+        measured["fusion_threshold_bytes"] = cfg.fusion_threshold_bytes
+        if self.executor.hierarchical_available():
+            hops = probe.probe_host_hier_and_seed(ctrl, self.executor)
+            if hops is not None:
+                measured.update(hops)
+        self.probe = measured
+        if ctrl.is_coordinator:
+            log.info("autotune probe: memory %.1f GB/s, allreduce %.1f GB/s "
+                     "-> initial fusion threshold %d bytes%s",
+                     measured["hbm_gbps"], measured["allreduce_gbps"],
+                     cfg.fusion_threshold_bytes,
+                     " (cached)" if measured["cached"] else "")
+
+    def _make_param_manager(self):
+        """The coordinator's tuner, its sweep and search box from what
+        this data plane consults and the probe cache's rooflines."""
+        from horovod_tpu_torch.autotune import probe
+        from horovod_tpu_torch.autotune.parameter_manager import (
+            ParameterManager, Params, normalize_codec,
+            search_box_from_roofline)
+        from horovod_tpu_torch.parallel import buckets, zero
+
+        cfg = self.config
+        initial = Params(
+            fusion_threshold_bytes=cfg.fusion_threshold_bytes,
+            cycle_time_ms=cfg.cycle_time_ms,
+            cache_enabled=self.controller.cache_enabled,
+            hierarchical_allreduce=cfg.hierarchical_allreduce,
+            hierarchical_allgather=cfg.hierarchical_allgather,
+            hierarchy_group_size=cfg.hierarchy_group_size,
+            hierarchy_compression=normalize_codec(
+                cfg.hierarchy_compression),
+            grad_bucket_bytes=buckets.bucket_bytes_from_env(),
+            cycle_pipeline_depth=cfg.cycle_pipeline_depth,
+            zero_prefetch_buckets=zero.prefetch_buckets_from_env())
+        sweep = ["cache_enabled"] if cfg.cache_capacity > 0 else []
+        if self.executor.hierarchical_available():
+            sweep += ["hierarchical_allreduce", "hierarchy_compression",
+                      "hierarchical_allgather"]
+        roofline = probe.load_cached_roofline(world=self.controller.world)
+        return ParameterManager(
+            initial,
+            warmup_samples=cfg.autotune_warmup_samples,
+            steps_per_sample=cfg.autotune_steps_per_sample,
+            bayes_opt_max_samples=cfg.autotune_bayes_opt_max_samples,
+            gp_noise=cfg.autotune_gaussian_process_noise,
+            log_path=cfg.autotune_log, rank=self.controller.rank,
+            sweep=tuple(sweep), bounds=search_box_from_roofline(roofline))
+
+    def _autotune_sync(self, nbytes: int, seconds: float) -> None:
+        """The coordinator scores the cycle and broadcasts its knobs; every
+        rank applies them at this cycle boundary (reference:
+        SynchronizeParameters, controller.cc:32-46)."""
+        from horovod_tpu_torch import comms
+        from horovod_tpu_torch.autotune.parameter_manager import (
+            COMPRESSION_CODECS, Params, normalize_codec)
+        from horovod_tpu_torch.parallel import buckets, zero
+
+        blob = None
+        if self.param_manager is not None:
+            self.param_manager.update(
+                nbytes, seconds, busbw_gbs=comms.data_lane_busbw_gbs())
+            blob = self.param_manager.params().pack()
+        blob = bytes(self.controller.bcast_blob(blob))
+        params = Params.unpack(blob)
+        cfg = self.config
+        cfg.fusion_threshold_bytes = params.fusion_threshold_bytes
+        self.fusion_threshold = params.fusion_threshold_bytes
+        cfg.cycle_time_ms = params.cycle_time_ms
+        self._cycle_time_s = params.cycle_time_ms / 1000.0
+        cfg.hierarchical_allreduce = params.hierarchical_allreduce
+        cfg.hierarchical_allgather = params.hierarchical_allgather
+        cfg.hierarchy_group_size = params.hierarchy_group_size
+        cfg.hierarchy_compression = params.hierarchy_compression
+        if params.cycle_pipeline_depth > 0:
+            cfg.cycle_pipeline_depth = params.cycle_pipeline_depth
+            self.depth = params.cycle_pipeline_depth
+            self.executor.fusion_buffers.grow(self.depth)
+        if params.grad_bucket_bytes > 0:
+            buckets.set_autotuned_bucket_bytes(params.grad_bucket_bytes)
+        if params.zero_prefetch_buckets > 0:
+            zero.set_autotuned_prefetch_buckets(params.zero_prefetch_buckets)
+        self.controller.cache_enabled = params.cache_enabled
+        if blob != self._applied_params_blob:
+            # one event and a gauge refresh a change, on every rank
+            self._applied_params_blob = blob
+            codec = COMPRESSION_CODECS.index(
+                normalize_codec(params.hierarchy_compression))
+            for knob, val in (
+                    ("fusion_threshold_bytes",
+                     params.fusion_threshold_bytes),
+                    ("cycle_time_ms", params.cycle_time_ms),
+                    ("cache_enabled", int(params.cache_enabled)),
+                    ("hierarchical_allreduce",
+                     int(params.hierarchical_allreduce)),
+                    ("hierarchical_allgather",
+                     int(params.hierarchical_allgather)),
+                    ("hierarchy_group_size", params.hierarchy_group_size),
+                    ("hierarchy_compression_codec", codec),
+                    ("grad_bucket_bytes", params.grad_bucket_bytes),
+                    ("cycle_pipeline_depth", params.cycle_pipeline_depth),
+                    ("zero_prefetch_buckets", params.zero_prefetch_buckets),
+                    ("active", int(params.active))):
+                _AUTOTUNE_PARAM.labels(knob=knob).set(float(val))
+            _AUTOTUNE_COMMITS.inc()
+            flight_recorder.emit(
+                "autotune_commit",
+                fusion_threshold_bytes=params.fusion_threshold_bytes,
+                cycle_time_ms=round(params.cycle_time_ms, 3),
+                cache_enabled=params.cache_enabled,
+                hierarchical_allreduce=params.hierarchical_allreduce,
+                hierarchical_allgather=params.hierarchical_allgather,
+                hierarchy_group_size=params.hierarchy_group_size,
+                hierarchy_compression=params.hierarchy_compression,
+                grad_bucket_bytes=params.grad_bucket_bytes,
+                cycle_pipeline_depth=params.cycle_pipeline_depth,
+                zero_prefetch_buckets=params.zero_prefetch_buckets,
+                active=params.active)
+        if not params.active:
+            self._autotune_active = False
 
     def _debug_state(self) -> dict:
         """The flight recorder's ``runtime`` state: the table's names, the
@@ -596,6 +785,11 @@ class Runtime:
         if self._thread.is_alive():
             log.warning("background loop did not stop within 10s")
             self.queue.finalize(types.Status.Aborted(types.SHUT_DOWN_ERROR))
+        # the tuner's commits end with the runtime that made them: a later
+        # init (or a re-form) starts from the environment's values
+        from horovod_tpu_torch.parallel import buckets, zero
+        buckets.set_autotuned_bucket_bytes(0)
+        zero.set_autotuned_prefetch_buckets(0)
 
 
 _runtime_init_lock = threading.Lock()

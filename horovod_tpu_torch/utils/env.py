@@ -5,7 +5,8 @@ endpoint and dump, the ZeRO stage and gradient release knobs, the step
 profiler's and the integrity plane's knobs, the checkpoint writer's, its
 restore's and its replica ring's knobs, the elastic layer's, the
 rendezvous store's and the control plane's resilience knobs, the four
-observability planes' knobs, and the flash attention's
+observability planes' knobs, the autotuner's and the two-level
+hierarchy's knobs and the probe cache, and the flash attention's
 ``FLASH_FUSED_BWD`` switch).
 
 ``hvd.init()`` parses the runtime's knobs once into :class:`Config`
@@ -191,6 +192,31 @@ HOROVOD_GOODPUT = "HOROVOD_GOODPUT"
 HOROVOD_GOODPUT_INCIDENTS = "HOROVOD_GOODPUT_INCIDENTS"
 HOROVOD_GOODPUT_REPORT_SECONDS = "HOROVOD_GOODPUT_REPORT_SECONDS"
 
+# The autotuner (autotune/; horovod_tpu/utils/env.py:20-26, 240-246): on,
+# the hardware probes at the runtime's start, the coordinator's CSV log,
+# the samples discarded first, the busy cycles a sample, the Bayesian
+# samples before the tuner freezes, and the Gaussian process's noise.
+HOROVOD_AUTOTUNE = "HOROVOD_AUTOTUNE"
+HOROVOD_AUTOTUNE_PROBE = "HOROVOD_AUTOTUNE_PROBE"
+HOROVOD_AUTOTUNE_LOG = "HOROVOD_AUTOTUNE_LOG"
+HOROVOD_AUTOTUNE_WARMUP_SAMPLES = "HOROVOD_AUTOTUNE_WARMUP_SAMPLES"
+HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE = "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE"
+HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES = \
+    "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES"
+HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE = \
+    "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE"
+# The two-level collectives (runtime/hierarchy.py; horovod_tpu/utils/
+# env.py:32-39): the hierarchical allreduce (and reduce-scatter) and
+# allgather, the ranks a group (0: groups from the hosts' names) and the
+# wire type of the cross hop (none | fp16 (bf16) | ieee_fp16).
+HOROVOD_HIERARCHICAL_ALLREDUCE = "HOROVOD_HIERARCHICAL_ALLREDUCE"
+HOROVOD_HIERARCHICAL_ALLGATHER = "HOROVOD_HIERARCHICAL_ALLGATHER"
+HOROVOD_HIERARCHY_GROUP_SIZE = "HOROVOD_HIERARCHY_GROUP_SIZE"
+HOROVOD_HIERARCHY_COMPRESSION = "HOROVOD_HIERARCHY_COMPRESSION"
+# The probe cache (autotune/probe.py): the JSON file the probes' rooflines
+# are kept in and read back from; unset: none.
+HOROVOD_PROBE_CACHE = "HOROVOD_PROBE_CACHE"
+
 # Fused attention backward (reference: horovod_tpu/ops/pallas/
 # flash_attention.py:741-742): "1" sends a backward whose query and key
 # extents both fit one 1024 block to the one kernel that writes dq, dk and
@@ -284,6 +310,7 @@ ENV_DIRECT_KNOBS = (
     HOROVOD_COMMS_WINDOW, HOROVOD_COMMS_EWMA_ALPHA,
     HOROVOD_COMMS_DEGRADED_FRACTION, HOROVOD_GOODPUT,
     HOROVOD_GOODPUT_INCIDENTS, HOROVOD_GOODPUT_REPORT_SECONDS,
+    HOROVOD_PROBE_CACHE,
 )
 
 
@@ -318,6 +345,20 @@ class Config:
     # elastic mode: a stall past the shutdown time and a peer's shutdown
     # bit raise WorkersDownError, which @elastic.run answers with a re-form
     elastic: bool = False
+    # the autotuner (autotune/): the coordinator tunes, every rank applies
+    autotune: bool = False
+    autotune_probe: bool = False
+    autotune_log: str = ""
+    autotune_warmup_samples: int = 3
+    autotune_steps_per_sample: int = 10
+    autotune_bayes_opt_max_samples: int = 20
+    autotune_gaussian_process_noise: float = 0.8
+    # the two-level collectives (runtime/hierarchy.py); the autotuner
+    # writes these through its synchronized blob
+    hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
+    hierarchy_group_size: int = 0
+    hierarchy_compression: str = "none"
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -356,6 +397,22 @@ class Config:
                                      DEFAULT_PROFILE_HISTORY),
             profile_jax=_get_bool(HOROVOD_PROFILE_JAX),
             elastic=_get_bool(HOROVOD_ELASTIC),
+            autotune=_get_bool(HOROVOD_AUTOTUNE),
+            autotune_probe=_get_bool(HOROVOD_AUTOTUNE_PROBE),
+            autotune_log=os.environ.get(HOROVOD_AUTOTUNE_LOG, ""),
+            autotune_warmup_samples=_get_int(
+                HOROVOD_AUTOTUNE_WARMUP_SAMPLES, 3),
+            autotune_steps_per_sample=_get_int(
+                HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE, 10),
+            autotune_bayes_opt_max_samples=_get_int(
+                HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES, 20),
+            autotune_gaussian_process_noise=_get_float(
+                HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE, 0.8),
+            hierarchical_allreduce=_get_bool(HOROVOD_HIERARCHICAL_ALLREDUCE),
+            hierarchical_allgather=_get_bool(HOROVOD_HIERARCHICAL_ALLGATHER),
+            hierarchy_group_size=_get_int(HOROVOD_HIERARCHY_GROUP_SIZE, 0),
+            hierarchy_compression=os.environ.get(
+                HOROVOD_HIERARCHY_COMPRESSION, "none"),
         )
 
 

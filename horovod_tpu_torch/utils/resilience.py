@@ -20,9 +20,9 @@ collective deadline and network chaos (port of
   inside the real transports before each wire op: the rendezvous store's
   client (``kv``) and the gloo controller's verbs (``ctrl``). The server
   answers 503 inside a ``kv_outage`` window. ``hop=cross`` prices a slow
-  inter-group link, which needs the two-level collectives
-  (``runtime/hierarchy``, ROADMAP A8): it parses as in the JAX package, and
-  :func:`inject` raises ``NotImplementedError`` while it is armed.
+  inter-group link: it taxes the data plane's seams (the executor's flat
+  collectives and the two-level hops of ``runtime/hierarchy.py``) once a
+  crossing of that link.
 
 Each retry is a ``net_retry`` flight event and its backoff sleep the
 goodput ledger's ``collective_stall``; exhaustion is ``net_gave_up``; a
@@ -214,8 +214,8 @@ class NetFault:
     delay_ms: float = 0.0  # netdelay: latency an op
     after: float = 0.0  # the window's start, seconds after arming
     on: str = ""  # kv_outage's trigger: "" (timer) or "reform"
-    # netdelay's scope: "" every wire op, "cross" only the slow inter-group
-    # hop of the two-level collectives (not ported: inject raises)
+    # netdelay's scope: "" every wire op, "cross" only the crossings of the
+    # slow inter-group link
     hop: str = ""
 
 
@@ -326,9 +326,17 @@ def reload_chaos() -> None:
 
 def inject(transport: str, phase: str = "",
            crossings: Optional[int] = None) -> None:
-    """The chaos seam, called inside the transports before each
-    control-plane wire op: applies the netdelay, flaky and partition
-    faults whose window covers now. A no-op when nothing is armed."""
+    """The chaos seam, called inside the transports before each wire op:
+    applies the netdelay, flaky and partition faults whose window covers
+    now. A no-op when nothing is armed.
+
+    ``crossings``: how many times this op crosses the hierarchy's group
+    boundary (the slow link), declared by the data plane's seams (the
+    executor's flat collectives as ``ring``: ``2(w-1)`` for an allreduce;
+    the two-level hops as ``hier_cross``, ``2(G-1)``, and ``hier_intra``,
+    0). ``netdelay:...:hop=cross`` sleeps its delay once a crossing and
+    skips seams that declare none; plain ``netdelay`` ignores it. The
+    data plane's seams take delays only."""
     ch = _chaos()
     if ch is None:
         return
@@ -336,14 +344,20 @@ def inject(transport: str, phase: str = "",
     for f in ch.faults:
         in_window = f.after <= now <= f.after + f.seconds
         targeted = f.rank is None or f.rank == ch.rank
-        if f.kind == "netdelay" and f.hop == "cross":
-            raise NotImplementedError(
-                "HOROVOD_FAULT_INJECT netdelay:...:hop=cross prices the "
-                "slow hop of the two-level collectives, which the port "
-                "does not have yet (runtime/hierarchy, ROADMAP A8)")
         if f.kind == "netdelay" and targeted and in_window:
+            if f.hop == "cross":
+                if not crossings:  # a seam off the slow link (or untyped)
+                    continue
+                _CHAOS_INJECTED.labels(kind="netdelay").inc()
+                time.sleep(f.delay_ms * crossings / 1000.0)
+                continue
             _CHAOS_INJECTED.labels(kind="netdelay").inc()
             time.sleep(f.delay_ms / 1000.0)
+        elif transport in ("ring", "hier_intra", "hier_cross"):
+            # the data plane's seams carry delays only: resets and
+            # partitions model control traffic, which the retry and
+            # elastic layers own
+            continue
         elif f.kind == "flaky" and targeted and in_window:
             if ch.rng.random() < f.prob:
                 _CHAOS_INJECTED.labels(kind="flaky").inc()

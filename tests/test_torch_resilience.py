@@ -215,12 +215,25 @@ def test_inject_netdelay_sleeps(chaos_env):
 
 
 def test_netdelay_hop_cross_parses_and_raises_until_the_hierarchy(chaos_env):
+    """With the two-level collectives ported, ``hop=cross`` no longer
+    raises: it taxes the seams that declare crossings of the slow link, a
+    delay a crossing, as the JAX package's ``inject`` does, and skips the
+    rest (the control plane's, an intra hop's 0)."""
     (delay,) = resilience.parse_net_faults("netdelay:5:hop=cross")
     assert (delay.kind, delay.delay_ms, delay.hop) == ("netdelay", 5.0,
                                                        "cross")
-    chaos_env("netdelay:5:hop=cross")
-    with pytest.raises(NotImplementedError, match="hierarchy"):
-        resilience.inject("ctrl", "unit")
+    chaos_env("netdelay:40:hop=cross")
+    t0 = time.monotonic()
+    resilience.inject("ctrl", "unit")
+    resilience.inject("hier_intra", "allgather", crossings=0)
+    assert time.monotonic() - t0 < 0.03
+    t0 = time.monotonic()
+    resilience.inject("hier_cross", "allreduce", crossings=2)
+    assert time.monotonic() - t0 >= 0.075
+    # the data plane's seams take delays only: no reset mid-collective
+    chaos_env("flaky:1.0")
+    for transport in ("ring", "hier_intra", "hier_cross"):
+        resilience.inject(transport, "allreduce", crossings=1)
 
 
 def test_inject_partition_blocks_window(chaos_env):

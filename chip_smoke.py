@@ -295,6 +295,24 @@ Phases (any failure exits non-zero):
    frozen ones in turns (first, frozen, frozen, first; 2 + 3 steps), each
    run's losses bit-equal to phase 4's and its step ms beside the card's
    name and power limit.
+16. Model parallelism at world 1 (no kernel of its own), at GPT-2-small's
+   widths. 16a: the ring module's per-step forward and backward
+   (``parallel/ring.forward_step``, ``backward_step``) over 4 shards in
+   one process, as 4 ranks run them (causal, B 2, 12 heads, S 4096, 1024
+   a shard: rank i at step s holds key shard (i + s) mod 4, the offsets
+   the shards' global positions), against one ``flash_attention`` forward
+   and backward over the whole sequence: o 2e-2 abs, lse 2e-3 abs, the
+   gradients 2e-2 relative; a key shard wholly in a query shard's future
+   leaves the running (o, lse) bit-equal (its rows' lse is -inf, weight
+   0); B1 16 times, dq and dk/dv 16 times each. 16b: phase 7's GPT-2 run
+   (dq + dk/dv) with ``attention_fn`` set to ``ring_attention``, then to
+   ``ulysses_attention``, on the world's one rank: the losses phase 7's to
+   the bit (a merge with the empty partial is the identity; the
+   all-to-alls of one rank copy); then ``pipeline_apply`` with one stage
+   over the 12 layers, phase 7's batch as 8 microbatches of 2, against
+   the plain stack over the same microbatches: outputs and loss bit-equal,
+   the layers' gradients within 1e-2 relative. Each run's B1 and B3/B4
+   launches are printed and join the kernels line.
 
 Between them: 2d. kernel B10 (fused BN + ReLU) bit-equal to its plain
 version at every distinct BN input of Inception-V3 at batch 32 (bf16),
@@ -325,7 +343,7 @@ bound and SDPA's forward.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (each kernel's
 launches counted on the paths that run it: the flash kernels on phase 4,
-on 14a and 14c and on 15b,
+on 14a and 14c, on 15b and on phase 16,
 the multi-tensor AdamW on P1, the flat AdamW on P2, P4 and P5, B10 on phase 6, B11 on
 the probe's phase 2e, B7 on phase 7's fused run, B12-B14 on the probe's
 phase 2g), the card's name and power limit, and ``{"ok": true,
@@ -475,7 +493,9 @@ FULL = dict(
     moe_lm=dict(vocab_size=50257, d_model=768, num_layers=12, num_heads=12,
                 d_ff=3072, max_seq=1024), moe_batch=8, lm_chunk=128,
     # phase 15b: the autotuned run's steps until the tuner freezes, at most
-    autotune_max_steps=40)
+    autotune_max_steps=40,
+    # phase 16a: (batch, heads, seq, head_dim, shards), GPT-2-small's heads
+    ring_case=(2, 12, 4096, 64, 4), pp_micro_batch=2)
 DRY = dict(
     cases={"a": (1, 2, 64, 64, False, 0, 0), "b": (1, 2, 96, 64, True, 0, 0),
            "d_masked": (1, 2, 64, 64, True, 8, 40),
@@ -505,7 +525,8 @@ DRY = dict(
     vgg=dict(batch=2, size=32, classes=10, dtype=F32, threshold=4 << 20),
     moe_lm=dict(vocab_size=512, d_model=128, num_layers=2, num_heads=2,
                 d_ff=256, max_seq=64), moe_batch=2, lm_chunk=16,
-    autotune_max_steps=60)
+    autotune_max_steps=60,
+    ring_case=(1, 2, 64, 64, 4), pp_micro_batch=1)
 
 
 def check(ok: bool, what: str) -> None:
@@ -2380,17 +2401,25 @@ def train_inception(cfg, device, card, profile=False) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def train_gpt(cfg, device, card, fused: bool, profile=False) -> dict:
+def gpt_tokens(cfg) -> np.ndarray:
+    """Phase 7's tokens (bench.py:454-455)."""
+    return np.random.RandomState(0).randint(
+        0, cfg["gpt"]["vocab_size"],
+        (cfg["gpt_batch"], cfg["gpt_seq"])).astype(np.int32)
+
+
+def train_gpt(cfg, device, card, fused: bool, profile=False,
+              attention_fn=None) -> dict:
     """The bench's GPT-2 row (``transformer_main("gpt2")``), eager, one
     process: ``hvd.init()``, ``GPT2Small`` from seed 0 on ``hvd.device()``,
     ``broadcast_parameters``, ``DistributedOptimizer(AdamW(1e-4,
     weight_decay=1e-4))``, the bench's tokens, the full-logits
     ``causal_lm_loss``, 2 warm-up and 10 timed steps. ``fused`` sets
-    ``FLASH_FUSED_BWD=1`` for the run (unset otherwise)."""
+    ``FLASH_FUSED_BWD=1`` for the run (unset otherwise); ``attention_fn``
+    is the model's (phase 16b)."""
     batch, seq = cfg["gpt_batch"], cfg["gpt_seq"]
     vocab = cfg["gpt"]["vocab_size"]
-    tokens = np.random.RandomState(0).randint(  # bench.py:454-455
-        0, vocab, (batch, seq)).astype(np.int32)
+    tokens = gpt_tokens(cfg)
     if fused:
         os.environ[env.FLASH_FUSED_BWD] = "1"
     else:
@@ -2400,7 +2429,8 @@ def train_gpt(cfg, device, card, fused: bool, profile=False) -> dict:
         collectives.COUNTS.update(dict.fromkeys(collectives.COUNTS, 0))
         hvd.init(device=None if device.type == "cuda" else "cpu")
         dev = hvd.device()
-        model = GPT2Small(**cfg["gpt"], device=dev, seed=0)
+        model = GPT2Small(**cfg["gpt"], device=dev, seed=0,
+                          attention_fn=attention_fn)
         hvd.broadcast_parameters(model.state_dict(), root_rank=0)
         params = dict(model.named_parameters())
         opt = adamw_optimizer(model)
@@ -2440,6 +2470,8 @@ def train_gpt(cfg, device, card, fused: bool, profile=False) -> dict:
         os.environ.pop(env.FLASH_FUSED_BWD, None)
 
     bwd = "fused backward B7" if fused else "dq + dk/dv"
+    if attention_fn is not None:
+        bwd += f", attention_fn {attention_fn.__name__}"
     log(f"slice (GPT-2, {bwd}): {n_layers} layers x {d_model}, "
         f"{n_params / 1e6:.1f}M params in {n_tensors} tensors, vocab {vocab},"
         f" batch {batch} x seq {seq}, {cfg['warmup']} warm-up + "
@@ -4425,6 +4457,164 @@ def wire_extensions_phase(cfg, device, card, phase4: list) -> dict:
     return autotune_15b(cfg, device, card, phase4)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: model parallelism at world 1
+# ---------------------------------------------------------------------------
+
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def ring_steps_16a(cfg, device) -> dict:
+    """16a: the ring module's per-step forward and backward over ``shards``
+    query and key shards in one process, as that many ranks run them,
+    against one ``flash_attention`` forward and backward (and one partial
+    for the lse) over the whole sequence. Returns the steps' launches."""
+    from horovod_tpu_torch.parallel import ring
+
+    b, h, s, d, n = cfg["ring_case"]
+    sl, sm = s // n, d ** -0.5
+    g = torch.Generator(device).manual_seed(16)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=g, device=device)
+                   .to(BF16) for _ in range(4))
+    qf, kf, vf = (t.clone().requires_grad_() for t in (q, k, v))
+    o_ref = fa.flash_attention(qf, kf, vf, causal=True)
+    o_ref.backward(do)
+    lse_ref = fa.flash_attention_partial(q, k, v, causal=True)[1]
+
+    def part(t, i):
+        return t[:, :, i * sl:(i + 1) * sl].contiguous()
+
+    fa.reset_launch_counts()
+    outs, lses, futures = [], [], 0
+    for i in range(n):  # rank i
+        o = torch.zeros(b, h, sl, d, dtype=F32, device=device)
+        lse = torch.full((b, h, sl), -math.inf, dtype=F32, device=device)
+        for step in range(n):
+            src = (i + step) % n
+            was = (o.clone(), lse.clone())
+            o, lse = ring.forward_step(
+                part(q, i), part(k, src), part(v, src), o, lse, causal=True,
+                sm_scale=sm, q_offset=i * sl, k_offset=src * sl)
+            if src > i:  # every key in the queries' future: weight 0
+                futures += 1
+                check(torch.equal(o, was[0]) and torch.equal(lse, was[1]),
+                      f"16a: rank {i}'s future shard {src} moved (o, lse)")
+        outs.append(o.to(BF16))
+        lses.append(lse)
+    dq = [torch.zeros(b, h, sl, d, dtype=F32, device=device)
+          for _ in range(n)]
+    acc = [[torch.zeros(b, h, sl, d, dtype=F32, device=device)
+            for _ in range(2)] for _ in range(n)]
+    for i in range(n):
+        delta = fa.compute_delta(outs[i], part(do, i))
+        for step in range(n):
+            src = (i + step) % n
+            acc[src] = ring.backward_step(
+                part(q, i), part(k, src), part(v, src), part(do, i),
+                lses[i], delta, dq[i], acc[src], causal=True, sm_scale=sm,
+                q_offset=i * sl, k_offset=src * sl)
+    _sync(device)
+    launches = {k: fa.LAUNCHES[k] for k in FLASH}
+    o = torch.cat(outs, dim=2)
+    lse = torch.cat(lses, dim=2)
+    grads = {"dq": (torch.cat(dq, dim=2), qf.grad),
+             "dk": (torch.cat([a[0] for a in acc], dim=2), kf.grad),
+             "dv": (torch.cat([a[1] for a in acc], dim=2), vf.grad)}
+    err = {"o": (o.float() - o_ref.float()).abs().max().item(),
+           "lse": (lse - lse_ref).abs().max().item(),
+           **{k: rel(a, b.float()) for k, (a, b) in grads.items()}}
+    log(f"16a: ring steps over {n} shards of {sl} (B{b} H{h} S{s} D{d}, "
+        f"causal), {futures} future pairs: max|o-whole| {err['o']:.3e} "
+        f"max|lse-whole| {err['lse']:.3e} rel dq {err['dq']:.3e} dk "
+        f"{err['dk']:.3e} dv {err['dv']:.3e} (limits: o {TOL['o']} abs, "
+        f"lse {TOL['lse']} abs, grads {TOL['grad']} relative)")
+    log(f"  16a kernel launches: {launches}")
+    check(err["o"] <= TOL["o"] and err["lse"] <= TOL["lse"],
+          f"16a: ring forward off the whole-sequence attention: {err}")
+    for k in grads:
+        check(err[k] <= TOL["grad"], f"16a: ring {k} off: {err[k]}")
+    if device.type == "cuda":
+        check(launches == dict.fromkeys(FLASH, n * n),
+              f"16a: launches {launches}, want {n * n} of each")
+    return launches
+
+
+def pipeline_16b(cfg, device, card) -> dict:
+    """16b's pipeline: ``pipeline_apply`` with one stage (the world's one
+    rank) over GPT-2-small's layers, phase 7's batch as microbatches,
+    against the plain stack over the same microbatches; the loss is the
+    microbatches' mean causal LM loss."""
+    hvd.init(device=None if device.type == "cuda" else "cpu")
+    dev = hvd.device()
+    model = GPT2Small(**cfg["gpt"], device=dev, seed=0)
+    mb = cfg["pp_micro_batch"]
+    toks = torch.from_numpy(gpt_tokens(cfg)).to(dev)
+    toks = toks.view(-1, mb, toks.shape[1])
+    with torch.no_grad():
+        x = torch.stack([model.token_embed[t].to(model.dtype)
+                         + model.pos_embed[:t.shape[1]].to(model.dtype)
+                         for t in toks])
+
+    def stack(layers, h):
+        for layer in layers:
+            h = layer(h)
+        return h
+
+    def run(out):
+        loss = sum(causal_lm_loss(
+            (model.final_norm(out[i]) @ model.token_embed.to(
+                model.dtype).T).float(), toks[i])
+            for i in range(len(toks))) / len(toks)
+        loss.backward()
+        grads = [p.grad.clone() for p in model.layers.parameters()]
+        model.zero_grad(set_to_none=True)
+        return loss.detach(), grads
+
+    fa.reset_launch_counts()
+    piped = hvd.pipeline_apply(stack, model.layers, x)
+    loss, grads = run(piped)
+    _sync(dev)
+    launches = {k: fa.LAUNCHES[k] for k in FLASH}
+    plain = torch.stack([stack(model.layers, x[i]) for i in range(len(x))])
+    loss_ref, grads_ref = run(plain)
+    worst = max(rel(a, b.float()) for a, b in zip(grads, grads_ref))
+    same = torch.equal(piped, plain) and torch.equal(loss, loss_ref)
+    log(f"16b: pipeline_apply, 1 stage x {len(model.layers)} layers, "
+        f"{len(x)} microbatches of {mb} x {toks.shape[2]}: outputs and "
+        f"loss bit-equal to the plain stack: {same}; loss "
+        f"{loss.item():.6f}; worst relative gradient difference "
+        f"{worst:.3e} (limit 1e-2); launches {launches}")
+    check(same, "16b: the pipeline's outputs or loss differ from the stack")
+    check(worst <= 1e-2, f"16b: pipeline gradients off by {worst:.3e}")
+    if dev.type == "cuda":
+        per = len(model.layers) * len(x)
+        check(launches == dict.fromkeys(FLASH, per),
+              f"16b: pipeline launches {launches}, want {per} of each")
+    del model, x, piped, plain, grads, grads_ref
+    hvd.shutdown()
+    free_memory(device)
+    return launches
+
+
+def model_parallel_phase(cfg, device, card, phase7: dict) -> dict:
+    """Phase 16: 16a, then 16b's ring and Ulysses runs against phase 7's
+    losses and its pipeline; the flash launches of all of it."""
+    launches = ring_steps_16a(cfg, device)
+    for fn in (hvd.ring_attention, hvd.ulysses_attention):
+        run = train_gpt(cfg, device, card, False, attention_fn=fn)
+        log(f"16b: {fn.__name__} losses bit-equal to phase 7's: "
+            f"{run['losses'] == phase7['losses']}; launches "
+            f"{ {k: run['launches'][k] for k in FLASH} }")
+        check(run["losses"] == phase7["losses"],
+              f"16b: {fn.__name__}'s losses {run['losses']} are not phase "
+              f"7's {phase7['losses']}")
+        launches = {k: launches[k] + run["launches"][k] for k in FLASH}
+    pp = pipeline_16b(cfg, device, card)
+    launches = {k: launches[k] + pp[k] for k in FLASH}
+    log(f"phase 16 kernel launches (16a, 16b): {launches}")
+    return launches
+
+
 GROUPS = (  # kernel-name fragments -> group, first match wins
     ("flash_", "attention kernels (port)"),
     ("sba_kernel", "BN + ReLU kernel B10 (port)"),
@@ -4592,14 +4782,16 @@ def main() -> int:
     elapsed("phase 14")
     p15 = wire_extensions_phase(cfg, device, card, runs["hooks"]["losses"])
     elapsed("phase 15")
+    p16 = model_parallel_phase(cfg, device, card, gpt[False])
+    elapsed("phase 16")
     if dry:
         log("DRY RUN complete: control flow rehearsed; no result line")
         return 0
 
     # each kernel's launches are counted on the paths that run it: the
-    # flash kernels on phase 4, phase 14's BERT-Large (remat) and MoE LM
-    # and phase 15's autotuned BERT-Large
-    launches = {**{k: v + p14.get(k, 0) + p15.get(k, 0)
+    # flash kernels on phase 4, phase 14's BERT-Large (remat) and MoE LM,
+    # phase 15's autotuned BERT-Large and phase 16's model parallelism
+    launches = {**{k: v + p14.get(k, 0) + p15.get(k, 0) + p16.get(k, 0)
                    for k, v in runs["hooks"]["launches"].items()},
                 "adamw_multi": runs["fused"]["launches"]["adamw_multi"],
                 "flat_adamw": sum(runs[p]["launches"]["flat_adamw"]

@@ -13,7 +13,13 @@ alltoall; allreduce, allgather and broadcast differentiable). Beyond it:
 ``sharded_update``, ``scatter_gradients``, ``shard_params``,
 ``gather_params``, ``iter_param_buckets``), expert parallelism
 (``switch_moe`` over the runtime's all-to-all, ``load_balance_loss``,
-``default_capacity``, ``stack_stage_params``), sparse embedding gradients
+``default_capacity``, ``stack_stage_params``), model parallelism over the
+axes' own process groups (``ring_attention`` and ``ulysses_attention`` on
+the flash kernels, Megatron's ``tp_train_step`` with
+``transformer_tp_rules``, ``params_shardings`` and ``xla_attention``, the
+GPipe ``pipeline_apply`` with ``last_stage_value``), the ordered-lane
+guard (``assert_collective_lane_clear``, ``OrderedLaneError``), sparse
+embedding gradients
 (``with_sparse_embedding_grad``, ``SparseGrad``, ``sparse_allgather``),
 and ``flash_attention`` on
 hand-written Hopper kernels (``csrc/``). The replicated fused AdamW is
@@ -141,6 +147,22 @@ from horovod_tpu_torch.parallel.ep import (  # noqa: F401
     default_capacity,
     load_balance_loss,
     switch_moe,
+)
+from horovod_tpu_torch.parallel.ring import ring_attention  # noqa: F401
+from horovod_tpu_torch.parallel.ulysses import ulysses_attention  # noqa: F401
+from horovod_tpu_torch.parallel.tp import (  # noqa: F401
+    params_shardings,
+    tp_train_step,
+    transformer_tp_rules,
+    xla_attention,
+)
+from horovod_tpu_torch.parallel.pp import (  # noqa: F401
+    last_stage_value,
+    pipeline_apply,
+)
+from horovod_tpu_torch.ops.collectives import (  # noqa: F401
+    OrderedLaneError,
+    assert_collective_lane_clear,
 )
 from horovod_tpu_torch.parallel.zero import (  # noqa: F401
     sharded_update,

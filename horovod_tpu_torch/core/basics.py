@@ -222,7 +222,8 @@ def shutdown() -> None:
             elif st.owns_group:
                 dist.destroy_process_group()
             else:
-                for group in (st.data_group, st.control_group):
+                for group in (*st.axis_groups.values(), st.data_group,
+                              st.control_group):
                     dist.destroy_process_group(group)
     state_mod.reset()
 
@@ -240,7 +241,8 @@ def _abort_groups(st) -> None:
     if st.owns_group:
         abort(None)
     else:
-        for group in (st.data_group, st.control_group):
+        for group in (*st.axis_groups.values(), st.data_group,
+                      st.control_group):
             abort(group)
     torch.cuda.synchronize(st.device)
     log.warning("shutdown after a lost peer: aborted the process groups")

@@ -4,7 +4,8 @@ One singleton holds the topology, the device this process drives, whether
 ``init()`` created the ``torch.distributed`` process group (and so must
 destroy it at ``shutdown()``) and its store, the knobs ``init()`` parsed
 (``utils.env.Config``), the enqueue runtime's two process groups and the
-runtime itself, started at the first enqueue."""
+runtime itself, started at the first enqueue, and the model-parallel axes'
+groups."""
 
 from __future__ import annotations
 
@@ -40,6 +41,9 @@ class GlobalState:
     control_group: Any = None
     data_group: Any = None
     runtime: Any = None
+    # the model-parallel axes' groups (parallel/_util.axis_group), made on
+    # first use in this generation, by sorted member ranks
+    axis_groups: dict = dataclasses.field(default_factory=dict)
 
     lock: Any = dataclasses.field(default_factory=threading.RLock)
 

@@ -92,6 +92,16 @@ class CheckpointCorruptError(HorovodInternalError):
         self.leaf = leaf
 
 
+class OrderedLaneError(RuntimeError):
+    """A collective was about to be issued from a caller's thread while the
+    runtime still held named collectives in flight (the JAX package's
+    ``horovod_tpu/ops/collectives.py:72-86``). The runtime's cycle thread
+    is the one ordered issuer of the named ops; a collective of the
+    caller's own on a group that the runtime also uses, issued meanwhile,
+    can take another place in the order on each rank: a hang or garbage.
+    Synchronize the outstanding handles first."""
+
+
 class HostsUpdatedInterrupt(Exception):
     """The elastic driver announced a host-set change (reference:
     horovod/common/exceptions.py HostsUpdatedInterrupt). Not an error: it

@@ -14,7 +14,11 @@ model constructors and the losses). Numerics follow the flax modules:
   MLM head casts the embedding to ``dtype`` (``:387``, ``:433``);
 * attention runs :func:`horovod_tpu_torch.ops.flash_attention` (the Hopper
   kernels on the card, the plain version on the CPU; ``FLASH_FUSED_BWD=1``
-  sends its backward to the fused kernel);
+  sends its backward to the fused kernel), or the model's ``attention_fn``
+  (``:98, 248, 289``), called as ``attention_fn(q, k, v, causal=...)`` on
+  (batch, heads, seq, head_dim): ``ring_attention`` or
+  ``ulysses_attention`` over a sequence sharded on the ranks, with
+  ``pos_offset`` giving each rank its shard's global position;
 * :func:`causal_lm_loss_chunked` projects the vocab a chunk of positions at
   a time under ``torch.utils.checkpoint``, as the JAX package's
   ``jax.checkpoint`` scan does;
@@ -75,16 +79,20 @@ class SelfAttention(nn.Module):
     ``fused_qkv=True`` holds one ``qkv`` projection of ``3 * d_model``
     outputs, ordered (3, heads, head_dim) as the JAX package's ``qkv``
     ``DenseGeneral`` (``(d, 3, heads, head_dim)``) orders them; else
-    ``query``, ``key`` and ``value``, concatenated for the one product."""
+    ``query``, ``key`` and ``value``, concatenated for the one product.
+    ``attention_fn(q, k, v, causal=...)`` replaces ``flash_attention``
+    when given (it holds no parameters)."""
 
     def __init__(self, d_model: int, num_heads: int, causal: bool = False,
-                 dtype=torch.bfloat16, device=None, fused_qkv: bool = False):
+                 dtype=torch.bfloat16, device=None, fused_qkv: bool = False,
+                 attention_fn=None):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"num_heads ({num_heads}) must divide d_model "
                              f"({d_model})")
         self.num_heads, self.causal, self.dtype = num_heads, causal, dtype
         self.fused_qkv = fused_qkv
+        self.attention_fn = attention_fn
         if fused_qkv:
             self.qkv = nn.Linear(d_model, 3 * d_model, device=device)
         else:
@@ -108,7 +116,8 @@ class SelfAttention(nn.Module):
         # (b, s, 3, h, dh) -> 3 x (b, h, s, dh)
         q, k, v = (t.contiguous() for t in
                    qkv.view(b, s, 3, h, d // h).permute(2, 0, 3, 1, 4))
-        o = flash_attention(q, k, v, causal=self.causal)
+        attn = self.attention_fn or flash_attention
+        o = attn(q, k, v, causal=self.causal)
         o = o.transpose(1, 2).reshape(b, s, d)
         return _dense(o, self.out, self.dtype)
 
@@ -131,11 +140,11 @@ class TransformerLayer(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int,
                  causal: bool = False, dtype=torch.bfloat16, device=None,
-                 fused_qkv: bool = False):
+                 fused_qkv: bool = False, attention_fn=None):
         super().__init__()
         self.ln1 = LayerNorm(d_model, dtype, device)
         self.attention = SelfAttention(d_model, num_heads, causal, dtype,
-                                       device, fused_qkv)
+                                       device, fused_qkv, attention_fn)
         self.ln2 = LayerNorm(d_model, dtype, device)
         self.mlp = Mlp(d_model, d_ff, dtype, device)
 
@@ -158,13 +167,15 @@ class Transformer(nn.Module):
     model's weights across). ``remat`` runs each layer under
     ``torch.utils.checkpoint`` (the JAX package's ``nn.remat``): the
     backward recomputes the layer's forward, the flash forward included,
-    instead of keeping its activations."""
+    instead of keeping its activations. ``attention_fn`` goes to every
+    layer's :class:`SelfAttention`."""
 
     def __init__(self, vocab_size: int, d_model: int = 768,
                  num_layers: int = 12, num_heads: int = 12, d_ff: int = 3072,
                  max_seq: int = 512, causal: bool = False,
                  dtype=torch.bfloat16, device=None, seed: int = 0,
-                 remat: bool = False, fused_qkv: bool = False):
+                 remat: bool = False, fused_qkv: bool = False,
+                 attention_fn=None):
         super().__init__()
         device = resolve(device)
         self.vocab_size, self.max_seq, self.dtype = vocab_size, max_seq, dtype
@@ -175,7 +186,7 @@ class Transformer(nn.Module):
                                                   device=device))
         self.layers = nn.ModuleList(
             TransformerLayer(d_model, num_heads, d_ff, causal, dtype, device,
-                             fused_qkv)
+                             fused_qkv, attention_fn)
             for _ in range(num_layers))
         self.final_norm = LayerNorm(d_model, dtype, device)
         self.reset_parameters(seed)

@@ -38,6 +38,8 @@ import torch.distributed as dist
 
 from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.core import basics
+from horovod_tpu_torch.core import state as state_mod
+from horovod_tpu_torch.exceptions import OrderedLaneError
 from horovod_tpu_torch.runtime import runtime, types
 
 # Reduction ops (reference: horovod_tpu/ops/collectives.py:52-56).
@@ -474,6 +476,44 @@ class _BroadcastFunction(torch.autograd.Function):
         if basics.rank() != ctx.root_rank:
             summed = torch.zeros_like(summed)
         return summed, None, None
+
+
+def assert_collective_lane_clear() -> None:
+    """Raise :class:`~horovod_tpu_torch.exceptions.OrderedLaneError` when,
+    in a world of more than one rank and off the runtime's cycle thread,
+    the runtime holds named collectives in flight (the JAX package's guard,
+    ``horovod_tpu/ops/collectives.py:89-118``). Call it before issuing a
+    collective of your own on a group the runtime also uses (its data
+    group, or the default group where ``broadcast_object`` runs), so that
+    a cross-rank order hazard raises instead of hanging. At world 1, before
+    the runtime starts and on the cycle thread it returns.
+
+    The model-parallel entry points call it too (``ring_attention`` and
+    ``ulysses_attention`` forward and backward, ``pipeline_apply``, its
+    hand-offs' backward and ``last_stage_value``, ``tp_train_step``'s
+    step), though they issue on the axes' own groups: on NCCL two process
+    groups whose kernels reach the card in another order on each rank can
+    deadlock (a kernel of one waits for a peer whose kernel queues behind
+    the other's), and the runtime's thread issues at cycles no caller
+    foresees. On four H100s a ring backward with ``DistributedOptimizer``'s
+    hooks in flight hung in its third layer. Exchange a model-parallel
+    step's gradients after its backward (``allreduce_gradients``, or
+    ``make_train_step`` with a plain optimizer): every rank then issues
+    the step's model-parallel collectives, then the runtime's."""
+    st = state_mod.global_state()
+    rt = st.runtime
+    if not st.initialized or st.size <= 1 or rt is None:
+        return
+    if threading.current_thread() is rt._thread:
+        return
+    n = rt.in_flight()
+    if n:
+        raise OrderedLaneError(
+            f"{n} named collective(s) are still in flight in the runtime; "
+            "issuing a collective of the caller's own now can order the "
+            "collectives differently across the ranks (a hang or garbage). "
+            "Call hvd.synchronize() on the outstanding handles (or "
+            "optimizer.synchronize()) first")
 
 
 def poll(handle) -> bool:

@@ -301,6 +301,20 @@ def _check_rows(q, lse, delta):
                              f"{tuple(q.shape[:3])}")
 
 
+def flash_backward(q, k, v, do, lse, delta, *, causal, sm_scale, q_offset,
+                   k_offset):
+    """(dq, dk, dv) of one (query, key) pair under the backward's rule: the
+    fused kernel when :func:`uses_fused_bwd`, else the dq and dk/dv
+    kernels. ``lse`` is the rows' final log-sum-exp, which need not be
+    these keys' own (ring attention passes the merged one)."""
+    kw = dict(causal=causal, sm_scale=sm_scale, q_offset=q_offset,
+              k_offset=k_offset)
+    if uses_fused_bwd(q, k):
+        return flash_bwd_fused(q, k, v, do, lse, delta, **kw)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward kernel, then the fused kernel or the dq and dk/dv kernels in
     the backward (the ``jax.custom_vjp`` of the JAX package)."""
@@ -318,12 +332,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        delta = compute_delta(o, do)
-        if uses_fused_bwd(q, k):
-            dq, dk, dv = flash_bwd_fused(q, k, v, do, lse, delta, **ctx.kw)
-        else:
-            dq = flash_bwd_dq(q, k, v, do, lse, delta, **ctx.kw)
-            dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **ctx.kw)
+        dq, dk, dv = flash_backward(q, k, v, do, lse, compute_delta(o, do),
+                                    **ctx.kw)
         return dq, dk, dv, None, None, None, None
 
 
@@ -350,3 +360,32 @@ def flash_attention_partial(q, k, v, *, causal: bool = False,
     return flash_fwd(q, k, v, causal=bool(causal),
                      sm_scale=_scale(q, sm_scale), q_offset=int(q_offset),
                      k_offset=int(k_offset))
+
+
+def merge_partials(o_a, lse_a, o_b, lse_b):
+    """Combine two attention partials over disjoint key sets exactly
+    (``horovod_tpu/ops/pallas/flash_attention.py:957-969``): each is the
+    output normalised over its keys and the rows' log-sum-exp. The weights
+    and the sum are float32; ``o`` comes back in ``o_a``'s dtype. A row
+    whose ``lse`` is ``-inf`` on one side (no key of that side reached it)
+    has weight exactly 0 there, so merging with an empty partial (zeros,
+    ``-inf``) gives the other partial back bit for bit."""
+    lse = torch.logaddexp(lse_a, lse_b)
+    # exp(-inf - -inf) would be NaN; an absent row has weight exactly 0
+    w_a = torch.where(lse_a == NEG_INF, 0.0, torch.exp(lse_a - lse))
+    w_b = torch.where(lse_b == NEG_INF, 0.0, torch.exp(lse_b - lse))
+    o = o_a.float() * w_a[..., None] + o_b.float() * w_b[..., None]
+    return o.to(o_a.dtype), lse
+
+
+def attention_reference(q, k, v, *, causal: bool = False,
+                        sm_scale: Optional[float] = None, q_offset: int = 0,
+                        k_offset: int = 0) -> torch.Tensor:
+    """Plain O(seq^2) attention in float32, differentiable by autograd
+    (``horovod_tpu/ops/pallas/flash_attention.py:972``): a softmax over the
+    masked scores, fully masked rows 0, the output in q's dtype. No kernel
+    runs, on the card either."""
+    s = _scores(q, k, causal, _scale(q, sm_scale), q_offset, k_offset)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)  # fully masked rows
+    return (p @ v.float()).to(q.dtype)

@@ -728,6 +728,10 @@ class Runtime:
         if not params.active:
             self._autotune_active = False
 
+    def in_flight(self) -> int:
+        """Named ops enqueued and not yet handed back (the table's size)."""
+        return len(self.queue)
+
     def _debug_state(self) -> dict:
         """The flight recorder's ``runtime`` state: the table's names, the
         ops in the cycle's pipeline with their ages, the failure. Read

@@ -4,7 +4,8 @@ what the JAX package's example prints. ``bert_large_sparse`` prints
 "lockstep OK" on every rank, as ``tests/test_tpurun_integration.py`` asks
 of the JAX one; ``synthetic_benchmark`` runs with and without
 ``--fp16-allreduce``; ``moe`` (two experts, one a rank) runs at its
-defaults and its loss falls."""
+defaults and its loss falls; ``long_context`` runs its ring strategy over
+a 64-token sequence, 32 a rank."""
 
 import os
 import subprocess
@@ -23,6 +24,8 @@ CASES = {
                                   "--fp16-allreduce"], "Img/sec total:"),
     "mnist": (["--epochs", "1"], "epoch 0: loss"),
     "moe": ([], "final loss"),  # its defaults: 50 steps, d 64
+    "long_context": (["--seq", "64", "--layers", "1", "--d-model", "64",
+                      "--heads", "4", "--steps", "2"], "step 1: loss"),
 }
 
 

@@ -177,3 +177,34 @@ def test_bert_large_shapes_and_mlm_data():
     np.testing.assert_array_equal(
         jtr.random_tokens(np.random.default_rng(1), 2, 8, 50),
         ttr.random_tokens(np.random.default_rng(1), 2, 8, 50))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["bert", "gpt"])
+def test_attention_fn_takes_the_same_weights(causal):
+    """``attention_fn`` holds no parameters: the converted JAX weights load
+    strictly into a model that has one, and it is called as
+    ``attention_fn(q, k, v, causal=...)`` on (batch, heads, seq, head_dim)
+    in every layer. With the plain attention on both sides the logits
+    match the JAX model's given the JAX package's ``xla_attention``."""
+    from horovod_tpu.parallel.tp import xla_attention as jattn
+    from horovod_tpu_torch.parallel.tp import xla_attention
+
+    _, params, tm, tokens = _models(causal, jnp.float32, torch.float32)
+    seen = []
+
+    def attn(q, k, v, causal):
+        seen.append((tuple(q.shape), causal))
+        return xla_attention(q, k, v, causal)
+
+    kw = dict(vocab_size=VOCAB, d_model=D, num_layers=LAYERS, num_heads=HEADS,
+              d_ff=FF, max_seq=SEQ, causal=causal)
+    twin = ttr.Transformer(dtype=torch.float32, device="cpu", **kw,
+                           attention_fn=attn)
+    twin.load_state_dict(params_from_flax(params))  # strict
+    assert twin.state_dict().keys() == tm.state_dict().keys()
+    jtwin = jtr.Transformer(dtype=jnp.float32, **kw, attention_fn=jattn)
+    with torch.no_grad():
+        got = twin(torch.from_numpy(tokens)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jtwin.apply(params, tokens)),
+                               **TOL)
+    assert seen == [((BATCH, HEADS, SEQ, D // HEADS), causal)] * LAYERS

@@ -313,6 +313,36 @@ Phases (any failure exits non-zero):
    the plain stack over the same microbatches: outputs and loss bit-equal,
    the layers' gradients within 1e-2 relative. Each run's B1 and B3/B4
    launches are printed and join the kernels line.
+17. The serving plane (no kernel of its own: the cached attention is plain
+   PyTorch, as the JAX package's is plain XLA). 17a: the serving tests'
+   tiny float32 model (vocab 61, d 32, 2 layers, 2 heads, max_seq 48) with
+   the same weights on the card and on the CPU; the dense and the paged
+   engine (``serve/kv_cache.py``, ``serve/paging.py``) run one call
+   sequence (two prompt buckets in concurrent slots, a reused slot, a
+   shared 16-token prefix with copy-on-write, an exact repeat): the card's
+   tokens equal the CPU's, and after every replay of the decode step's
+   CUDA graph the same step run eagerly on the same state gives bit-equal
+   ids and max|logit|. 17b: ``hvd.init()`` with ``HOROVOD_METRICS_PORT=0``,
+   GPT-2-small at full width (float32 parameters, bf16 compute, seed 0),
+   ``hvd.serve(model, replicas=1, slots=8, max_new_tokens=64)`` dense, then
+   ``paged=True`` (the default pool, ``auto_pool_pages(8, 1024, 16)`` =
+   256 pages): one warm-up request a prompt bucket (16-512), then 48
+   requests from seed 0 whose prompts span those buckets, 16 of them with
+   a shared 256-token prefix. Every request completes with 64 tokens, no
+   replica is quarantined (a swallowed device error fails the phase at
+   once) and ``serve_state()`` shows none; no program key appears after
+   the warm-up; the paged run reuses prefix tokens; every request has its
+   ``request.submit``, ``.queue_wait``, ``.prefill``, ``.decode_block`` and
+   ``.response`` spans under one trace id; ``GET /serve``, ``/slo`` and
+   ``/healthz`` answer; the memory ledger's ``serve_kv`` is 301,989,888
+   bytes and ``kv_pages`` 150,994,944; the goodput ledger's serve time is
+   above 0. Each served token's logit in a teacher-forced uncached forward
+   (flash B1) is within 0.125 of that row's maximum (a near-tie), and for
+   8 requests a run the serving path's logits (one request in a cache of
+   its own) are within 0.125 of that forward's. Printed beside the card's
+   name and power limit: generated tokens/s, TTFT p50/p99, the decode
+   step's ms replayed and eager in turns, the KV bytes. The reference
+   forwards' B1 launches join the kernels line.
 
 Between them: 2d. kernel B10 (fused BN + ReLU) bit-equal to its plain
 version at every distinct BN input of Inception-V3 at batch 32 (bf16),
@@ -343,7 +373,7 @@ bound and SDPA's forward.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (each kernel's
 launches counted on the paths that run it: the flash kernels on phase 4,
-on 14a and 14c, on 15b and on phase 16,
+on 14a and 14c, on 15b, on phase 16 and on phase 17's reference forwards,
 the multi-tensor AdamW on P1, the flat AdamW on P2, P4 and P5, B10 on phase 6, B11 on
 the probe's phase 2e, B7 on phase 7's fused run, B12-B14 on the probe's
 phase 2g), the card's name and power limit, and ``{"ok": true,
@@ -374,6 +404,7 @@ import torch
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch import comms, flight_recorder, goodput, memory
+from horovod_tpu_torch import tracing
 from horovod_tpu_torch.autotune import probe as aprobe
 from horovod_tpu_torch.core import state as state_mod
 from horovod_tpu_torch.metrics import flatten_snapshot
@@ -383,7 +414,8 @@ from horovod_tpu_torch.models.inception import InceptionV3
 from horovod_tpu_torch.models.resnet import BatchNormReLU, ResNet50
 from horovod_tpu_torch.models import moe
 from horovod_tpu_torch.models.transformer import (BertLarge, GPT2Small,
-                                                  Transformer, causal_lm_loss,
+                                                  KVCache, Transformer,
+                                                  causal_lm_loss,
                                                   causal_lm_loss_chunked,
                                                   fuse_qkv_state,
                                                   masked_lm_loss_gathered,
@@ -398,6 +430,7 @@ from horovod_tpu_torch.parallel import zero as zero_mod
 from horovod_tpu_torch.parallel.zero import LeafMeta, build_spec, dtype_name
 from horovod_tpu_torch.runtime import fusion as fusion_mod
 from horovod_tpu_torch.runtime import runtime as hrt
+from horovod_tpu_torch.serve import serve_state
 from horovod_tpu_torch.tools import conv_bn_probe as probe
 from horovod_tpu_torch.tools import flash_vpu_probe as vprobe
 from horovod_tpu_torch.training import make_train_step
@@ -495,7 +528,13 @@ FULL = dict(
     # phase 15b: the autotuned run's steps until the tuner freezes, at most
     autotune_max_steps=40,
     # phase 16a: (batch, heads, seq, head_dim, shards), GPT-2-small's heads
-    ring_case=(2, 12, 4096, 64, 4), pp_micro_batch=2)
+    ring_case=(2, 12, 4096, 64, 4), pp_micro_batch=2,
+    # phase 17b: hvd.serve's requests (from seed 0; the shared ones a
+    # 256-token prefix), generation length, slots, decode-step timing
+    # calls and requests checked on the serving path's logits
+    serve_requests=48, serve_shared=16, serve_prefix=256,
+    serve_max_prompt=512, serve_new=64, serve_slots=8, serve_step_iters=50,
+    serve_cached_checks=8)
 DRY = dict(
     cases={"a": (1, 2, 64, 64, False, 0, 0), "b": (1, 2, 96, 64, True, 0, 0),
            "d_masked": (1, 2, 64, 64, True, 8, 40),
@@ -526,7 +565,9 @@ DRY = dict(
     moe_lm=dict(vocab_size=512, d_model=128, num_layers=2, num_heads=2,
                 d_ff=256, max_seq=64), moe_batch=2, lm_chunk=16,
     autotune_max_steps=60,
-    ring_case=(1, 2, 64, 64, 4), pp_micro_batch=1)
+    ring_case=(1, 2, 64, 64, 4), pp_micro_batch=1,
+    serve_requests=8, serve_shared=4, serve_prefix=32, serve_max_prompt=48,
+    serve_new=8, serve_slots=4, serve_step_iters=2, serve_cached_checks=2)
 
 
 def check(ok: bool, what: str) -> None:
@@ -4615,6 +4656,388 @@ def model_parallel_phase(cfg, device, card, phase7: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the serving plane
+# ---------------------------------------------------------------------------
+
+# the serving tests' tiny float32 model (tests/test_torch_serve.py)
+SERVE_TINY = dict(vocab_size=61, d_model=32, num_layers=2, num_heads=2,
+                  d_ff=64, max_seq=48, causal=True)
+# 17b: a served token's logit in the teacher-forced uncached forward may
+# sit below that row's maximum by at most this much (a near-tie), and the
+# serving path's logits may differ from that forward's by at most this
+# much: eight bf16 ulps at the logits' magnitude (|logit| < 4 here)
+SERVE_LOGIT_TOL = 0.125
+SERVE_SPANS = ("request.submit", "request.queue_wait", "request.prefill",
+               "request.decode_block", "request.response")
+
+
+def _serve_gen(eng, slot, prompt, n, out, graph_checks):
+    token, _ = eng.prefill(slot, prompt)
+    toks, pos = [token], len(prompt)
+    for _ in range(n - 1):
+        (t,), _ = eng.decode([slot], [toks[-1]], [pos])
+        _graph_vs_eager(eng, graph_checks)
+        toks.append(t)
+        pos += 1
+    out.append(toks)
+
+
+def _graph_vs_eager(eng, checks) -> None:
+    """On the card: the step just replayed, run again eagerly on the same
+    inputs and state (the step rewrites the same cache rows), must give
+    bit-equal ids and max|logit|."""
+    step = eng.step
+    if step.graph is None:
+        return
+    ids, max_abs = (t.clone() for t in step.out)
+    e_ids, e_abs = step.eager()
+    checks.append(torch.equal(ids, e_ids) and torch.equal(max_abs, e_abs))
+
+
+def serve_scenario(eng, graph_checks: list) -> list:
+    """17a's calls: two prompt buckets in concurrent slots, a long
+    occupant then a short prompt in one slot, and on a paged engine a
+    shared 16-token prefix (copy-on-write) and an exact repeat. Returns
+    every generation."""
+    out = []
+    prompts = {0: [5, 4, 3, 2, 1], 2: list(range(1, 18))}
+    gen = {s: [eng.prefill(s, p)[0]] for s, p in prompts.items()}
+    pos = {s: len(p) for s, p in prompts.items()}
+    for _ in range(5):
+        ids, _ = eng.decode([0, 2], [gen[0][-1], gen[2][-1]],
+                            [pos[0], pos[2]])
+        _graph_vs_eager(eng, graph_checks)
+        for s, t in zip((0, 2), ids):
+            gen[s].append(t)
+            pos[s] += 1
+    out += [gen[0], gen[2]]
+    _serve_gen(eng, 1, list(range(1, 31)), 8, out, graph_checks)
+    _serve_gen(eng, 1, [9, 8, 7, 6], 6, out, graph_checks)
+    if eng.paged:
+        for s in range(3):
+            eng.release_slot(s)
+        shared = list(range(1, 17))
+        _serve_gen(eng, 0, shared + [20, 21], 6, out, graph_checks)
+        _serve_gen(eng, 1, shared + [30], 6, out, graph_checks)
+        _serve_gen(eng, 2, shared + [20, 21], 6, out, graph_checks)
+        check(eng.cow_copies > 0 and eng.exact_hits == 1,
+              f"17a: paged scenario: {eng.cow_copies} COW copies, "
+              f"{eng.exact_hits} exact hits")
+    return out
+
+
+def serve_17a(device) -> None:
+    """17a: the tiny float32 model's dense and paged engines on the card
+    against the same weights on the CPU, and each replayed decode step
+    against the eager step on the same state."""
+    from horovod_tpu_torch.serve.kv_cache import DecodeEngine
+    from horovod_tpu_torch.serve.paging import PagedDecodeEngine
+
+    cpu = Transformer(dtype=F32, device="cpu", seed=0, **SERVE_TINY)
+    models = {"cpu": cpu}
+    if device.type == "cuda":
+        models["card"] = Transformer(dtype=F32, device=device, seed=0,
+                                     **SERVE_TINY)
+        models["card"].load_state_dict(cpu.state_dict())
+    makers = {"dense": lambda m: DecodeEngine(m, num_slots=3),
+              "paged": lambda m: PagedDecodeEngine(
+                  m, num_slots=3, page_tokens=16, pool_pages=12)}
+    for kind, make in makers.items():
+        gens, checks = {}, []
+        for where, model in models.items():
+            eng = make(model)
+            gens[where] = serve_scenario(eng, checks)
+            del eng
+        if device.type == "cuda":
+            check(gens["card"] == gens["cpu"],
+                  f"17a {kind}: card tokens {gens['card']} differ from the "
+                  f"CPU's {gens['cpu']}")
+            check(checks and all(checks),
+                  f"17a {kind}: a replayed decode step differs from the "
+                  f"eager step ({checks.count(False)} of {len(checks)})")
+            log(f"17a {kind}: card tokens equal the CPU's in "
+                f"{len(gens['cpu'])} generations; {len(checks)} replayed "
+                f"decode steps bit-equal to the eager step")
+        else:
+            log(f"17a {kind}: {len(gens['cpu'])} generations on the CPU "
+                f"(card vs CPU and the graph replay are card-only)")
+    del models
+    gc.collect()
+    free_memory(device)
+
+
+def serve_prompts(cfg, vocab: int) -> list:
+    """17b's requests from seed 0: ``serve_shared`` of them a shared
+    prefix of ``serve_prefix`` tokens and a suffix, the rest random
+    prompts whose lengths are log-uniform up to ``serve_max_prompt``."""
+    rng = np.random.default_rng(0)
+    n, shared, plen = (cfg["serve_requests"], cfg["serve_shared"],
+                       cfg["serve_prefix"])
+    top = cfg["serve_max_prompt"]
+    prefix = rng.integers(0, vocab, plen).tolist()
+    out = []
+    for i in range(n):
+        if i % (n // shared) == 0 and len(out) < n:
+            tail = int(rng.integers(1, top - plen + 1))
+            out.append(prefix + rng.integers(0, vocab, tail).tolist())
+        else:
+            length = int(np.exp(rng.uniform(np.log(2), np.log(top))))
+            out.append(rng.integers(0, vocab, length).tolist())
+    return out
+
+
+def _wait_all(handle, uids, timeout: float) -> list:
+    """Every request's completion; fails at once when a replica parks
+    quarantined (its loop swallowed an error)."""
+    done, deadline = {}, time.monotonic() + timeout
+    while len(done) < len(uids):
+        for r in handle.stats()["replicas"]:
+            check(not r["quarantined"],
+                  f"17b: replica {r['name']} quarantined")
+        for u in uids:
+            if u not in done:
+                c = handle._queue.try_result(u)
+                if c is not None:
+                    done[u] = c
+        check(time.monotonic() < deadline,
+              f"17b: {len(uids) - len(done)} requests not done in "
+              f"{timeout} s")
+        time.sleep(0.02)
+    return [done[u] for u in uids]
+
+
+def _teacher_forced(model, prompt, tokens):
+    """The uncached forward (flash B1) over prompt + generated[:-1]: the
+    logits that predicted each generated token, float32."""
+    seq = torch.tensor([prompt + tokens[:-1]], device=model.token_embed.device)
+    with torch.no_grad():
+        return model(seq)[0, len(prompt) - 1:]
+
+
+def _cached_logits(model, prompt, tokens, paged: bool):
+    """The serving path's logits for the same tokens, one request in a
+    cache of its own: the bucketed prefill, then one decode step a token."""
+    from horovod_tpu_torch.serve.kv_cache import (padded_prompt,
+                                                  prompt_bucket)
+
+    dev = model.token_embed.device
+    T = 16
+    width = -(-model.max_seq // T) + 1
+    table = None
+    if paged:
+        need = -(-(len(prompt) + len(tokens)) // T)
+        cache = KVCache.paged(model, need + 1, T)
+        table = torch.zeros((1, width), dtype=torch.long, device=dev)
+        table[0, :need] = torch.arange(1, need + 1)
+    else:
+        cache = KVCache.dense(model, 1)
+    rows = []
+    with torch.no_grad():
+        bucket = prompt_bucket(len(prompt), model.max_seq)
+        logits = model(padded_prompt(prompt, bucket, dev),
+                       positions=torch.zeros(1, dtype=torch.long,
+                                             device=dev),
+                       cache=cache, page_table=table)
+        rows.append(logits[0, len(prompt) - 1])
+        for i, t in enumerate(tokens[:-1]):
+            logits = model(torch.tensor([[t]], device=dev),
+                           positions=torch.tensor([len(prompt) + i],
+                                                  device=dev),
+                           cache=cache, page_table=table)
+            rows.append(logits[0, 0])
+    return torch.stack(rows)
+
+
+def _time_step(step, n: int, dev) -> dict:
+    """The decode step's ms, eager and replayed, in turns (eager, replay,
+    replay, eager): CUDA events around ``n`` calls; on the CPU the host
+    clock around eager calls only."""
+    out = {"eager": [], "replay": []}
+    order = ("eager", "replay", "replay", "eager")
+    for mode in order:
+        if mode == "replay" and step.graph is None:
+            continue
+        run = step.eager if mode == "eager" else step.graph.replay
+        run()
+        if dev.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize(dev)
+            start.record()
+            for _ in range(n):
+                run()
+            end.record()
+            torch.cuda.synchronize(dev)
+            out[mode].append(start.elapsed_time(end) / n)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                run()
+            out[mode].append(1e3 * (time.perf_counter() - t0) / n)
+    return out
+
+
+def serve_run(cfg, model, paged: bool, card) -> dict:
+    """One 17b run: ``hvd.serve`` with one replica, the warm-up requests
+    (one a prompt bucket), then the requests of :func:`serve_prompts`; every
+    check of 17b that reads the handle while it lives."""
+    from horovod_tpu_torch.serve.kv_cache import prompt_bucket
+
+    kind = "paged" if paged else "dense"
+    prompts = serve_prompts(cfg, model.vocab_size)
+    new = cfg["serve_new"]
+    handle = hvd.serve(model, replicas=1, slots=cfg["serve_slots"],
+                       max_new_tokens=new, paged=paged)
+    try:
+        buckets = sorted({prompt_bucket(n, model.max_seq)
+                          for n in range(1, cfg["serve_max_prompt"] + 1)})
+        rng = np.random.default_rng(1)
+        warm = [handle.submit(rng.integers(0, model.vocab_size,
+                                           b).tolist(), max_new_tokens=2)
+                for b in buckets]
+        _wait_all(handle, warm, 600.0)
+        compiles = handle.compiles_total()
+        t0 = time.perf_counter()
+        uids = [handle.submit(p) for p in prompts]
+        outs = _wait_all(handle, uids, 600.0)
+        wall = time.perf_counter() - t0
+        check(handle.compiles_total() == compiles,
+              f"17b {kind}: program keys after warm-up: "
+              f"{handle.stats()['replicas'][0]['engine']['compiles']}")
+        check(all(len(o.tokens) == new and o.finish == "length"
+                  for o in outs),
+              f"17b {kind}: a request came back short: "
+              f"{[(len(o.tokens), o.finish) for o in outs]}")
+        rep = handle._replicas[0]
+        eng = rep.engine
+        state = serve_state()
+        check(state["count"] == 1 and not any(
+            r["quarantined"] for h in state["handles"]
+            for r in h["replicas"]), f"17b {kind}: serve_state {state}")
+        spans: dict = {}
+        for s in tracing.spans():
+            spans.setdefault(s.get("trace_id"), set()).add(s["name"])
+        missing = [o.trace_id for o in outs
+                   if not set(SERVE_SPANS) <= spans.get(o.trace_id, set())]
+        check(not missing, f"17b {kind}: requests without every span: "
+                           f"{missing[:4]}")
+        codes = {r: _get_json(r) for r in ("/serve", "/slo", "/healthz")}
+        check(all(c == 200 for c, _ in codes.values())
+              and codes["/serve"][1]["count"] == 1
+              and codes["/slo"][1]["requests_scored"] >= len(outs)
+              and codes["/healthz"][1]["ready"],
+              f"17b {kind}: routes {codes}")
+        sub = "kv_pages" if paged else "serve_kv"
+        led = memory.tracker().ledger()["subsystems"][sub]["bytes"]
+        d, n_layers = model.token_embed.shape[1], len(model.layers)
+        rows = (eng.pool.pages * eng.page_tokens if paged
+                else cfg["serve_slots"] * model.max_seq)
+        want = 2 * n_layers * rows * d * torch.finfo(model.dtype).bits // 8
+        check(led == eng.cache_bytes() == want,
+              f"17b {kind}: ledger {sub} {led}, engine "
+              f"{eng.cache_bytes()}, want {want}")
+        extra = ""
+        if paged:
+            pages = eng.page_stats()
+            check(pages["reused_tokens"] > 0
+                  and pages["prefix"]["hits"] > 0,
+                  f"17b paged: no prefix reuse: {pages}")
+            extra = (f"; prefix hits {pages['prefix']['hits']}, reused "
+                     f"tokens {pages['reused_tokens']} of "
+                     f"{pages['reused_tokens'] + pages['computed_tokens']}"
+                     f", COW copies {pages['cow_copies']}, preemptions "
+                     f"{pages['preemptions']}")
+    finally:
+        handle.close()
+    tokens = sum(len(o.tokens) for o in outs)
+    ttft = sorted(1e3 * o.ttft_s for o in outs)
+    p50, p99 = (ttft[min(len(ttft) - 1, int(round(q * (len(ttft) - 1))))]
+                for q in (0.5, 0.99))
+    timing = _time_step(eng.step, cfg["serve_step_iters"],
+                        model.token_embed.device)
+    med = {k: statistics.median(v) if v else None
+           for k, v in timing.items()}
+    log(f"17b {kind}: {len(outs)} requests, {tokens} tokens in "
+        f"{wall:.3f} s: {tokens / wall:.1f} generated tokens/s, TTFT "
+        f"p50 {p50:.2f} ms p99 {p99:.2f} ms; decode step ms in turns "
+        f"(eager, replay, replay, eager): "
+        f"{ {k: [round(x, 4) for x in v] for k, v in timing.items()} }"
+        f", medians {med}; KV bytes {led} (ledger {sub}); "
+        f"{eng.decode_steps} decode steps, compiles "
+        f"{eng.stats()['compiles']}{extra} ({card})")
+    return {"outs": outs, "prompts": prompts, "bytes": led,
+            "tokens_s": tokens / wall, "ttft": (p50, p99),
+            "step_ms": med}
+
+
+def check_served(model, run: dict, paged: bool, n_cached: int) -> dict:
+    """Each request's tokens against the teacher-forced uncached forward
+    (flash B1): the served token's logit within SERVE_LOGIT_TOL of that
+    row's maximum; and for the first ``n_cached`` requests the serving
+    path's logits within SERVE_LOGIT_TOL of it."""
+    kind = "paged" if paged else "dense"
+    argmax_equal = total = 0
+    worst_gap = worst_logit = 0.0
+    for i, (prompt, out) in enumerate(zip(run["prompts"], run["outs"])):
+        ref = _teacher_forced(model, prompt, out.tokens)
+        got = ref.gather(1, torch.tensor(out.tokens, device=ref.device)
+                         [:, None])[:, 0]
+        gap = (ref.max(dim=1).values - got).max().item()
+        worst_gap = max(worst_gap, gap)
+        argmax_equal += int((ref.argmax(dim=1).cpu()
+                             == torch.tensor(out.tokens)).sum())
+        total += len(out.tokens)
+        if i < n_cached:
+            cached = _cached_logits(model, prompt, out.tokens, paged)
+            worst_logit = max(worst_logit,
+                              (cached - ref).abs().max().item())
+    log(f"17b {kind}: served tokens vs the teacher-forced uncached "
+        f"forward: {argmax_equal} of {total} its argmax, largest logit gap "
+        f"below the row's max {worst_gap:.4f}; serving-path logits of "
+        f"{n_cached} requests within {worst_logit:.4f} of it (limit "
+        f"{SERVE_LOGIT_TOL} for both)")
+    check(worst_gap <= SERVE_LOGIT_TOL,
+          f"17b {kind}: a served token's logit is {worst_gap} below the "
+          f"reference's max")
+    check(worst_logit <= SERVE_LOGIT_TOL,
+          f"17b {kind}: serving-path logits off by {worst_logit}")
+    return {"argmax_equal": argmax_equal, "total": total}
+
+
+def serving_phase(cfg, device, card) -> dict:
+    """Phase 17: 17a, then 17b's dense and paged runs of GPT-2-small at full
+    width, their checks, and the launches of B1 in the reference forwards
+    (the serving path itself runs no kernel of the port)."""
+    serve_17a(device)
+    old = _elastic_env(HOROVOD_METRICS_PORT=0)
+    try:
+        hvd.init(device=None if device.type == "cuda" else "cpu")
+        dev = hvd.device()
+        model = GPT2Small(**cfg["gpt"], device=dev, seed=0)
+        runs = {paged: serve_run(cfg, model, paged, card)
+                for paged in (False, True)}
+        gc.collect()
+        fa.reset_launch_counts()
+        for paged, run in runs.items():
+            check_served(model, run, paged, cfg["serve_cached_checks"])
+        _sync(dev)
+        launches = {"flash_fwd": fa.LAUNCHES["flash_fwd"]}
+        good = goodput.goodput_state()
+        check(good["serve_blocks"] > 0 and good["productive_seconds"] > 0,
+              f"17b: goodput ledger {good}")
+        log(f"17b goodput: {good['serve_blocks']} serve blocks, "
+            f"{good['productive_seconds']:.3f} productive s; reference "
+            f"forwards' launches {launches}")
+        del model, runs
+        hvd.shutdown()
+    finally:
+        _restore_env(old)
+    free_memory(device)
+    log(f"phase 17 kernel launches: {launches}")
+    return launches
+
+
 GROUPS = (  # kernel-name fragments -> group, first match wins
     ("flash_", "attention kernels (port)"),
     ("sba_kernel", "BN + ReLU kernel B10 (port)"),
@@ -4784,14 +5207,18 @@ def main() -> int:
     elapsed("phase 15")
     p16 = model_parallel_phase(cfg, device, card, gpt[False])
     elapsed("phase 16")
+    p17 = serving_phase(cfg, device, card)
+    elapsed("phase 17")
     if dry:
         log("DRY RUN complete: control flow rehearsed; no result line")
         return 0
 
     # each kernel's launches are counted on the paths that run it: the
     # flash kernels on phase 4, phase 14's BERT-Large (remat) and MoE LM,
-    # phase 15's autotuned BERT-Large and phase 16's model parallelism
+    # phase 15's autotuned BERT-Large, phase 16's model parallelism and
+    # phase 17's reference forwards
     launches = {**{k: v + p14.get(k, 0) + p15.get(k, 0) + p16.get(k, 0)
+                   + p17.get(k, 0)
                    for k, v in runs["hooks"]["launches"].items()},
                 "adamw_multi": runs["fused"]["launches"]["adamw_multi"],
                 "flat_adamw": sum(runs[p]["launches"]["flat_adamw"]

@@ -45,7 +45,11 @@ observability planes are modules too: ``hvd.flight_recorder`` (the event
 ring and its dumps, ``hvd.dump_debug_state()``), ``hvd.memory`` (the byte
 ledger against the CUDA allocator), ``hvd.comms`` (each collective's
 bandwidth, timed by CUDA events on the card) and ``hvd.goodput`` (the
-productive share of the wall-clock and its incidents).
+productive share of the wall-clock and its incidents), and so is
+``hvd.tracing`` (request spans and the SLO plane). ``hvd.serve(model,
+...)`` serves a causal ``Transformer`` with continuous batching over a
+KV cache, dense or paged (``ServePolicy``; the package
+``horovod_tpu_torch.serve``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``hvd.init(device="cpu")``). Nothing here imports JAX or the JAX package.
@@ -67,6 +71,7 @@ from horovod_tpu_torch import flight_recorder  # noqa: F401
 from horovod_tpu_torch import memory  # noqa: F401
 from horovod_tpu_torch import comms  # noqa: F401
 from horovod_tpu_torch import goodput  # noqa: F401
+from horovod_tpu_torch import tracing  # noqa: F401
 
 from horovod_tpu_torch.core.basics import (  # noqa: F401
     init,
@@ -188,4 +193,9 @@ from horovod_tpu_torch.exceptions import (  # noqa: F401
     WorkerStallError,
 )
 from horovod_tpu_torch.flight_recorder import dump_debug_state  # noqa: F401
+# ``hvd.serve(model, ...)`` is the function: this binding replaces the
+# package attribute that importing ``horovod_tpu_torch.serve`` set, and
+# the package stays reachable through ``sys.modules``
+# (``horovod_tpu_torch.serve.kv_cache`` imports as before).
+from horovod_tpu_torch.serve import ServePolicy, serve  # noqa: F401
 from horovod_tpu_torch.version import __version__  # noqa: F401

@@ -53,7 +53,9 @@ recorder (its rank, an ``init`` event, and SIGTERM and SIGUSR1 handlers
 from the main thread, chained to the ones before), the memory ledger (this
 device's allocator; its sampler thread runs for a card only), the comms
 observatory and the goodput ledger (whose epoch is the first ``init()``'s
-and stays across ``reinit()``). ``shutdown()`` stops the sampler, emits
+and stays across ``reinit()``), and the tracing and SLO plane
+(``tracing.configure``: the rank, the knobs, ``/healthz`` ready until
+``shutdown()``). ``shutdown()`` stops the sampler, emits
 ``shutdown``, writes the final dump when ``HOROVOD_FLIGHT_RECORDER_DIR`` or
 a rendezvous store is set, and puts the earlier signal handlers back.
 """
@@ -73,6 +75,7 @@ from horovod_tpu_torch import flight_recorder
 from horovod_tpu_torch import goodput
 from horovod_tpu_torch import memory
 from horovod_tpu_torch import profiler
+from horovod_tpu_torch import tracing
 from horovod_tpu_torch.core import state as state_mod
 from horovod_tpu_torch.exceptions import NotInitializedError
 from horovod_tpu_torch.metrics import registry as metrics_registry
@@ -183,6 +186,9 @@ def init(device: Union[str, torch.device, None] = None) -> None:
         memory.configure(rank=rank, device=device)
         comms.configure(rank=rank, world=size)
         goodput.configure(rank=rank, world=size)
+        # the tracing and SLO plane adopts the rank and re-reads its
+        # knobs; /healthz turns ready
+        tracing.configure(rank=rank)
 
 
 def shutdown() -> None:
@@ -208,6 +214,8 @@ def shutdown() -> None:
             except OSError as exc:
                 log.warning("could not write metrics dump: %s", exc)
         memory.tracker().stop()
+        # /healthz answers 503 from here on
+        tracing.mark_initialized(False)
         flight_recorder.emit("shutdown", rank=st.rank)
         # a final dump (and its copy to the launcher's store) covers clean
         # exits too, when a destination is configured

@@ -229,8 +229,14 @@ class FlightRecorder:
                     if parent:
                         os.makedirs(parent, exist_ok=True)
                     payload = json.dumps(snap, default=repr)
-                    with open(out, "w") as f:
+                    # a reader (a postmortem, a test polling for the file)
+                    # sees the previous dump or this one whole, never a
+                    # file still being written
+                    tmp = os.path.join(parent or ".", ".%s.%d.tmp" % (
+                        os.path.basename(out), os.getpid()))
+                    with open(tmp, "w") as f:
                         f.write(payload)
+                    os.replace(tmp, out)
                     log.debug("flight recorder: wrote %s (%s)", out, reason)
                 except (OSError, TypeError, ValueError) as exc:
                     log.warning("flight recorder: dump to %r failed: %s",
@@ -484,7 +490,7 @@ def format_postmortem(dumps: List[dict], last_n: int = 40,
                       lineage: Optional[dict] = None) -> str:
     """The merged postmortem as text: each rank's dump, the last
     ``last_n`` interleaved events, the suspected culprit, then the memory,
-    comms and goodput reports of the dumps' ledgers. ``lineage`` (from
+    SLO, comms and goodput reports of the dumps' ledgers. ``lineage`` (from
     :func:`load_restart_lineage`) puts the restart history first."""
     lines = ["=== flight-recorder postmortem (%d dump%s) ==="
              % (len(dumps), "" if len(dumps) == 1 else "s")]
@@ -525,9 +531,10 @@ def format_postmortem(dumps: List[dict], last_n: int = 40,
     else:
         lines.append("suspected culprit: none identified")
     # the planes import this module, so they are imported here
-    from horovod_tpu_torch import comms, goodput, memory
+    from horovod_tpu_torch import comms, goodput, memory, tracing
 
     for report in (memory.format_memory_report(dumps),
+                   tracing.format_slo_report(dumps),
                    comms.format_comms_report(dumps),
                    goodput.format_goodput_report(dumps)):
         if report:

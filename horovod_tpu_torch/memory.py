@@ -18,6 +18,9 @@ high watermark of each subsystem that holds bytes:
   drift);
 * ``ckpt_staging``, pulled from the checkpoint writer's host slabs
   (``ckpt/writer.staging_bytes``, pinned host memory on the card's path);
+* ``serve_kv`` and ``kv_pages``, pulled from the serving plane's live
+  engines (``serve/kv_cache.total_cache_bytes``, the dense caches, and
+  ``serve/paging.total_pool_bytes``, the page pools);
 * ``host_rss``, the process's VmRSS from ``/proc/self/status``.
 
 The claimed device bytes are reconciled against the device's own figures
@@ -296,6 +299,10 @@ class MemoryTracker:
 
         for purpose, rec in fusion_buffer.bytes_by_purpose().items():
             claimed[purpose] = int(rec["allocated_bytes"])
+        from horovod_tpu_torch.serve import kv_cache, paging
+
+        claimed["serve_kv"] = kv_cache.total_cache_bytes()
+        claimed["kv_pages"] = paging.total_pool_bytes()
         claimed["host_rss"] = host_rss_bytes()
         # polled values go through the peak and gauge bookkeeping too
         for name, nbytes in claimed.items():

@@ -23,8 +23,8 @@ Consumers (wired in ``core/basics.py`` and ``runtime/runtime.py``):
 * ``hvd.metrics()``: the snapshot, a JSON-serializable nested dict;
 * ``HOROVOD_METRICS_PORT``: Prometheus text over the standard library's
   ``http.server`` on a daemon thread, ``GET /metrics`` (and ``/``,
-  ``/debug/routes``, ``/debug``, ``/profile``, ``/memory``, ``/comms``,
-  ``/goodput``, ``/healthz``);
+  ``/debug/routes``, ``/debug``, ``/serve``, ``/profile``, ``/memory``,
+  ``/comms``, ``/slo``, ``/goodput``, ``/healthz``);
 * the timeline's ``"C"`` counter events, one set each cycle;
 * ``HOROVOD_METRICS_DUMP``: this rank's snapshot as JSON at
   ``hvd.shutdown()``; :func:`summarize_dumps` and :func:`format_summary`
@@ -52,8 +52,8 @@ total`` count compiled XLA programs and ``horovod_executor_pad_bytes_total``
 their bucket padding, none of which the port has (NCCL compiles nothing
 and the port sends no pad). The flight recorder's, memory's, comms' and
 goodput's families are in their modules (``flight_recorder.py``,
-``memory.py``, ``comms.py``, ``goodput.py``); the tracing and serving
-planes' come with those planes (A12).
+``memory.py``, ``comms.py``, ``goodput.py``), and so are the tracing and
+serving planes' (``tracing.py``, ``serve/``).
 """
 
 from __future__ import annotations
@@ -82,17 +82,18 @@ CKPT_COMMIT_BUCKETS = (0.001, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
                        10.0, 30.0, 60.0, 120.0, 300.0)
 
 # Every route the HTTP endpoint serves, with a one-line description: the
-# payload of GET / and GET /debug/routes. The JAX package's /serve and /slo
-# come with the planes that back them.
+# payload of GET / and GET /debug/routes (horovod_tpu/metrics.py:65-76).
 HTTP_ROUTES: Dict[str, str] = {
     "/metrics": "Prometheus text exposition of every registered family",
     "/debug": "flight-recorder ring events, in-flight ops, metrics",
     "/debug/routes": "this route index",
+    "/serve": "serving-plane replica sets, queue depths, cache warmth",
     "/profile": "step-profiler phase breakdowns and summary",
     "/memory": "memory-plane ledger: live bytes, watermarks, drift",
     "/comms": "collective-transport busbw vs roofline per lane",
+    "/slo": "SLO burn rates, latency percentiles, slow exemplars",
     "/goodput": "goodput ledger: productive vs badput, incidents",
-    "/healthz": "readiness gate (200 once init ran)",
+    "/healthz": "readiness gate (200 once init ran / replica alive)",
 }
 
 
@@ -330,15 +331,19 @@ class MetricsRegistry:
                                reg.prometheus_text().encode())
                 elif route == "/healthz":
                     # readiness gate for external load balancers: 200
-                    # only once hvd.init() ran
-                    state = healthz_state()
+                    # only once hvd.init() ran and, when serving, a
+                    # replica proved alive (tracing imports this module)
+                    from horovod_tpu_torch import tracing
+
+                    state = tracing.healthz_state()
                     self._send(200 if state["ready"] else 503,
                                "application/json", json.dumps(state).encode())
                 elif route in _JSON_ROUTES:
                     # the route index, and each plane's document: the
                     # flight recorder's ring and in-flight ops (/debug),
-                    # the step profiler's breakdowns (/profile), and the
-                    # memory, comms and goodput ledgers
+                    # the serving plane's replica sets (/serve), the step
+                    # profiler's breakdowns (/profile), the memory, comms
+                    # and goodput ledgers, and the SLO plane (/slo)
                     body = json.dumps(_JSON_ROUTES[route](), default=repr)
                     self._send(200, "application/json", body.encode())
                 else:
@@ -437,9 +442,11 @@ _JSON_ROUTES = {
     "": route_index,
     "/debug/routes": route_index,
     "/debug": _plane("flight_recorder", "debug_state"),
+    "/serve": _plane("serve.api", "serve_state"),
     "/profile": _plane("profiler", "profile_state"),
     "/memory": _plane("memory", "memory_state"),
     "/comms": _plane("comms", "comms_state"),
+    "/slo": _plane("tracing", "slo_state"),
     "/goodput": _plane("goodput", "goodput_state"),
 }
 
@@ -448,15 +455,6 @@ _registry = MetricsRegistry()
 
 def registry() -> MetricsRegistry:
     return _registry
-
-
-def healthz_state() -> dict:
-    """``GET /healthz``: ready (200) once ``hvd.init()`` has run and until
-    ``hvd.shutdown()``, else 503."""
-    from horovod_tpu_torch.core import state
-
-    ready = state.global_state().initialized
-    return {"ready": ready, "initialized": ready}
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,18 @@ model constructors and the losses). Numerics follow the flax modules:
   layer's forward again, so the flash forward launches twice a layer a
   step.
 
-The KV-cache ``decode``/``paged`` serving branches are not ported yet.
+The serving branches (``:37-62, 131-201, 257-266, 328-354``) are the same
+modules and parameters run with per-row ``positions`` and a :class:`KVCache`
+that the caller (``serve/kv_cache.py``, ``serve/paging.py``) owns, instead
+of flax's ``clone(decode=True)`` and its mutable ``cache`` collection: the
+new tokens' keys and values are written into the cache in place
+(``index_put_``), so a decode step's tensors keep their storage from step
+to step (the engine captures the step once as a CUDA graph), and attention
+runs :func:`cached_attention`, plain PyTorch as the JAX package's is plain
+XLA. A dense cache holds ``(slots, max_seq, heads, head_dim)`` per layer,
+its batch rows the input's rows; a paged one ``(pages, page_tokens, heads,
+head_dim)``, read and written through a per-row ``page_table``.
+
 Weights carry across from the JAX package with ``models/convert.py``.
 """
 
@@ -46,6 +57,82 @@ from horovod_tpu_torch.ops.flash_attention import flash_attention
 from horovod_tpu_torch.utils.device import resolve
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
+NEG_INF = float("-inf")  # the JAX package's flash_attention.NEG_INF
+
+
+def cached_attention(q, k, v, q_positions):
+    """Masked attention against an absolute-position KV cache
+    (``horovod_tpu/models/transformer.py:37-62``).
+
+    ``q``: (batch, heads, new, head_dim), the new tokens' queries;
+    ``k``/``v``: (batch, heads, cache_len, head_dim), the whole cache of
+    each row, freshly written and stale rows alike; ``q_positions``:
+    (batch, new) absolute position of each query. Key ``i`` is attendable
+    by a query at position ``p`` only when ``i <= p``: stale rows of an
+    earlier occupant and padded prefill rows sit at positions the request
+    has not reached, and decode overwrites each before a query reaches it.
+    The scores are taken in ``q``'s dtype, then scaled and softmaxed in
+    float32; the probabilities go back to ``v``'s dtype for the second
+    product."""
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    key_ids = torch.arange(k.shape[2], device=q.device)
+    mask = key_ids[None, None, None, :] <= q_positions[:, None, :, None]
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+class KVCache:
+    """Per-layer key and value tensors of the serving path, owned by an
+    engine and written in place by :meth:`Transformer.forward`.
+
+    Dense (:meth:`dense`): ``(slots, max_seq, heads, head_dim)`` a layer,
+    batch row ``b`` of the input reading and writing cache row ``b``;
+    :meth:`rows` narrows every tensor to some rows (a prefill's slot).
+    Paged (:meth:`paged`): ``(pages, page_tokens, heads, head_dim)`` a
+    layer, reached through the forward's ``page_table``."""
+
+    def __init__(self, k: list, v: list, paged: bool = False):
+        self.k, self.v, self.paged = k, v, paged
+
+    @classmethod
+    def _make(cls, model, rows: int, tokens: int, paged: bool):
+        attn = model.layers[0].attention
+        shape = (rows, tokens, attn.num_heads,
+                 model.token_embed.shape[1] // attn.num_heads)
+        dev = model.token_embed.device
+        n = len(model.layers)
+        return cls([torch.zeros(shape, dtype=model.dtype, device=dev)
+                    for _ in range(n)],
+                   [torch.zeros(shape, dtype=model.dtype, device=dev)
+                    for _ in range(n)], paged)
+
+    @classmethod
+    def dense(cls, model, slots: int) -> "KVCache":
+        return cls._make(model, slots, model.max_seq, False)
+
+    @classmethod
+    def paged(cls, model, pages: int, page_tokens: int) -> "KVCache":
+        return cls._make(model, pages, page_tokens, True)
+
+    def rows(self, start: int, n: int = 1) -> "KVCache":
+        """Views of rows ``start:start + n`` of every tensor (dense)."""
+        return KVCache([t.narrow(0, start, n) for t in self.k],
+                       [t.narrow(0, start, n) for t in self.v])
+
+    def zero_(self) -> "KVCache":
+        for t in self.k + self.v:
+            t.zero_()
+        return self
+
+    def copy_page(self, src: int, dst: int) -> None:
+        """Copy page ``src`` onto page ``dst`` in every layer (paged)."""
+        for t in self.k + self.v:
+            t[dst].copy_(t[src])
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.k + self.v)
 
 
 def _dense(x, layer: nn.Linear, dtype):
@@ -101,7 +188,11 @@ class SelfAttention(nn.Module):
             self.value = nn.Linear(d_model, d_model, device=device)
         self.out = nn.Linear(d_model, d_model, device=device)
 
-    def forward(self, x):
+    def forward(self, x, positions=None, kv=None, page_table=None):
+        """``kv`` (this layer's ``(k, v)`` cache tensors) selects the
+        serving path: the new tokens sit at ``positions`` (batch,) onward,
+        their keys and values go into the cache and attention runs
+        against the whole cache (:func:`cached_attention`)."""
         b, s, d = x.shape
         h = self.num_heads
         if self.fused_qkv:
@@ -113,6 +204,10 @@ class SelfAttention(nn.Module):
                               self.value.bias])
             qkv = F.linear(x.to(self.dtype), w.to(self.dtype),
                            bias.to(self.dtype))
+        if kv is not None:
+            o = self._cached(qkv.view(b, s, 3, h, d // h), positions, kv,
+                             page_table)
+            return _dense(o.reshape(b, s, d), self.out, self.dtype)
         # (b, s, 3, h, dh) -> 3 x (b, h, s, dh)
         q, k, v = (t.contiguous() for t in
                    qkv.view(b, s, 3, h, d // h).permute(2, 0, 3, 1, 4))
@@ -120,6 +215,42 @@ class SelfAttention(nn.Module):
         o = attn(q, k, v, causal=self.causal)
         o = o.transpose(1, 2).reshape(b, s, d)
         return _dense(o, self.out, self.dtype)
+
+    def _cached(self, qkv, positions, kv, page_table):
+        """The decode branches (``horovod_tpu/models/transformer.py:
+        131-201``): write this step's keys and values into the cache at
+        their absolute positions, then attend over the row's whole cache.
+        ``qkv`` is (b, new, 3, heads, head_dim); returns (b, new, heads,
+        head_dim)."""
+        cache_k, cache_v = kv
+        b, new = qkv.shape[:2]
+        q, k, v = qkv.unbind(2)
+        abs_pos = (positions.long()[:, None]
+                   + torch.arange(new, device=qkv.device))
+        if page_table is None:
+            # dense: batch row i is cache row i
+            rows = torch.arange(b, device=qkv.device)[:, None].expand(b, new)
+            idx = (rows, abs_pos)
+            cache_k.index_put_(idx, k.to(cache_k.dtype))
+            cache_v.index_put_(idx, v.to(cache_v.dtype))
+            k_all, v_all = cache_k, cache_v
+        else:
+            T = cache_k.shape[1]
+            table = page_table.long()
+            width = table.shape[1]
+            # positions past the mapped table (padded prefill garbage)
+            # clamp onto the trailing scratch column
+            blk = torch.clamp(abs_pos // T, max=width - 1)
+            idx = (torch.gather(table, 1, blk), abs_pos % T)
+            cache_k.index_put_(idx, k.to(cache_k.dtype))
+            cache_v.index_put_(idx, v.to(cache_v.dtype))
+            # the row's pages, flattened: key index i is absolute
+            # position i, so the dense mask holds unchanged
+            k_all = cache_k[table].flatten(1, 2)
+            v_all = cache_v[table].flatten(1, 2)
+        o = cached_attention(q.transpose(1, 2), k_all.transpose(1, 2),
+                             v_all.transpose(1, 2), abs_pos)
+        return o.transpose(1, 2)
 
 
 class Mlp(nn.Module):
@@ -148,8 +279,8 @@ class TransformerLayer(nn.Module):
         self.ln2 = LayerNorm(d_model, dtype, device)
         self.mlp = Mlp(d_model, d_ff, dtype, device)
 
-    def forward(self, x):
-        x = x + self.attention(self.ln1(x))
+    def forward(self, x, positions=None, kv=None, page_table=None):
+        x = x + self.attention(self.ln1(x), positions, kv, page_table)
         return x + self.mlp(self.ln2(x))
 
 
@@ -207,15 +338,26 @@ class Transformer(nn.Module):
                 m.bias.zero_()
 
     def forward(self, token_ids: torch.Tensor, pos_offset: int = 0,
-                output: str = "logits") -> torch.Tensor:
+                output: str = "logits", positions=None,
+                cache: "KVCache | None" = None,
+                page_table=None) -> torch.Tensor:
         """``pos_offset`` is the global position of the first token.
         ``output="hidden"`` returns the final-norm hidden states
         (batch, seq, d_model) without the vocab projection, for
         :func:`masked_lm_loss_gathered`; ``"logits"`` returns float32
-        (batch, seq, vocab) logits."""
+        (batch, seq, vocab) logits.
+
+        ``cache`` selects the serving path (``:328-354``): each batch row
+        starts at its own absolute position, ``positions`` (batch,); its
+        position embeddings are gathered per row (clamped at ``max_seq -
+        1``), and every layer writes and attends its cache (a paged cache
+        through ``page_table``, (batch, blocks) page ids)."""
         if token_ids.ndim != 2:
             raise ValueError("expected (batch, seq) int token ids")
         seq = token_ids.shape[1]
+        if cache is not None:
+            return self._decode(token_ids, positions, cache, page_table,
+                                output)
         if pos_offset + seq > self.max_seq:
             raise ValueError(f"pos_offset {pos_offset} + seq {seq} exceeds "
                              f"max_seq={self.max_seq}")
@@ -226,6 +368,26 @@ class Transformer(nn.Module):
                 x = checkpoint(layer, x, use_reentrant=False)
             else:
                 x = layer(x)
+        x = self.final_norm(x)
+        if output == "hidden":
+            return x
+        return (x @ self.token_embed.to(self.dtype).T).float()
+
+    def _decode(self, token_ids, positions, cache, page_table, output):
+        if positions is None:
+            raise ValueError("the serving path needs per-row positions")
+        if cache.paged != (page_table is not None):
+            raise ValueError("a paged cache needs a page_table, a dense "
+                             "one none")
+        seq = token_ids.shape[1]
+        pos_idx = torch.clamp(
+            positions.long()[:, None]
+            + torch.arange(seq, device=token_ids.device),
+            max=self.max_seq - 1)
+        x = (F.embedding(token_ids, self.token_embed).to(self.dtype)
+             + self.pos_embed[pos_idx].to(self.dtype))
+        for layer, k, v in zip(self.layers, cache.k, cache.v):
+            x = layer(x, positions, (k, v), page_table)
         x = self.final_norm(x)
         if output == "hidden":
             return x

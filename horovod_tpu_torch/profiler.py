@@ -61,7 +61,10 @@ flight recorder's ``profiler`` state; and the dump carries the memory
 sampler's, the comms tracker's and the goodput ledger's trails, the
 incidents and the last flight events, which :func:`merge_profile_dir`
 lays out as counter tracks and instant lanes. ``peak_hbm_bytes`` is the
-memory ledger's device peak on the card (the same allocator figure).
+memory ledger's device peak on the card (the same allocator figure). The
+dump's ``request_spans`` are the tracing ring's spans (``tracing.py``):
+the merge lays them out as per-rank request lanes and joins one
+``trace_id`` across the ranks with flow arrows (``tracing.flow_events``).
 
 Not ported: the copy shipped to the launcher's rendezvous store (A13).
 """
@@ -85,6 +88,7 @@ from horovod_tpu_torch import flight_recorder
 from horovod_tpu_torch import goodput
 from horovod_tpu_torch import memory
 from horovod_tpu_torch import timeline as timeline_mod
+from horovod_tpu_torch import tracing
 from horovod_tpu_torch.core import state as state_mod
 from horovod_tpu_torch.metrics import registry as _metrics
 from horovod_tpu_torch.runtime import executor
@@ -499,7 +503,7 @@ class StepProfiler:
             "steps": list(self._steps),
             "trace_events": list(self._trace_events),
             "memory_samples": memory.tracker().samples(),
-            "request_spans": [],
+            "request_spans": tracing.spans(),
             "comms_samples": comms.tracker().samples(),
             "goodput_samples": goodput.tracker().samples(),
             "goodput_incidents": goodput.tracker().incidents(),
@@ -705,51 +709,6 @@ def _goodput_trace_events(dump: dict) -> List[dict]:
     return out
 
 
-def _spans_to_chrome(span_list: List[dict], tid: int = 2) -> List[dict]:
-    """Request spans as Chrome duration ("X") events on their own lane
-    (``horovod_tpu/tracing.py`` ``spans_to_chrome``)."""
-    out = []
-    for span in span_list:
-        t = span.get("t")
-        dur = span.get("dur")
-        if not isinstance(t, (int, float)) or \
-                not isinstance(dur, (int, float)):
-            continue
-        args = {k: v for k, v in span.items()
-                if k not in ("t", "dur", "name")}
-        out.append({"ph": "X", "pid": 0, "tid": tid, "ts": t * 1e6,
-                    "dur": max(dur, 0.0) * 1e6,
-                    "name": str(span.get("name", "span")),
-                    "cat": "request", "args": args})
-    return out
-
-
-def _flow_events(anchors: List[dict]) -> List[dict]:
-    """Perfetto flow arrows joining one ``trace_id``'s spans across lanes
-    (``horovod_tpu/tracing.py`` ``flow_events``): the earliest span starts
-    the flow ("s"), the latest finishes it ("f"), the rest are steps."""
-    by_trace: Dict[str, List[dict]] = {}
-    for a in anchors:
-        tid = a.get("trace_id")
-        if tid:
-            by_trace.setdefault(tid, []).append(a)
-    out = []
-    for trace_id, group in by_trace.items():
-        if len(group) < 2:
-            continue
-        group.sort(key=lambda a: a["ts"])
-        last = len(group) - 1
-        for i, a in enumerate(group):
-            ph = "s" if i == 0 else ("f" if i == last else "t")
-            ev = {"ph": ph, "id": trace_id, "cat": "request",
-                  "name": "request", "pid": a["pid"], "tid": a["tid"],
-                  "ts": a["ts"] + (a.get("dur", 0.0) if i == 0 else 0.0)}
-            if ph == "f":
-                ev["bp"] = "e"
-            out.append(ev)
-    return out
-
-
 def _device_trace_files(directory: str) -> List[str]:
     """Device traces below the profile dir (the port's
     ``jax-rank-N/device.trace.json``; the JAX package's TensorBoard
@@ -802,7 +761,7 @@ def merge_profile_dir(directory: str,
                  if isinstance(s, dict)]
         if spans:
             lanes.append((f"rank {rank} requests",
-                          _spans_to_chrome(spans), offset))
+                          tracing.spans_to_chrome(spans), offset))
     for path in sorted(glob.glob(os.path.join(directory,
                                               "timeline-rank-*.json"))):
         rank = _rank_of_path(path)
@@ -851,7 +810,7 @@ def merge_profile_dir(directory: str,
         pid_base += max(pids, default=0) + 2
     # flow arrows bind to their enclosing slices by exact (pid, tid, ts),
     # which exist only once every lane has its pid range and clock
-    merged.extend(_flow_events(anchors))
+    merged.extend(tracing.flow_events(anchors))
     merged.sort(key=lambda e: (e.get("ts") or 0))
     out = out_path or os.path.join(directory, MERGED_TRACE)
     with open(out, "w") as f:

@@ -104,6 +104,7 @@ from horovod_tpu_torch import flight_recorder
 from horovod_tpu_torch import integrity
 from horovod_tpu_torch import memory
 from horovod_tpu_torch import timeline as timeline_mod
+from horovod_tpu_torch import tracing
 from horovod_tpu_torch.integrity import digest as integ_digest
 from horovod_tpu_torch.integrity import inject as integ_inject
 from horovod_tpu_torch.metrics import registry as _metrics
@@ -269,6 +270,17 @@ class _PendingOp:
             # gloo: the host interval is the collective's
             comms.record(self.op, self.lane, self.nbytes, total,
                          world=self.executor.world)
+        if tracing.enabled():
+            # the response's dispatch -> overlap -> drain lineage on the
+            # request spans' clock, so an exposed-comm spike names its
+            # tensor (horovod_tpu/runtime/executor.py:249-259)
+            tracing.record(
+                "collective:" + str(self.name0),
+                time.time() - total, total, op=self.op, bytes=self.nbytes,
+                dispatch_ms=round((disp_end - self.t0) * 1000.0, 3),
+                overlap_ms=round(max(0.0, drain_start - disp_end)
+                                 * 1000.0, 3),
+                drain_ms=round(max(t_end - drain_start, 0.0) * 1000.0, 3))
         if self.timeline is not None:
             self.timeline.end(self.name0)
 

@@ -69,7 +69,11 @@ cycle's bytes over its host seconds (on the card the time to queue the
 work), blended half and half with ``comms.data_lane_busbw_gbs()`` (the
 device's event times, of the bins whose ``done`` event has passed).
 
-Not ported yet: tracing (A12) and the lane-hazard watchdog (A10).
+Every response the executor completes records a ``collective:<name>``
+span in the tracing ring (``tracing.py``), with its op, bytes and the
+dispatch, overlap and drain milliseconds.
+
+Not ported yet: the lane-hazard watchdog (A10).
 """
 
 from __future__ import annotations

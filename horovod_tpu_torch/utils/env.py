@@ -6,8 +6,9 @@ profiler's and the integrity plane's knobs, the checkpoint writer's, its
 restore's and its replica ring's knobs, the elastic layer's, the
 rendezvous store's and the control plane's resilience knobs, the four
 observability planes' knobs, the autotuner's and the two-level
-hierarchy's knobs and the probe cache, and the flash attention's
-``FLASH_FUSED_BWD`` switch).
+hierarchy's knobs and the probe cache, the tracing and SLO plane's and
+the serving plane's knobs, and the flash attention's ``FLASH_FUSED_BWD``
+switch).
 
 ``hvd.init()`` parses the runtime's knobs once into :class:`Config`
 (``horovod_tpu/utils/env.py:224-350``); the runtime reads that. The knobs
@@ -217,6 +218,41 @@ HOROVOD_HIERARCHY_COMPRESSION = "HOROVOD_HIERARCHY_COMPRESSION"
 # are kept in and read back from; unset: none.
 HOROVOD_PROBE_CACHE = "HOROVOD_PROBE_CACHE"
 
+# Request tracing and the SLO plane (tracing.py; horovod_tpu/utils/env.py:
+# 69-74, 162): tracing on (default; "0" turns it off, an integer > 1 is
+# the span ring's capacity), the latency objectives in ms, the compliance
+# target of all three objectives, the rolling window in requests and the
+# burn rate whose upward crossing emits an ``slo_burn_rate`` event.
+HOROVOD_TRACE = "HOROVOD_TRACE"
+HOROVOD_SLO_TTFT_MS = "HOROVOD_SLO_TTFT_MS"
+HOROVOD_SLO_LATENCY_MS = "HOROVOD_SLO_LATENCY_MS"
+HOROVOD_SLO_AVAILABILITY = "HOROVOD_SLO_AVAILABILITY"
+HOROVOD_SLO_WINDOW = "HOROVOD_SLO_WINDOW"
+HOROVOD_SLO_BURN_ALERT = "HOROVOD_SLO_BURN_ALERT"
+DEFAULT_TRACE_CAPACITY = 4096
+DEFAULT_SLO_WINDOW = 512
+
+# The serving plane (serve/; horovod_tpu/utils/env.py:123-129, the JAX
+# package's serve/api.py, queue.py and paging.py): the committed-token
+# budget of a replica's batch, the admission deadline in ms, the request
+# queue's capacity, the decode steps between admission checks, the KV
+# slots a replica, the default generation length, whether the step guard
+# quarantines a replica, the seconds a finished result is held, the paged
+# KV cache, its page size in tokens, its pool in pages (0: half the dense
+# capacity) and the prefix cache's entries (0: no prefix reuse).
+HOROVOD_SERVE_MAX_BATCH_TOKENS = "HOROVOD_SERVE_MAX_BATCH_TOKENS"
+HOROVOD_SERVE_ADMISSION_MS = "HOROVOD_SERVE_ADMISSION_MS"
+HOROVOD_SERVE_QUEUE_CAPACITY = "HOROVOD_SERVE_QUEUE_CAPACITY"
+HOROVOD_SERVE_DECODE_BLOCK = "HOROVOD_SERVE_DECODE_BLOCK"
+HOROVOD_SERVE_SLOTS = "HOROVOD_SERVE_SLOTS"
+HOROVOD_SERVE_MAX_NEW_TOKENS = "HOROVOD_SERVE_MAX_NEW_TOKENS"
+HOROVOD_SERVE_QUARANTINE = "HOROVOD_SERVE_QUARANTINE"
+HOROVOD_SERVE_RESULT_TTL_S = "HOROVOD_SERVE_RESULT_TTL_S"
+HOROVOD_SERVE_PAGED = "HOROVOD_SERVE_PAGED"
+HOROVOD_SERVE_PAGE_TOKENS = "HOROVOD_SERVE_PAGE_TOKENS"
+HOROVOD_SERVE_PAGE_POOL = "HOROVOD_SERVE_PAGE_POOL"
+HOROVOD_SERVE_PREFIX_CACHE = "HOROVOD_SERVE_PREFIX_CACHE"
+
 # Fused attention backward (reference: horovod_tpu/ops/pallas/
 # flash_attention.py:741-742): "1" sends a backward whose query and key
 # extents both fit one 1024 block to the one kernel that writes dq, dk and
@@ -267,6 +303,22 @@ def parse_flight_recorder(value: "str | None") -> "tuple[bool, int]":
     return True, (n if n > 1 else DEFAULT_FLIGHT_RECORDER_CAPACITY)
 
 
+def parse_trace(value: "str | None") -> "tuple[bool, int]":
+    """``HOROVOD_TRACE`` -> (enabled, span ring capacity), the grammar of
+    ``HOROVOD_FLIGHT_RECORDER``: unset or truthy = on at the default
+    capacity; an integer > 1 is the capacity; 0/false/no/off disables."""
+    if value is None or value.strip() == "":
+        return True, DEFAULT_TRACE_CAPACITY
+    v = value.strip().lower()
+    if v in ("0", "false", "no", "off"):
+        return False, DEFAULT_TRACE_CAPACITY
+    try:
+        n = int(v)
+    except ValueError:
+        return True, DEFAULT_TRACE_CAPACITY
+    return True, (n if n > 1 else DEFAULT_TRACE_CAPACITY)
+
+
 def native_cycle() -> bool:
     """``HOROVOD_NATIVE_CYCLE``, default on."""
     return _get_bool(HOROVOD_NATIVE_CYCLE, True)
@@ -279,8 +331,10 @@ def native_cycle() -> bool:
 # integrity knobs (read when a guard is made or a step is taken) and the
 # checkpoint knobs (read when a manager is made or a commit or a restore
 # runs), the elastic, rendezvous and resilience knobs (read when a
-# re-form, a commit, a store client or a transport needs them), and the
-# observability planes' knobs (read by each plane's ``configure``).
+# re-form, a commit, a store client or a transport needs them), the
+# observability planes' knobs (read by each plane's ``configure``), and the
+# tracing, SLO and serving knobs (read by ``tracing.configure`` and when a
+# policy, queue or engine is made).
 ENV_DIRECT_KNOBS = (
     HOROVOD_RANK, HOROVOD_SIZE, HOROVOD_LOCAL_RANK, HOROVOD_LOCAL_SIZE,
     HOROVOD_CROSS_RANK, HOROVOD_CROSS_SIZE, HOROVOD_COORDINATOR_ADDR,
@@ -310,7 +364,15 @@ ENV_DIRECT_KNOBS = (
     HOROVOD_COMMS_WINDOW, HOROVOD_COMMS_EWMA_ALPHA,
     HOROVOD_COMMS_DEGRADED_FRACTION, HOROVOD_GOODPUT,
     HOROVOD_GOODPUT_INCIDENTS, HOROVOD_GOODPUT_REPORT_SECONDS,
-    HOROVOD_PROBE_CACHE,
+    HOROVOD_PROBE_CACHE, HOROVOD_TRACE, HOROVOD_SLO_TTFT_MS,
+    HOROVOD_SLO_LATENCY_MS, HOROVOD_SLO_AVAILABILITY, HOROVOD_SLO_WINDOW,
+    HOROVOD_SLO_BURN_ALERT, HOROVOD_SERVE_MAX_BATCH_TOKENS,
+    HOROVOD_SERVE_ADMISSION_MS, HOROVOD_SERVE_QUEUE_CAPACITY,
+    HOROVOD_SERVE_DECODE_BLOCK, HOROVOD_SERVE_SLOTS,
+    HOROVOD_SERVE_MAX_NEW_TOKENS, HOROVOD_SERVE_QUARANTINE,
+    HOROVOD_SERVE_RESULT_TTL_S, HOROVOD_SERVE_PAGED,
+    HOROVOD_SERVE_PAGE_TOKENS, HOROVOD_SERVE_PAGE_POOL,
+    HOROVOD_SERVE_PREFIX_CACHE,
 )
 
 

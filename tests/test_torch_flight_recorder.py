@@ -187,6 +187,30 @@ def test_dump_writes_the_file_and_its_history(rec, tmp_path):
     rec.dump("unit", path="/proc/does/not/exist/x.json")  # logged only
 
 
+def test_dump_replaces_the_file_whole(rec, tmp_path, monkeypatch):
+    """A dump goes to a hidden temp file that is then renamed over the
+    last one, so a reader polling for the file never opens it half
+    written (a reader once read an empty ``flight-rank-0.json``)."""
+    import builtins
+
+    rec.dump("first", path=str(tmp_path))
+    written, real_open = [], builtins.open
+
+    def spy(path, mode="r", *args, **kwargs):
+        if "w" in mode:
+            written.append(os.path.basename(str(path)))
+        return real_open(path, mode, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "open", spy)
+    rec.dump("second", path=str(tmp_path))
+    monkeypatch.undo()
+    assert written and "flight-rank-0.json" not in written
+    assert all(w.startswith(".") and w.endswith(".tmp") for w in written)
+    assert sorted(os.listdir(tmp_path)) == ["flight-rank-0.json"]
+    assert json.load(open(tmp_path / "flight-rank-0.json"))["reason"] \
+        == "second"
+
+
 def test_failure_dumps_are_rate_limited(glob):
     tfr.dump_on_failure("one")
     tfr.dump_on_failure("two")  # within a second: suppressed

@@ -103,17 +103,22 @@ def test_ledger_is_the_jax_packages(both, calls):
     assert {n: a["subsystems"][n] for n in pushed} == \
         {n: b["subsystems"][n] for n in pushed}
     # the rest are pulls: the slabs whatever ran before in this process
-    # holds, and the JAX package's serving and XLA-program subsystems,
-    # which the port has none of
+    # holds, the serving plane's caches (each package's live engines), and
+    # the JAX package's XLA-program subsystem, which the port has none of
     pulls = {"fusion", "ckpt_staging", "serve_kv", "kv_pages",
              "program_cache"}
-    assert set(a["subsystems"]) - pushed <= pulls - {"serve_kv", "kv_pages",
-                                                     "program_cache"}
+    assert set(a["subsystems"]) - pushed <= pulls - {"program_cache"}
+    assert {"serve_kv", "kv_pages"} <= set(a["subsystems"])
     assert set(b["subsystems"]) - pushed <= pulls
-    # the JAX package's serving pulls count as device bytes there
-    serving = sum(b["subsystems"].get(n, {}).get("bytes", 0)
-                  for n in ("serve_kv", "kv_pages"))
-    assert a["claimed_device_bytes"] == b["claimed_device_bytes"] - serving
+
+    # the serving pulls count as device bytes in both; each package's own
+    # live engines hold them
+    def serving(led):
+        return sum(led["subsystems"].get(n, {}).get("bytes", 0)
+                   for n in ("serve_kv", "kv_pages"))
+
+    assert a["claimed_device_bytes"] - serving(a) == \
+        b["claimed_device_bytes"] - serving(b)
     assert a["device"] == {"bytes_in_use": 0, "peak_bytes_in_use": 0,
                            "bytes_limit": 0}
     assert a["reconcile_drift_ratio"] is None  # no allocator on the CPU

@@ -134,13 +134,13 @@ def test_endpoint_serves_its_routes_and_stops():
             status, kind, body = _get(port, route)
             assert status == 200 and kind == "application/json"
             assert set(json.loads(body)["routes"]) == {
-                "/metrics", "/debug", "/debug/routes", "/profile", "/memory",
-                "/comms", "/goodput", "/healthz"}
+                "/metrics", "/debug", "/debug/routes", "/serve", "/profile",
+                "/memory", "/comms", "/slo", "/goodput", "/healthz"}
         hvd.shutdown()
         status, _, _ = _get(port, "/healthz")
         assert status == 503
         assert _get(port, "/nope")[0] == 404
-        assert _get(port, "/serve")[0] == 404
+        assert _get(port, "/serve")[0] == 200
     finally:
         reg.stop_server()
     assert reg.http_port is None

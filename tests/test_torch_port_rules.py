@@ -94,10 +94,7 @@ def _all_of(path: Path) -> list:
 
 # The reference's exports whose modules the port does not have yet, each
 # with the ROADMAP queue-A item that brings it.
-UNPORTED_EXPORTS = {
-    "tracing": "A12", "serve": "A12", "ServePolicy": "A12",
-    "data": "A13",
-}
+UNPORTED_EXPORTS = {"data": "A13"}
 # Exports the port leaves out by decision: the device mesh and its axis
 # names (PyTorch has no device mesh of that kind), and the
 # single-controller stacked mode's ``stack_per_worker`` (one process a GPU
@@ -127,7 +124,7 @@ def test_reference_exports_resolve_in_the_port(init, module):
     stale = [n for n in theirs if hasattr(ours, n)
              and (n in UNPORTED_EXPORTS or n in DECIDED_OUT)]
     assert not stale, stale
-    assert set(UNPORTED_EXPORTS.values()) <= {"A12", "A13"}
+    assert UNPORTED_EXPORTS == {"data": "A13"}
     assert not hasattr(hvd, "mesh")
     if module == "horovod_tpu_torch.models":
         assert ours.ResNet50 is ResNet50 and ours.BertLarge is BertLarge
@@ -135,6 +132,32 @@ def test_reference_exports_resolve_in_the_port(init, module):
         assert hvd.ddl_built() is False and hvd.mlsl_built() is False
         assert callable(hvd.grouped_allreduce_async)
         assert callable(hvd.dump_debug_state)
+        assert callable(hvd.serve) and hvd.tracing.__name__ == \
+            "horovod_tpu_torch.tracing"
+
+
+def test_serve_is_the_function_and_its_package_still_imports():
+    """``hvd.serve`` is the function (as ``horovod_tpu.serve`` is the JAX
+    package's root attribute), while ``horovod_tpu_torch.serve`` stays a
+    package reachable through ``sys.modules``: its modules import with
+    ``from``, after ``import horovod_tpu_torch``, in a fresh process."""
+    code = ("import sys, horovod_tpu_torch as hvd\n"
+            "from horovod_tpu_torch.serve.kv_cache import DecodeEngine\n"
+            "from horovod_tpu_torch.serve import paging\n"
+            "pkg = sys.modules['horovod_tpu_torch.serve']\n"
+            "assert callable(hvd.serve) and hvd.serve is pkg.serve\n"
+            "assert pkg.__path__ and DecodeEngine.__module__ == "
+            "'horovod_tpu_torch.serve.kv_cache'\n"
+            "assert paging.PagedDecodeEngine is pkg.PagedDecodeEngine\n"
+            "assert hvd.ServePolicy is pkg.ServePolicy\n"
+            "assert 'jax' not in sys.modules\n"
+            "import threading\n"
+            "assert threading.active_count() == 1, threading.enumerate()\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 def test_distributed_gradient_tape_reduces_a_gradient_function(monkeypatch):
@@ -853,7 +876,10 @@ def test_chip_smoke_cpu_rehearsal_prints_no_result(no_card):
                   "16b: ring_attention losses bit-equal to phase 7's: True",
                   "16b: ulysses_attention losses bit-equal to phase 7's: "
                   "True", "16b: pipeline_apply, 1 stage",
-                  "phase 16 kernel launches"):
+                  "phase 16 kernel launches", "17a dense:", "17a paged:",
+                  "17b dense: 8 requests", "17b paged: 8 requests",
+                  "served tokens vs the teacher-forced uncached forward",
+                  "17b goodput:", "phase 17 kernel launches"):
         assert phase in out.stdout, phase
     assert "BERT-Large MLM" in out.stdout
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout

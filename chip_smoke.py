@@ -343,6 +343,24 @@ Phases (any failure exits non-zero):
    name and power limit: generated tokens/s, TTFT p50/p99, the decode
    step's ms replayed and eager in turns, the KV bytes. The reference
    forwards' B1 launches join the kernels line.
+18. Robustness under the launcher (no kernel of its own). 18a: the port's
+   launcher (``tpurun-torch -np 1 --flight-recorder-dir``) starts
+   ``horovod_tpu_torch.tools.bert_launch_worker`` on the card: BERT-Large
+   MLM on the hooks path, 4 steps at batch 8, fed by ``ShardedSampler``
+   over a seeded token table (64 rows) and ``prefetch_to_device`` to
+   ``cuda:0``. Its losses must equal, bit for bit, those of an in-process
+   run of the same 4 batches (the same kernels in the same order);
+   ``--postmortem`` over the dumps must print the rank's events; each
+   step's wait for its batch is printed. The worker's B1-B3 (flash) launches
+   join the kernels line. 18b: the chaos matrix's ``serve_kill_replica``
+   at GPT-2-small's width: a frontend and three replicas (12 x 768, vocab
+   50257, weights from seed 0) on the one card, rank 2 killed at its 5th
+   decode step: every request completes (``zero_lost``), the dead
+   replica's requests were sent again (``requeued``), the postmortem names
+   rank 2, each replica's peak memory is printed, and every served token's
+   logit in a teacher-forced uncached forward (flash B1) is within 0.125
+   of that row's maximum, as in 17b; those forwards' B1 launches join the
+   kernels line.
 
 Between them: 2d. kernel B10 (fused BN + ReLU) bit-equal to its plain
 version at every distinct BN input of Inception-V3 at batch 32 (bf16),
@@ -373,7 +391,8 @@ bound and SDPA's forward.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (each kernel's
 launches counted on the paths that run it: the flash kernels on phase 4,
-on 14a and 14c, on 15b, on phase 16 and on phase 17's reference forwards,
+on 14a and 14c, on 15b, on phase 16, on phase 17's reference forwards
+and on phase 18 (the launched worker's steps, 18b's reference forwards),
 the multi-tensor AdamW on P1, the flat AdamW on P2, P4 and P5, B10 on phase 6, B11 on
 the probe's phase 2e, B7 on phase 7's fused run, B12-B14 on the probe's
 phase 2g), the card's name and power limit, and ``{"ok": true,
@@ -387,6 +406,7 @@ import argparse
 import contextlib
 import copy
 import gc
+import io
 import json
 import math
 import os
@@ -534,7 +554,10 @@ FULL = dict(
     # calls and requests checked on the serving path's logits
     serve_requests=48, serve_shared=16, serve_prefix=256,
     serve_max_prompt=512, serve_new=64, serve_slots=8, serve_step_iters=50,
-    serve_cached_checks=8)
+    serve_cached_checks=8,
+    # phase 18: the launched worker's batch and token-table rows, 18b's
+    # requests (the model follows the device: GPT-2-small on the card)
+    launch_batch=8, launch_rows=64, chaos_serve_requests=30)
 DRY = dict(
     cases={"a": (1, 2, 64, 64, False, 0, 0), "b": (1, 2, 96, 64, True, 0, 0),
            "d_masked": (1, 2, 64, 64, True, 8, 40),
@@ -567,7 +590,8 @@ DRY = dict(
     autotune_max_steps=60,
     ring_case=(1, 2, 64, 64, 4), pp_micro_batch=1,
     serve_requests=8, serve_shared=4, serve_prefix=32, serve_max_prompt=48,
-    serve_new=8, serve_slots=4, serve_step_iters=2, serve_cached_checks=2)
+    serve_new=8, serve_slots=4, serve_step_iters=2, serve_cached_checks=2,
+    launch_batch=2, launch_rows=16, chaos_serve_requests=12)
 
 
 def check(ok: bool, what: str) -> None:
@@ -5038,6 +5062,156 @@ def serving_phase(cfg, device, card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: robustness under the launcher
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def launcher_18a(cfg, device, card) -> dict:
+    """18a: the in-process reference run, then the launcher's worker on the
+    same 4 batches; the worker's flash launches (its counts set to 0 just
+    before its steps)."""
+    from horovod_tpu_torch.run.run import run_commandline
+    from horovod_tpu_torch.tools import bert_launch_worker as blw
+
+    cuda = device.type == "cuda"
+    model_cfg = blw.FULL if cuda else blw.TINY
+    batch, rows, steps = cfg["launch_batch"], cfg["launch_rows"], 4
+    hvd.init(device=None if cuda else "cpu")
+    ref = blw.train(model_cfg, batch, steps, rows)
+    hvd.shutdown()
+    free_memory(device)
+    tmp = tempfile.mkdtemp(prefix="phase18a-")
+    flight, out = os.path.join(tmp, "flight"), os.path.join(tmp, "w.json")
+    argv = ["-np", "1", "--flight-recorder-dir", flight, sys.executable,
+            "-m", "horovod_tpu_torch.tools.bert_launch_worker", "--out", out,
+            "--steps", str(steps), "--batch", str(batch), "--rows",
+            str(rows)] + ([] if cuda else ["--tiny", "--device", "cpu"])
+    old = _elastic_env(PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    try:
+        t0 = time.perf_counter()
+        code = run_commandline(argv)
+        seconds = time.perf_counter() - t0
+        check(code == 0, f"18a: tpurun-torch exited {code}")
+        got = json.load(open(out))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            pm_code = run_commandline(["--postmortem", flight])
+    finally:
+        _restore_env(old)
+    report = buf.getvalue()
+    log(f"18a: tpurun-torch -np 1 ran BERT-{'Large' if cuda else 'tiny'} "
+        f"MLM (hooks) on {got['device']}, {steps} steps at batch {batch}, "
+        f"in {seconds:.1f} s of command; losses "
+        + " ".join(f"{x:.6f}" for x in got["losses"]))
+    log("18a: each step's wait for its batch (prefetch_to_device, 2 ahead): "
+        + " ".join(f"{1e3 * w:.3f} ms" for w in got["waits"])
+        + (f" ({card})" if cuda else ""))
+    if cuda:
+        log(f"18a: the worker's max_memory_allocated "
+            f"{got['peak_bytes'] / 2**30:.2f} GiB ({card})")
+    check(got["losses"] == ref["losses"],
+          f"18a: the launched worker's losses {got['losses']} are not the "
+          f"in-process run's {ref['losses']}")
+    log("18a: losses bit-equal to the in-process run of the same batches")
+    events = [line for line in report.splitlines() if "[rank 0] " in line]
+    check(pm_code == 0 and "rank 0: reason=shutdown" in report
+          and any(line.endswith("[rank 0] shutdown") for line in events),
+          f"18a: --postmortem printed no events of rank 0:\n{report}")
+    log(f"18a: --postmortem over the dumps: {len(report.splitlines())} "
+        f"lines, {len(events)} of rank 0's events, the last "
+        f"{events[-1].split('] ', 1)[1]!r}")
+    if cuda:
+        n_layers = 24
+        want = dict.fromkeys(FLASH, n_layers * steps)
+        check(got["launches"] == want,
+              f"18a: the worker's launches {got['launches']}, want {want}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return got["launches"]
+
+
+def serve_18b(cfg, device, card) -> dict:
+    """18b: ``serve_kill_replica`` at the configured width, its checks, the
+    replicas' peaks, and the served tokens against the uncached forward
+    (whose B1 launches come back)."""
+    from horovod_tpu_torch.tools import chaos_matrix as cm
+    from horovod_tpu_torch.tools import serve_chaos_worker as scw
+
+    kind = "gpt2-small" if device.type == "cuda" else "tiny"
+    tmp = tempfile.mkdtemp(prefix="phase18b-")
+    served_path = os.path.join(tmp, "served.json")
+    extra = {"CHAOS_SERVE_OUT": served_path,
+             "CHAOS_SERVE_REQUESTS": str(cfg["chaos_serve_requests"]),
+             "CHAOS_SERVE_UP": "180"}
+    result = cm.run_scenario("serve_kill_replica",
+                             cm.SCENARIOS["serve_kill_replica"],
+                             extra_env=extra, keep_outputs=True,
+                             device=device.type)
+    outs = result.pop("outputs")
+    front = result["results"][0] or {}
+    log(f"18b: serve_kill_replica ({kind}): ok={result['ok']} in "
+        f"{result['seconds']:.1f} s, exit codes {result['exit_codes']}, "
+        f"{front.get('completed')} of {front.get('submitted')} requests "
+        f"completed, requeued {front.get('requeued')}, dead ranks "
+        f"{front.get('dead_ranks')}, served by {front.get('served_by')}")
+    for line in result["postmortem_tail"]:
+        log(f"18b postmortem: {line}")
+    check(result["ok"], f"18b: serve_kill_replica failed: "
+                        f"{result['failures']}")
+    check(front.get("zero_lost") and front.get("requeued", 0) > 0
+          and front.get("dead_ranks") == [2],
+          f"18b: frontend result {front}")
+    for r in (1, 2, 3):
+        peaks = [int(line.split("bytes=")[1]) for line in
+                 outs[r].splitlines() if line.startswith(f"PEAK rank={r} ")]
+        if kind == "gpt2-small":
+            check(bool(peaks), f"18b: replica {r} printed no peak memory")
+            log(f"18b: replica {r} max_memory_allocated "
+                f"{max(peaks) / 2**30:.3f} GiB ({card})"
+                + (" (killed at its 5th decode step)" if r == 2 else ""))
+    served = json.load(open(served_path))
+    check(len(served) == front["submitted"],
+          f"18b: {len(served)} completions written")
+    model = scw.build_model(kind)
+    model.eval()
+    fa.reset_launch_counts()
+    worst_gap, argmax_equal, total = 0.0, 0, 0
+    for c in served:
+        ref = _teacher_forced(model, c["prompt"], c["tokens"])
+        got = ref.gather(1, torch.tensor(c["tokens"], device=ref.device)
+                         [:, None])[:, 0]
+        worst_gap = max(worst_gap,
+                        (ref.max(dim=1).values - got).max().item())
+        argmax_equal += int((ref.argmax(dim=1).cpu()
+                             == torch.tensor(c["tokens"])).sum())
+        total += len(c["tokens"])
+    _sync(device)
+    launches = {"flash_fwd": fa.LAUNCHES["flash_fwd"]}
+    log(f"18b: the survivors' tokens vs the teacher-forced uncached forward: "
+        f"{argmax_equal} of {total} its argmax, largest logit gap below the "
+        f"row's max {worst_gap:.4f} (limit {SERVE_LOGIT_TOL})")
+    check(worst_gap <= SERVE_LOGIT_TOL,
+          f"18b: a served token's logit is {worst_gap} below the max")
+    del model
+    free_memory(device)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def robustness_phase(cfg, device, card) -> dict:
+    """Phase 18: 18a and 18b; the flash launches of the launched worker's
+    steps and of 18b's reference forwards."""
+    p18a = launcher_18a(cfg, device, card)
+    p18b = serve_18b(cfg, device, card)
+    launches = {k: p18a.get(k, 0) + p18b.get(k, 0) for k in FLASH}
+    log(f"phase 18 kernel launches: {launches}")
+    return launches
+
+
 GROUPS = (  # kernel-name fragments -> group, first match wins
     ("flash_", "attention kernels (port)"),
     ("sba_kernel", "BN + ReLU kernel B10 (port)"),
@@ -5209,16 +5383,19 @@ def main() -> int:
     elapsed("phase 16")
     p17 = serving_phase(cfg, device, card)
     elapsed("phase 17")
+    p18 = robustness_phase(cfg, device, card)
+    elapsed("phase 18")
     if dry:
         log("DRY RUN complete: control flow rehearsed; no result line")
         return 0
 
     # each kernel's launches are counted on the paths that run it: the
     # flash kernels on phase 4, phase 14's BERT-Large (remat) and MoE LM,
-    # phase 15's autotuned BERT-Large, phase 16's model parallelism and
-    # phase 17's reference forwards
+    # phase 15's autotuned BERT-Large, phase 16's model parallelism,
+    # phase 17's reference forwards and phase 18's launched worker and
+    # reference forwards
     launches = {**{k: v + p14.get(k, 0) + p15.get(k, 0) + p16.get(k, 0)
-                   + p17.get(k, 0)
+                   + p17.get(k, 0) + p18.get(k, 0)
                    for k, v in runs["hooks"]["launches"].items()},
                 "adamw_multi": runs["fused"]["launches"]["adamw_multi"],
                 "flat_adamw": sum(runs[p]["launches"]["flat_adamw"]

@@ -72,6 +72,7 @@ from horovod_tpu_torch import memory  # noqa: F401
 from horovod_tpu_torch import comms  # noqa: F401
 from horovod_tpu_torch import goodput  # noqa: F401
 from horovod_tpu_torch import tracing  # noqa: F401
+from horovod_tpu_torch import data  # noqa: F401
 
 from horovod_tpu_torch.core.basics import (  # noqa: F401
     init,

@@ -22,7 +22,8 @@ died, hung past a deadline or closed its transport) the runner
    groups (NCCL on the card), a new runtime, in the same process,
 4. rolls the state back to the last commit (``state.on_reset``) and makes
    the new rank 0's copy everyone's (``state.sync``, which re-shards ZeRO
-   states with the neighbour replicas),
+   states with the neighbour replicas; a ``WorkersDownError`` there, a
+   peer lost in the new world's first collectives, re-forms again),
 
 then calls the function again. A membership below
 ``HOROVOD_ELASTIC_MIN_WORKERS`` is scanned again with bounded exponential
@@ -402,13 +403,30 @@ def run(func):
                 # re-form badput; steps rolled back will run again
                 t_reform = time.monotonic()
                 step_before = getattr(state, "step", None)
-                missing = _reform(min_workers, Backoff.from_env())
-                t0 = time.monotonic()
-                if rollback:  # a failure: back to the last commit
-                    state.on_reset()
-                t1 = time.monotonic()
-                # either way the new rank 0's copy is everyone's
-                state.sync(root_rank=0)
+                missing: List[int] = []
+                while True:
+                    lost = _reform(min_workers, Backoff.from_env())
+                    missing = missing or lost  # the first loss's culprit
+                    t0 = time.monotonic()
+                    if rollback:  # a failure: back to the last commit
+                        state.on_reset()
+                    t1 = time.monotonic()
+                    # either way the new rank 0's copy is everyone's; a
+                    # peer lost in the new world's first collectives (a
+                    # reset gloo verb is a lost worker here, where the JAX
+                    # package's socket retried it) means another re-form,
+                    # counted in this incident's time
+                    try:
+                        state.sync(root_rank=0)
+                        break
+                    except exceptions.WorkersDownError as exc:
+                        log.warning("elastic: workers down while syncing "
+                                    "the re-formed state (%s); re-forming "
+                                    "again", exc)
+                        flight_recorder.emit(
+                            "workers_down",
+                            ranks=sorted(getattr(exc, "ranks", None) or []),
+                            error=str(exc)[:200])
                 _last_reform.update(restore=t1 - t0,
                                     sync=time.monotonic() - t1)
                 # sync consumed the neighbour replicas; their old-rank

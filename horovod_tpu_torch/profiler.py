@@ -66,7 +66,10 @@ dump's ``request_spans`` are the tracing ring's spans (``tracing.py``):
 the merge lays them out as per-rank request lanes and joins one
 ``trace_id`` across the ranks with flow arrows (``tracing.flow_events``).
 
-Not ported: the copy shipped to the launcher's rendezvous store (A13).
+A dump also ships a copy to the launcher's rendezvous store (its
+``profile`` scope, when ``HOROVOD_RENDEZVOUS_HTTP_ADDR``/``_PORT`` are
+set), which the port's launcher collects for ``--profile-dir``
+(``run/launcher.py``).
 """
 
 from __future__ import annotations
@@ -100,6 +103,7 @@ SCHEMA = "horovod-profiler-v1"
 # the last flight events a dump carries for the merged trace
 _FLIGHT_TRACE_EVENTS = 200
 DUMP_PREFIX = "profile-rank-"
+RENDEZVOUS_SCOPE = "profile"
 MERGED_TRACE = "merged-trace.json"
 DEVICE_TRACE = "device.trace.json"
 PHASES = ("host", "compute", "exposed_comm", "optimizer")
@@ -536,7 +540,23 @@ class StepProfiler:
                 except OSError as exc:
                     log.warning("profiler: dump to %r failed: %s",
                                 target, exc)
+            try:
+                self._ship(json.dumps(snap))
+            except Exception as exc:  # a dump never raises
+                log.debug("profiler: ship failed: %s", exc)
             return snap
+
+    def _ship(self, payload: str) -> None:
+        dest = flight_recorder._rendezvous_addr()
+        if dest is None:
+            return
+        from horovod_tpu_torch.run.rendezvous import KVStoreClient
+        from horovod_tpu_torch.utils import resilience
+
+        client = KVStoreClient(
+            dest[0], dest[1], scope=RENDEZVOUS_SCOPE, timeout=5.0,
+            retry=resilience.RetryPolicy.from_env("profile", deadline=5.0))
+        client.set("rank.%d" % self.launch_rank, payload.encode())
 
     def finalize(self) -> None:
         """Shutdown hook (``core/basics.py``): dump when enabled."""

@@ -73,7 +73,22 @@ Every response the executor completes records a ``collective:<name>``
 span in the tracing ring (``tracing.py``), with its op, bytes and the
 dispatch, overlap and drain milliseconds.
 
-Not ported yet: the lane-hazard watchdog (A10).
+The lane-hazard watchdog (``_check_lane_hazard``, at the top of each
+cycle): the ordered-lane guard (``hvd.assert_collective_lane_clear``)
+raises when the library's own collectives would interleave with pending
+named ops, but a caller's own NCCL work (a model-parallel step, a user's
+``torch.distributed`` call) dispatched while named collectives are pending
+is invisible to it, and across ranks the two streams can interleave in
+different orders and hang with no error. Its local signature: named ops in
+flight past the stall inspector's warning time while the enqueue side has
+been quiet that long and no caller waits on a handle or polls one (a
+caller parked in ``wait`` or spinning on ``poll`` is waiting on the lane,
+and a slow peer there is the stall inspector's diagnosis). Then it logs
+one warning a stall period naming the stuck tensors. It is quiet while the
+stall inspector is off (``HOROVOD_STALL_CHECK_DISABLE``) and reads its
+``HOROVOD_STALL_CHECK_TIME_SECONDS``. Every enqueue stamps the quiet clock
+in ``_enqueue``, whichever thread calls it (autograd's backward threads
+run the gradient hooks on the card).
 """
 
 from __future__ import annotations
@@ -165,11 +180,18 @@ class RuntimeHandle:
         self._output = output
         self._done = done
         self._status = status
+        rt = self._runtime
+        if rt is not None:
+            rt._retire(self.name)
         self._lock.release()
 
     def poll(self) -> bool:
         """True once the result is ready (on the card: once the device has
-        run the collective)."""
+        run the collective). A poll loop waits on the lane as a parked
+        ``wait`` does: it stamps the lane-hazard watchdog's clock."""
+        rt = self._runtime
+        if rt is not None:
+            rt._last_poll_time = time.monotonic()
         return self._status is not None and (self._done is None
                                              or self._done.event.query())
 
@@ -180,10 +202,19 @@ class RuntimeHandle:
         digests' ``NumericalError``, the runtime's typed
         ``WorkersDownError``, RuntimeError otherwise."""
         if self._status is None:
+            rt = self._runtime
+            if rt is not None:
+                with rt._inflight_lock:
+                    rt._waiters += 1
             t0 = time.monotonic()
-            got = self._lock.acquire(timeout=-1 if timeout is None
-                                     else timeout)
-            _HANDLE_WAIT.observe(time.monotonic() - t0)
+            try:
+                got = self._lock.acquire(timeout=-1 if timeout is None
+                                         else timeout)
+            finally:
+                _HANDLE_WAIT.observe(time.monotonic() - t0)
+                if rt is not None:
+                    with rt._inflight_lock:
+                        rt._waiters -= 1
             if not got:
                 raise TimeoutError(f"collective '{self.name}' did not "
                                    f"complete within {timeout}s")
@@ -289,6 +320,15 @@ class Runtime:
             self._probe(data_group)
         if self._autotune_active and controller.is_coordinator:
             self.param_manager = self._make_param_manager()
+        # the lane-hazard watchdog's bookkeeping: each in-flight name's
+        # enqueue time, when the enqueue side last spoke, the callers
+        # parked in wait() and the last poll()
+        self._inflight_lock = threading.Lock()
+        self._inflight_names: dict = {}  # guarded by _inflight_lock
+        self._last_enqueue_time = time.monotonic()
+        self._waiters = 0  # guarded by _inflight_lock
+        self._last_poll_time = 0.0
+        self._lane_last_warn = 0.0
         self._stop = threading.Event()
         self._woken = threading.Event()   # work was enqueued
         self._urgent = threading.Event()  # start a cycle now: no pacing
@@ -379,11 +419,39 @@ class Runtime:
             root_rank=root_rank, reduce_op=reduce_op)
         return entry, request, handle
 
+    def _stamp(self, names) -> list:
+        """Stamp the watchdog's clocks before the entries become visible to
+        the cycle thread; the names that were not in flight already (a
+        duplicate must not evict the original's stamp) come back."""
+        now = time.monotonic()
+        fresh = []
+        with self._inflight_lock:
+            for name in names:
+                if name not in self._inflight_names:
+                    self._inflight_names[name] = now
+                    fresh.append(name)
+            self._last_enqueue_time = now
+        return fresh
+
+    def _unstamp(self, names) -> None:
+        with self._inflight_lock:
+            for name in names:
+                self._inflight_names.pop(name, None)
+
+    def _retire(self, name: str) -> None:
+        with self._inflight_lock:
+            self._inflight_names.pop(name, None)
+
     def _enqueue(self, request_type: str, name: str, tensor, **kw
                  ) -> RuntimeHandle:
         self._check_running()
         entry, request, handle = self._entry(request_type, name, tensor, **kw)
-        self.queue.add(entry, request)  # DuplicateNameError on misuse
+        fresh = self._stamp((name,))
+        try:
+            self.queue.add(entry, request)  # DuplicateNameError on misuse
+        except BaseException:
+            self._unstamp(fresh)
+            raise
         if not self._woken.is_set():
             self._woken.set()
         return handle
@@ -417,7 +485,12 @@ class Runtime:
             for entry, _, handle in made:
                 entry.callback = _with_callback(group_callback,
                                                 handle._complete)
-        self.queue.add_group([m[0] for m in made], [m[1] for m in made])
+        fresh = self._stamp(names)
+        try:
+            self.queue.add_group([m[0] for m in made], [m[1] for m in made])
+        except BaseException:
+            self._unstamp(fresh)
+            raise
         self._urgent.set()
         self._woken.set()
         return [m[2] for m in made]
@@ -446,6 +519,36 @@ class Runtime:
                              reduce_op=reduce_op, priority=priority)
 
     # -- cycle loop (reference: RunLoopOnce, operations.cc:500-550) --------
+    def _check_lane_hazard(self) -> None:
+        """The lane-hazard watchdog (``horovod_tpu/runtime/runtime.py:551``):
+        one warning a stall period, naming the stuck tensors, when named
+        ops have been in flight past the stall warning time, nothing was
+        enqueued for as long, and no caller waits or polls."""
+        ins = self.stall_inspector
+        if not ins.enabled or ins.warning_time <= 0:
+            return
+        now = time.monotonic()
+        with self._inflight_lock:
+            if (not self._inflight_names or self._waiters > 0
+                    or now - self._last_poll_time < ins.warning_time):
+                return
+            oldest = min(self._inflight_names.values())
+            quiet = now - self._last_enqueue_time
+            names = sorted(self._inflight_names)
+        if (now - oldest < ins.warning_time or quiet < ins.warning_time
+                or now - self._lane_last_warn < ins.warning_time):
+            return
+        self._lane_last_warn = now
+        log.warning(
+            "Named collective ops have been in flight for %.1fs with no new "
+            "enqueues for %.1fs and no caller waiting on them. If this "
+            "process is running its own NCCL work (a model-parallel step, "
+            "a torch.distributed call of its own), that work and the "
+            "pending named ops may be interleaved in different orders "
+            "across ranks (a cross-rank hang with no error). Call "
+            "hvd.assert_collective_lane_clear() before dispatching your own "
+            "collectives. In-flight tensors: %s", now - oldest, quiet, names)
+
     def _run_loop(self) -> None:
         # the data plane records no autograd (grad mode is per thread): the
         # entries may be tensors that require grad, as a differentiable
@@ -470,6 +573,7 @@ class Runtime:
             if self._stop.is_set():
                 break
             last_start = time.monotonic()
+            self._check_lane_hazard()
             try:
                 keep_going = self.run_cycle()
             except Exception as exc:

@@ -54,6 +54,7 @@ setup(
     },
     entry_points={"console_scripts": [
         "tpurun = horovod_tpu.run.run:main",
+        "tpurun-torch = horovod_tpu_torch.run.run:main",
     ]},
     cmdclass={"build_py": BuildWithNative},
 )

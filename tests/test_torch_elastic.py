@@ -538,6 +538,56 @@ def test_hosts_updated_reforms_at_world1_without_rollback(
     assert os.environ["HOROVOD_COORDINATOR_ADDR"].startswith("127.0.0.1:")
 
 
+@pytest.mark.parametrize("interrupt", ["workers_down", "hosts_updated"])
+def test_a_peer_lost_in_the_reformed_sync_reforms_again(interrupt,
+                                                         monkeypatch):
+    """A ``WorkersDownError`` from the re-formed world's first sync (a peer
+    lost in its first broadcast) starts another re-form instead of leaving
+    ``run``: the function runs again, a hosts-updated re-form still rolls
+    nothing back, and the one incident's time holds both re-forms."""
+    reforms, incidents, calls = [], [], []
+
+    def fake_reform(min_workers, backoff):
+        time.sleep(0.05)
+        reforms.append(min_workers)
+        return [1] if len(reforms) == 1 else []
+
+    monkeypatch.setattr(runner, "_reform", fake_reform)
+    monkeypatch.setattr(runner, "start_heartbeat", lambda: None)
+    monkeypatch.setattr(
+        runner.goodput, "note_incident",
+        lambda kind, seconds, **kw: incidents.append((kind, seconds, kw)))
+
+    class FlakySyncState:
+        step, resets, syncs = 0, 0, 0
+
+        def on_reset(self):
+            self.resets += 1
+
+        def sync(self, root_rank=0):
+            self.syncs += 1
+            if self.syncs == 1:
+                raise exceptions.WorkersDownError("peer lost in the first "
+                                                  "broadcast", ranks=[2])
+
+    @runner.run
+    def train(state):
+        calls.append(state.syncs)
+        if len(calls) == 1:
+            if interrupt == "workers_down":
+                raise exceptions.WorkersDownError("rank 1 lost", ranks=[1])
+            raise exceptions.HostsUpdatedInterrupt("hosts changed")
+        return "done"
+
+    state = FlakySyncState()
+    assert train(state) == "done"
+    assert calls == [0, 2] and len(reforms) == 2
+    assert state.resets == (2 if interrupt == "workers_down" else 0)
+    [(kind, seconds, kw)] = incidents
+    assert kind == "elastic_reform" and seconds >= 0.1
+    assert kw["culprit_rank"] == 1
+
+
 # ---------------------------------------------------------------------------
 # stall inspector: the elastic verdict
 # ---------------------------------------------------------------------------

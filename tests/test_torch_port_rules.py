@@ -93,8 +93,8 @@ def _all_of(path: Path) -> list:
 
 
 # The reference's exports whose modules the port does not have yet, each
-# with the ROADMAP queue-A item that brings it.
-UNPORTED_EXPORTS = {"data": "A13"}
+# with the ROADMAP queue-A item that brings it: none is left.
+UNPORTED_EXPORTS = {}
 # Exports the port leaves out by decision: the device mesh and its axis
 # names (PyTorch has no device mesh of that kind), and the
 # single-controller stacked mode's ``stack_per_worker`` (one process a GPU
@@ -124,7 +124,7 @@ def test_reference_exports_resolve_in_the_port(init, module):
     stale = [n for n in theirs if hasattr(ours, n)
              and (n in UNPORTED_EXPORTS or n in DECIDED_OUT)]
     assert not stale, stale
-    assert UNPORTED_EXPORTS == {"data": "A13"}
+    assert UNPORTED_EXPORTS == {}
     assert not hasattr(hvd, "mesh")
     if module == "horovod_tpu_torch.models":
         assert ours.ResNet50 is ResNet50 and ours.BertLarge is BertLarge
@@ -879,7 +879,15 @@ def test_chip_smoke_cpu_rehearsal_prints_no_result(no_card):
                   "phase 16 kernel launches", "17a dense:", "17a paged:",
                   "17b dense: 8 requests", "17b paged: 8 requests",
                   "served tokens vs the teacher-forced uncached forward",
-                  "17b goodput:", "phase 17 kernel launches"):
+                  "17b goodput:", "phase 17 kernel launches",
+                  "18a: tpurun-torch -np 1 ran BERT-tiny MLM",
+                  "18a: each step's wait for its batch",
+                  "18a: losses bit-equal to the in-process run",
+                  "18a: --postmortem over the dumps",
+                  "18b: serve_kill_replica (tiny): ok=True",
+                  "suspected culprit: rank 2",
+                  "18b: the survivors' tokens vs the teacher-forced",
+                  "phase 18 kernel launches"):
         assert phase in out.stdout, phase
     assert "BERT-Large MLM" in out.stdout
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout

@@ -10,6 +10,13 @@ float32 tensors (one lock scope, a cycle started at once; with
 pair up step for step). Before the first and after the last step it takes
 its registry's ``flatten_snapshot``; the two snapshots of each side go to
 ``rank<r>.json``.
+
+Both sides run with ``HOROVOD_COMMS_DEGRADED_FRACTION=0``: the comms
+planes' degraded-link detectors compare each collective's bus bandwidth
+with the best seen so far, so on a loaded host a slow gloo call could move
+``horovod_comms_degraded_total`` on one side and not the other. The
+detector's crossings are held by the comms tests; here they would only
+make the moved families depend on the host's load.
 """
 
 import json
@@ -73,7 +80,8 @@ def main() -> None:
     os.environ.update(HOROVOD_RANK=rank, HOROVOD_SIZE=size,
                       HOROVOD_COORDINATOR_ADDR=f"file://{tmpdir}/store",
                       HOROVOD_CYCLE_TIME="60000",
-                      HOROVOD_FUSION_THRESHOLD="1024")
+                      HOROVOD_FUSION_THRESHOLD="1024",
+                      HOROVOD_COMMS_DEGRADED_FRACTION="0")
     out = {"port": _port(int(rank)), "jax": _jax(int(rank), int(port))}
     with open(os.path.join(tmpdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
